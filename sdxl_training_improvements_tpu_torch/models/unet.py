@@ -1,0 +1,201 @@
+"""SDXL UNet in PyTorch.
+
+Port of ``sdxl_training_improvements_tpu/models/unet.py``: the
+``UNetConfig`` topology and the ``SDXLUNet`` forward.  Activations are NCHW
+held as ``channels_last``; attention and the resblock GroupNorm+SiLU go to
+the hand-written kernels on the card.  Not ported here: remat (this slice
+runs no autograd) and the DeepCache split (``deep_cache``/``return_deep``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from sdxl_training_improvements_tpu_torch.models.layers import (
+    Downsample2D, GroupNormSiLU, ResnetBlock2D, TimestepEmbedding,
+    Transformer2DModel, Upsample2D, timestep_embedding)
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    """Architecture hyperparameters; ``sdxl()`` is SDXL-base."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280)
+    layers_per_block: int = 2
+    # transformer depth per stage; 0 = plain resnet stage
+    transformer_layers_per_block: Tuple[int, ...] = (0, 2, 10)
+    attention_head_dim: int = 64
+    cross_attention_dim: int = 2048
+    addition_time_embed_dim: int = 256
+    # pooled text (1280) + 6 time-ids * 256 = 2816 for SDXL
+    projection_class_embeddings_input_dim: int = 2816
+    num_time_ids: int = 6
+    # transformer depth of the mid block; None = the last stage's depth
+    mid_block_transformer_layers: Optional[int] = None
+    norm_num_groups: int = 32
+
+    @classmethod
+    def sdxl(cls, **kw) -> "UNetConfig":
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> "UNetConfig":
+        """CPU-testable miniature with the same topology."""
+        defaults = dict(
+            block_out_channels=(32, 64, 128),
+            layers_per_block=1,
+            transformer_layers_per_block=(0, 1, 1),
+            attention_head_dim=16,
+            cross_attention_dim=64,
+            addition_time_embed_dim=8,
+            projection_class_embeddings_input_dim=32 + 6 * 8,
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+    @property
+    def pooled_embed_dim(self) -> int:
+        return (self.projection_class_embeddings_input_dim
+                - self.num_time_ids * self.addition_time_embed_dim)
+
+    @property
+    def mid_depth(self) -> int:
+        if self.mid_block_transformer_layers is not None:
+            return self.mid_block_transformer_layers
+        return self.transformer_layers_per_block[-1]
+
+
+class _Block(nn.Module):
+    """A down, mid or up block: resnets, optional attentions and an
+    optional resampler, under diffusers' names."""
+
+    def __init__(self, resnets, attentions=None, downsample=None,
+                 upsample=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if attentions:
+            self.attentions = nn.ModuleList(attentions)
+        if downsample is not None:
+            self.downsamplers = nn.ModuleList([downsample])
+        if upsample is not None:
+            self.upsamplers = nn.ModuleList([upsample])
+
+
+class SDXLUNet(nn.Module):
+    def __init__(self, config: UNetConfig):
+        super().__init__()
+        cfg = self.config = config
+        b0, ted, g = cfg.block_out_channels[0], cfg.time_embed_dim, \
+            cfg.norm_num_groups
+
+        def resnet(cin, cout):
+            return ResnetBlock2D(cin, cout, ted, g)
+
+        def tfm(ch, depth):
+            return Transformer2DModel(ch, cfg.cross_attention_dim,
+                                      ch // cfg.attention_head_dim,
+                                      cfg.attention_head_dim, depth)
+
+        self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
+        self.time_embedding = TimestepEmbedding(b0, ted)
+        self.add_embedding = TimestepEmbedding(
+            cfg.projection_class_embeddings_input_dim, ted)
+
+        n = len(cfg.block_out_channels)
+        skips, prev = [b0], b0
+        self.down_blocks = nn.ModuleList()
+        for i, ch in enumerate(cfg.block_out_channels):
+            depth = cfg.transformer_layers_per_block[i]
+            resnets, attns = [], []
+            for j in range(cfg.layers_per_block):
+                resnets.append(resnet(prev if j == 0 else ch, ch))
+                if depth > 0:
+                    attns.append(tfm(ch, depth))
+                skips.append(ch)
+            down = Downsample2D(ch) if i < n - 1 else None
+            if down is not None:
+                skips.append(ch)
+            self.down_blocks.append(_Block(resnets, attns, downsample=down))
+            prev = ch
+
+        mid = cfg.block_out_channels[-1]
+        self.mid_block = _Block(
+            [resnet(mid, mid), resnet(mid, mid)],
+            [tfm(mid, cfg.mid_depth)] if cfg.mid_depth > 0 else None)
+
+        self.up_blocks = nn.ModuleList()
+        rev = list(reversed(cfg.block_out_channels))
+        rev_depth = list(reversed(cfg.transformer_layers_per_block))
+        for i, ch in enumerate(rev):
+            resnets, attns = [], []
+            for j in range(cfg.layers_per_block + 1):
+                resnets.append(resnet((prev if j == 0 else ch) + skips.pop(),
+                                      ch))
+                if rev_depth[i] > 0:
+                    attns.append(tfm(ch, rev_depth[i]))
+            up = Upsample2D(ch) if i < n - 1 else None
+            self.up_blocks.append(_Block(resnets, attns, upsample=up))
+            prev = ch
+
+        self.conv_norm_out = GroupNormSiLU(b0, g, 1e-5)
+        self.conv_out = nn.Conv2d(b0, cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample, timesteps, encoder_hidden_states, text_embeds,
+                time_ids):
+        """sample [B, C, H, W] latents; timesteps [B] (or a scalar);
+        encoder_hidden_states [B, 77, cross_attention_dim]; text_embeds
+        [B, pooled_dim]; time_ids [B, num_time_ids].  Returns the [B, C,
+        H, W] prediction in the weights' dtype."""
+        cfg = self.config
+        dt = self.conv_in.weight.dtype
+        x = sample.to(dt).contiguous(memory_format=torch.channels_last)
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(x.shape[0])
+
+        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
+        emb = self.time_embedding(t_emb.to(dt))
+        ids_emb = timestep_embedding(time_ids.reshape(-1),
+                                     cfg.addition_time_embed_dim)
+        add_in = torch.cat([text_embeds.float(),
+                            ids_emb.reshape(x.shape[0], -1)], dim=-1)
+        emb = emb + self.add_embedding(add_in.to(dt))
+        ctx = encoder_hidden_states.to(dt)
+
+        x = self.conv_in(x)
+        skips = [x]
+        for block in self.down_blocks:
+            attns = getattr(block, "attentions", None)
+            for j, res in enumerate(block.resnets):
+                x = res(x, emb)
+                if attns is not None:
+                    x = attns[j](x, ctx)
+                skips.append(x)
+            if hasattr(block, "downsamplers"):
+                x = block.downsamplers[0](x)
+                skips.append(x)
+
+        mid = self.mid_block
+        x = mid.resnets[0](x, emb)
+        if hasattr(mid, "attentions"):
+            x = mid.attentions[0](x, ctx)
+        x = mid.resnets[1](x, emb)
+
+        for block in self.up_blocks:
+            attns = getattr(block, "attentions", None)
+            for j, res in enumerate(block.resnets):
+                x = res(torch.cat([x, skips.pop()], dim=1), emb)
+                if attns is not None:
+                    x = attns[j](x, ctx)
+            if hasattr(block, "upsamplers"):
+                x = block.upsamplers[0](x)
+
+        return self.conv_out(self.conv_norm_out(x))
