@@ -6,13 +6,25 @@ Phases, each printing what it found:
 
 1. environment: the card's name and power limit, torch/CUDA/Triton/nvcc;
    fails at once when no CUDA device is present;
-2. build: compiles the CUDA kernel library and the Triton kernels;
-3. every kernel against its plain PyTorch version at the slice's shapes,
-   with max errors and median CUDA-event times of both;
+2. build: compiles the three CUDA sources (one ``nvcc`` each, all started
+   together) and the Triton kernels;
+3. every kernel against its plain PyTorch version at the main paths'
+   shapes, with max errors, median CUDA-event times and device times of
+   both, and the rate: GN+SiLU, the flash forward, the flash backward
+   (dq and dk/dv), the fused bf16-SR AdamW (``torch.equal`` to plain) and
+   the startup probe;
 4. the full-width SDXL-base UNet (bf16, weights from a seed) at 1024^2,
    batch 2, through the kernels and through the plain versions;
-5. the slice: ``SDXLModel.create`` at full width, ``SDXLPipeline.from_model``
-   and one text-to-image call at 1024x1024, with per-phase times.
+5. serving: ``SDXLPipeline.from_model`` and one text-to-image call at
+   1024x1024, with per-phase times and the kernels' launches;
+6. training: the default ``Config()`` (ddpm, v-prediction, batch 4 at
+   1024^2, adamw_bf16 with hash noise, remat "full") through
+   ``make_optimizer`` -> ``make_train_step`` -> ``create_train_state`` ->
+   3 steps on the full-width UNet, with the loss, grad norm, step-time
+   split, peak memory, one profiled step and the kernels' launches;
+7. training parity: one forward and backward at batch 1, 1024^2, through
+   the kernels and through the plain versions: loss and the relative L2
+   of all gradients.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -33,6 +45,8 @@ import torch
 
 SEED = 0
 STEPS = 8  # denoising steps of the measured text-to-image call
+DEVICE = "cuda"
+SIZE = 1024  # image side of the training phases; latents are SIZE // 8
 
 GN_SHAPES = (  # (shape, dtype, eps): UNet resnets bf16, VAE decoder fp32
     ((2, 16384, 320), torch.bfloat16, 1e-5),
@@ -51,10 +65,57 @@ FLASH_SHAPES = (  # (B, S, T, heads, D)
     (2, 1024, 77, 4, 32),
     (2, 1024, 77, 4, 128),
 )
+FLASH_BWD_SHAPES = (  # (B, S, T, heads, D): the b4 training step's sites
+    (4, 4096, 4096, 10, 64),
+    (4, 1024, 1024, 20, 64),
+    (4, 4096, 77, 10, 64),
+    (4, 256, 256, 4, 16),
+    (4, 1024, 77, 4, 32),
+    (4, 1024, 77, 4, 128),
+)
+ADAMW_SHAPES = (  # (leaf shape, channels_last, gradient dtype, decay fires)
+    ((1280, 1280), False, torch.float32, False),  # attention projection
+    ((10240, 1280), False, torch.float32, True),  # GEGLU input projection
+    ((640, 640, 3, 3), True, torch.float32, False),  # resnet convolution
+    ((1000003,), False, torch.float32, True),  # not a multiple of a block
+    ((1280,), False, torch.bfloat16, True),  # a bias, bf16 accumulator
+)
 GN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FLASH_OUT_TOL, FLASH_LSE_TOL = 2e-2, 1e-3
+# max abs error over the plain gradient's max magnitude: the kernels round
+# P and dS to bf16 for their products, the plain backward keeps fp32
+FLASH_BWD_TOL = 2e-2
 UNET_REL_L2_TOL = 3e-2
 SLICE_REL_L2_TOL = 1e-1  # 8 CFG-5 steps compound the UNet's bf16 spread
+TRAIN_STEPS = 3
+# b1 loss and all gradients, kernels against plain: measured 9.4e-4 and
+# 4.0e-3 on an H100 (the kernels' bf16 rounding of P and dS, the GN
+# kernel's fp32 interior against the plain bf16 one)
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GRAD_REL_L2_TOL = 2e-2
+PROMPTS = ("a photograph of an astronaut riding a horse",
+           "a watercolor painting of a lighthouse at dawn",
+           "a close-up of a red fox in the snow",
+           "an isometric illustration of a tiny city")
+# the wrappers of the main paths' kernels: route, source, TPU kernel
+SRC = "sdxl_training_improvements_tpu_torch/"
+TPU = "sdxl_training_improvements_tpu/ops/"
+KERNELS = {
+    "gn_silu_stats": ("triton", SRC + "ops/groupnorm.py",
+                      TPU + "groupnorm.py:148"),
+    "gn_silu_apply": ("triton", SRC + "ops/groupnorm.py",
+                      TPU + "groupnorm.py:161"),
+    "flash_fwd": ("cuda", SRC + "csrc/flash_fwd.cu",
+                  TPU + "flash_attention.py:49"),
+    "flash_bwd_dq": ("cuda", SRC + "csrc/flash_bwd.cu",
+                     TPU + "flash_attention.py:115"),
+    "flash_bwd_dkv": ("cuda", SRC + "csrc/flash_bwd.cu",
+                      TPU + "flash_attention.py:145"),
+    "fused_adamw": ("cuda", SRC + "csrc/fused_adamw.cu",
+                    TPU + "fused_adamw.py:53"),
+    "probe": ("triton", SRC + "ops/probe.py", TPU + "probe.py:106"),
+}
+SERVING_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_fwd")
 
 
 def log(msg: str) -> None:
@@ -128,16 +189,20 @@ def phase_build() -> None:
     from sdxl_training_improvements_tpu_torch.ops import _build
     from sdxl_training_improvements_tpu_torch.ops.groupnorm import (
         groupnorm_silu_cuda)
+    from sdxl_training_improvements_tpu_torch.ops.probe import probe_cuda
     t0 = time.perf_counter()
-    _build.load("flash_fwd")
+    _build.build_all(_build.KERNELS)
+    for name in _build.KERNELS:
+        _build.load(name)
     t1 = time.perf_counter()
     x = torch.randn(1, 64, 64, device="cuda")
     groupnorm_silu_cuda(x, torch.ones(64, device="cuda"),
                         torch.zeros(64, device="cuda"), 32)
+    probe_cuda(x)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    log(f"build: nvcc flash_fwd {t1 - t0:.2f} s, "
-        f"first Triton GN launch {t2 - t1:.2f} s")
+    log(f"build: nvcc {', '.join(_build.KERNELS)} in parallel "
+        f"{t1 - t0:.2f} s, first Triton GN + probe launches {t2 - t1:.2f} s")
 
 
 def _gn_case(shape, dtype, eps, gen):
@@ -220,12 +285,124 @@ def _flash_case(b, s, t, h, d, gen):
     return dict(err=max(err, lse_err), ms=ms, plain_ms=plain_ms)
 
 
-def phase_kernels():
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    gn = [_gn_case(shape, dt, eps, gen) for shape, dt, eps in GN_SHAPES]
-    flash = [_flash_case(*shape, gen) for shape in FLASH_SHAPES]
+def _flash_bwd_case(b, s, t, h, d, gen):
+    from sdxl_training_improvements_tpu_torch.ops import flash_attention as F
+    q, k, v, dout = (torch.randn((b, n, h, d), generator=gen, device="cuda"
+                                 ).to(torch.bfloat16) for n in (s, t, t, s))
+    out, lse = F.flash_attention_fwd_cuda(q, k, v)
+    scale = d ** -0.5
+    delta = F.flash_attention_bwd_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, scale)
+    got = (F.flash_bwd_dq_cuda(*args), *F.flash_bwd_dkv_cuda(*args))
+    ref = (F.flash_bwd_dq_reference(*args),
+           *F.flash_bwd_dkv_reference(*args))
+    err, rel = {}, {}
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err[name] = (a.float() - r.float()).abs().max().item()
+        rel[name] = err[name] / r.float().abs().max().item()
+    del got, ref
+    res = dict(err=err, rel=rel)
+    for name, kernel, plain in (
+            ("dq", F.flash_bwd_dq_cuda, F.flash_bwd_dq_reference),
+            ("dkv", F.flash_bwd_dkv_cuda, F.flash_bwd_dkv_reference)):
+        res[f"{name}_ms"] = time_ms(lambda: kernel(*args))
+        res[f"{name}_dev"] = device_ms(lambda: kernel(*args))
+        res[f"plain_{name}_ms"] = time_ms(lambda: plain(*args), warmup=1,
+                                          iters=2, repeats=3)
+        res[f"plain_{name}_dev"] = device_ms(lambda: plain(*args), iters=2)
     torch.cuda.empty_cache()
-    return gn, flash
+    work = b * h * s * t * d  # 6 flops per unit in dq, 8 in dk/dv
+    dq_tf = 6 * work / (res["dq_ms"] * 1e-3) / 1e12
+    dkv_tf = 8 * work / (res["dkv_ms"] * 1e-3) / 1e12
+    pair_tf = 14 * work / ((res["dq_ms"] + res["dkv_ms"]) * 1e-3) / 1e12
+    log(f"flash_bwd B={b} S={s} T={t} H={h} D={d}: max_abs_err dq "
+        f"{err['dq']:.3e} dk {err['dk']:.3e} dv {err['dv']:.3e}, over max "
+        f"|plain| {max(rel.values()):.3e} (tol {FLASH_BWD_TOL:g}); dq kernel "
+        f"{res['dq_ms']:.4f} ms ({dq_tf:.1f} TFLOP/s; device "
+        f"{fmt_ms(res['dq_dev'])}) vs plain {res['plain_dq_ms']:.4f} ms "
+        f"(device {fmt_ms(res['plain_dq_dev'])}); dkv kernel "
+        f"{res['dkv_ms']:.4f} ms ({dkv_tf:.1f} TFLOP/s; device "
+        f"{fmt_ms(res['dkv_dev'])}) vs plain {res['plain_dkv_ms']:.4f} ms "
+        f"(device {fmt_ms(res['plain_dkv_dev'])}); pair {pair_tf:.1f} "
+        f"TFLOP/s")
+    check(max(rel.values()) <= FLASH_BWD_TOL,
+          f"flash bwd {(b, s, t, h, d)}: {rel}")
+    return res
+
+
+def _adamw_case(shape, channels_last, g_dtype, fires, gen):
+    from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
+
+    def randn(scale):
+        x = scale * torch.randn(shape, generator=gen, device="cuda")
+        return (x.contiguous(memory_format=torch.channels_last)
+                if channels_last else x)
+
+    p, g, m = randn(0.05).bfloat16(), randn(1e-3).to(g_dtype), \
+        randn(1e-4).bfloat16()
+    v = (1e-8 * randn(1.0).square()).bfloat16()
+    shift = randn(1e-7).bfloat16()
+    kw = dict(lr_eff=1e-4 * (1 - 0.999 ** 3) ** 0.5,
+              decay_amt=5.02e-3 if fires else 0.0, seed0=0x9E3779B9,
+              seed1=0x7F4A7C15)
+    ref = O.fused_adamw_reference(p, g, m, v, shift, **kw)
+    got = O.fused_adamw_cuda(p, g, m.clone(), v.clone(), shift.clone(), **kw)
+    equal = {name: torch.equal(a, r) and a.stride() == r.stride()
+             for name, a, r in zip(("delta", "m", "v", "shift"), got, ref)}
+    err = max((a.float() - r.float()).abs().max().item()
+              for a, r in zip(got, ref))
+    state = [m.clone(), v.clone(), shift.clone()]
+    res = dict(
+        err=err, equal=all(equal.values()),
+        ms=time_ms(lambda: O.fused_adamw_cuda(p, g, *state, **kw)),
+        dev=device_ms(lambda: O.fused_adamw_cuda(p, g, *state, **kw)),
+        plain_ms=time_ms(lambda: O.fused_adamw_reference(
+            p, g, m, v, shift, **kw), warmup=1, iters=3, repeats=3),
+        plain_dev=device_ms(lambda: O.fused_adamw_reference(
+            p, g, m, v, shift, **kw), iters=3))
+    # bytes per parameter: p, m, v, shift (bf16) and g read; delta, m, v,
+    # shift (bf16) written
+    moved = 16 + g.element_size()
+    gbps = moved * p.numel() / (res["ms"] * 1e-3) / 1e9
+    plain_gbps = moved * p.numel() / (res["plain_ms"] * 1e-3) / 1e9
+    log(f"fused_adamw {list(shape)}{' channels_last' if channels_last else ''}"
+        f" g {str(g_dtype)[6:]} decay {'fires' if fires else 'off'}: "
+        f"torch.equal to plain {equal}, max_abs_err {err:.3e}; kernel "
+        f"{res['ms']:.4f} ms ({gbps:.1f} GB/s at {moved} B/param, "
+        f"{gbps / 3350:.3f} of 3.35 TB/s; device {fmt_ms(res['dev'])}) vs "
+        f"plain {res['plain_ms']:.4f} ms ({plain_gbps:.1f} GB/s; device "
+        f"{fmt_ms(res['plain_dev'])})")
+    check(res["equal"], f"fused_adamw {shape}: not equal to plain {equal}")
+    return res
+
+
+def _probe_case():
+    from sdxl_training_improvements_tpu_torch.ops import probe as P
+    res = P.run_probe()
+    x = torch.linspace(-1.0, 1.0, P.PROBE_SHAPE[0] * P.PROBE_SHAPE[1],
+                       device="cuda").reshape(P.PROBE_SHAPE)
+    res["dev"] = device_ms(lambda: P.probe_cuda(x))
+    res["plain_dev"] = device_ms(lambda: P.probe_reference(x))
+    log(f"probe {list(P.PROBE_SHAPE)} fp32 x*2+1: max_abs_err "
+        f"{res['max_abs_err']:.3e} (tol 0); kernel {res['ms']:.4f} ms "
+        f"({res['gbps']:.1f} GB/s; device {fmt_ms(res['dev'])}) vs plain "
+        f"{res['plain_ms']:.4f} ms ({res['plain_gbps']:.1f} GB/s; device "
+        f"{fmt_ms(res['plain_dev'])})")
+    check(res["max_abs_err"] == 0.0, f"probe error {res['max_abs_err']}")
+    return res
+
+
+def phase_kernels() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    res = dict(
+        gn=[_gn_case(shape, dt, eps, gen) for shape, dt, eps in GN_SHAPES],
+        flash=[_flash_case(*shape, gen) for shape in FLASH_SHAPES],
+        flash_bwd=[_flash_bwd_case(*shape, gen)
+                   for shape in FLASH_BWD_SHAPES],
+        adamw=[_adamw_case(*case, gen) for case in ADAMW_SHAPES],
+        probe=_probe_case())
+    torch.cuda.empty_cache()
+    return res
 
 
 def _plain_ops():
@@ -287,10 +464,12 @@ def phase_unet(model) -> dict:
 def _kernel_group(name: str) -> str:
     n = name.lower()
     for group, keys in (("flash_fwd (hand CUDA)", ("flash_fwd",)),
+                        ("flash_bwd (hand CUDA)", ("flash_bwd",)),
+                        ("fused_adamw (hand CUDA)", ("fused_adamw",)),
                         ("gn_silu (hand Triton)", ("stats_kernel",
                                                    "apply_kernel")),
                         ("convolution", ("conv", "fprop", "implicit",
-                                         "nhwc", "dgrad")),
+                                         "nhwc", "dgrad", "wgrad")),
                         ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
                         ("norm/softmax", ("norm", "softmax", "welford",
                                           "reduce")),
@@ -300,6 +479,26 @@ def _kernel_group(name: str) -> str:
         if any(k in n for k in keys):
             return group
     return "other"
+
+
+def _log_profile(prof, what: str, wall_ms: float) -> float:
+    """Log device busy time by kernel group and the idle share of a
+    profiled window of ``wall_ms``; returns the idle share."""
+    groups: dict = {}
+    launches = 0
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+        launches += e.count
+    busy = sum(groups.values())
+    idle = 1 - busy / wall_ms
+    log(f"{what} profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+        f"idle share {idle:.3f}, {launches} kernel launches")
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {g}: {ms:.2f} ms ({ms / busy:.3f})")
+    return idle
 
 
 def profile_unet_step(model) -> None:
@@ -321,20 +520,7 @@ def profile_unet_step(model) -> None:
             model.unet_apply(*args)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    groups: dict = {}
-    launches = 0
-    for e in prof.key_averages():
-        if e.self_device_time_total <= 0:
-            continue
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
-        launches += e.count
-    busy = sum(groups.values())
-    log(f"unet step profile (b2 1024^2): wall {wall_ms:.2f} ms, device "
-        f"busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
-        f"{launches} kernel launches")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"  {g}: {ms:.2f} ms ({ms / busy:.3f})")
+    _log_profile(prof, "unet step (b2 1024^2)", wall_ms)
 
 
 def _timed(fn, record):
@@ -348,12 +534,29 @@ def _timed(fn, record):
     return wrapper
 
 
-def _kernel_wrappers():
+def _kernel_wrappers() -> dict:
+    """Every kernel wrapper of the main paths, by the name it is reported
+    under; each counts its launches in ``.launches``."""
     from sdxl_training_improvements_tpu_torch.ops import flash_attention as F
+    from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
     from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
+    from sdxl_training_improvements_tpu_torch.ops import probe as P
     return {"gn_silu_stats": G.gn_silu_stats_cuda,
             "gn_silu_apply": G.gn_silu_apply_cuda,
-            "flash_fwd": F.flash_attention_fwd_cuda}
+            "flash_fwd": F.flash_attention_fwd_cuda,
+            "flash_bwd_dq": F.flash_bwd_dq_cuda,
+            "flash_bwd_dkv": F.flash_bwd_dkv_cuda,
+            "fused_adamw": O.fused_adamw_cuda,
+            "probe": P.probe_cuda}
+
+
+def _zero_launches(wrappers: dict) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _launches(wrappers: dict) -> dict:
+    return {k: w.launches for k, w in wrappers.items()}
 
 
 def phase_slice(model, size: int = 1024) -> dict:
@@ -367,9 +570,9 @@ def phase_slice(model, size: int = 1024) -> dict:
                            ("vae", "decode_latents")):
             stack.enter_context(mock.patch.object(
                 model, attr, _timed(getattr(model, attr), rec[name])))
-        wrappers = _kernel_wrappers()
-        for w in wrappers.values():
-            w.launches = 0
+        wrappers = {k: w for k, w in _kernel_wrappers().items()
+                    if k in SERVING_KERNELS}
+        _zero_launches(wrappers)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -378,7 +581,7 @@ def phase_slice(model, size: int = 1024) -> dict:
                       guidance_scale=5.0, seed=SEED)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = _launches(wrappers)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     latents = rec["vae"][0][1][0]
     img = images[0]
@@ -408,51 +611,227 @@ def phase_slice(model, size: int = 1024) -> dict:
     return launches
 
 
-def kernel_report(gn, flash, launches) -> dict:
-    gn_at, fl_at = 1, 0  # [2, 4096, 640] bf16; S=T=4096, 10 heads
-    src = "sdxl_training_improvements_tpu_torch/"
-    tpu = "sdxl_training_improvements_tpu/ops/"
+def _train_batch(model, n: int, gen) -> dict:
+    """A training batch of ``n`` samples at 1024^2, keyed as the JAX
+    trainer's (``methods/__init__.py``): prompt embeddings from the port's
+    dual CLIP on a few prompts, seeded latents in place of the VAE encode,
+    and SDXL time ids."""
+    from sdxl_training_improvements_tpu_torch.models.tokenizer import (
+        TokenizerPair)
+    tokenizers = TokenizerPair.fallback(vocab_size=model.clip_g.cfg.vocab_size)
+    ids_l, ids_g = tokenizers([PROMPTS[i % len(PROMPTS)] for i in range(n)])
+    with torch.no_grad():
+        enc = model.encode_prompt(
+            torch.as_tensor(ids_l, dtype=torch.int64, device=DEVICE),
+            torch.as_tensor(ids_g, dtype=torch.int64, device=DEVICE))
+    return {"vae_latents": torch.randn(n, 4, SIZE // 8, SIZE // 8,
+                                       generator=gen, device=DEVICE),
+            "prompt_embeds": enc["prompt_embeds"],
+            "pooled_prompt_embeds": enc["pooled_prompt_embeds"],
+            "time_ids": torch.tensor([[SIZE, SIZE, 0, 0, SIZE, SIZE]] * n,
+                                     dtype=torch.float32, device=DEVICE)}
+
+
+WATCHED = ("mid_block.attentions.0.transformer_blocks.0.attn1.to_q.weight",
+           "down_blocks.0.resnets.0.norm1.weight", "conv_norm_out.bias")
+
+
+def phase_train(model, cfg) -> dict:
+    """The training slice as the JAX entry drives it: ``make_optimizer`` ->
+    ``make_train_step`` -> ``create_train_state`` -> ``TRAIN_STEPS`` steps
+    at the default config; the last step runs under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdxl_training_improvements_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    from sdxl_training_improvements_tpu_torch.training.trainer import (
+        create_train_state, make_train_step)
+    t = cfg.training
+    n = t.batch_size * t.gradient_accumulation_steps
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    batch = _train_batch(model, n, gen)
+    wrappers = _kernel_wrappers()
+    _zero_launches(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    optimizer = make_optimizer(cfg)
+    step = make_train_step(model.unet_apply, NoiseSchedule.from_config(cfg),
+                           optimizer, cfg)
+    state = create_train_state(model.trainable_params(), optimizer,
+                               seed=t.seed)
+    torch.cuda.synchronize()
+    setup_launches = _launches(wrappers)
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"train setup: {len(state.params)} leaves, {n_params} parameters, "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms (startup probe "
+        f"{state.probe['ms']:.4f} ms, {state.probe['gbps']:.1f} GB/s); "
+        f"launches {setup_launches}")
+    watched = {k: state.params[k].detach().clone() for k in WATCHED}
+    steps = []
+    for i in range(TRAIN_STEPS):
+        before = _launches(wrappers)
+        events: dict = {}
+        profiled = i == TRAIN_STEPS - 1
+        with ExitStack() as stack:
+            if profiled:
+                prof = stack.enter_context(
+                    profile(activities=[ProfilerActivity.CUDA]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, events)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        row = dict(
+            loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(),
+            wall_ms=wall_ms,
+            fwd_bwd_ms=events["start"].elapsed_time(events["backward"]),
+            clip_ms=events["backward"].elapsed_time(events["clip"]),
+            opt_ms=events["clip"].elapsed_time(events["update"]),
+            launches={k: w.launches - before[k] for k, w in wrappers.items()})
+        steps.append(row)
+        log(f"train step {i + 1}{' (profiled)' if profiled else ''}: loss "
+            f"{row['loss']:.6f}, grad norm {row['grad_norm']:.6f}; "
+            f"{wall_ms:.2f} ms = forward+backward {row['fwd_bwd_ms']:.2f} + "
+            f"clip {row['clip_ms']:.2f} + optimizer {row['opt_ms']:.2f} ms "
+            f"(CUDA events); launches {row['launches']}")
+        if profiled:
+            row["idle"] = _log_profile(
+                prof, f"train step {i + 1} (b{n} {SIZE}^2)", wall_ms)
+        check(np.isfinite(row["loss"]), f"train step {i + 1} loss not finite")
+        check(np.isfinite(row["grad_norm"]), f"step {i + 1} grad norm")
+        for k in KERNELS:
+            if k != "probe":
+                check(row["launches"][k] > 0,
+                      f"kernel {k} was not launched in train step {i + 1}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    changed = {k: int((state.params[k].detach() != v).sum())
+               for k, v in watched.items()}
+    log(f"train: {TRAIN_STEPS} steps, batch {n} at {SIZE}^2, remat "
+        f"{model.unet_config.remat} ({model.unet_config.remat_policy}); "
+        f"peak memory {peak_gb:.2f} GiB; elements changed in watched "
+        f"leaves {changed}")
+    check(all(changed.values()), f"parameters did not change: {changed}")
+    check(setup_launches["probe"] > 0, "the startup probe did not launch")
+    launches = {k: setup_launches[k] + sum(r["launches"][k] for r in steps)
+                for k in wrappers}
+    log(f"train kernel launches (setup + {TRAIN_STEPS} steps): {launches}")
+    del state, watched
+    torch.cuda.empty_cache()
+    return dict(steps=steps, peak_gb=peak_gb, launches=launches)
+
+
+def phase_train_parity(model, cfg) -> dict:
+    """One forward and backward at batch 1, 1024^2, with replayed noise
+    and timestep, through the kernels and through the plain versions:
+    the loss and the relative L2 of all gradients together."""
+    from sdxl_training_improvements_tpu_torch.training.methods import (
+        get_method)
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    batch = _train_batch(model, 1, gen)
+    batch["noise"] = torch.randn(1, 4, SIZE // 8, SIZE // 8, generator=gen,
+                                 device=DEVICE)
+    batch["timesteps"] = torch.tensor([500], device=DEVICE)
+    loss_fn = get_method(cfg.training.method)
+    schedule = NoiseSchedule.from_config(cfg)
+    params = list(model.unet.parameters())
+
+    def loss_and_grads():
+        """(loss, gradients, ms of the second of two calls): the first
+        call at a new batch size pays allocator growth and Triton's
+        re-specialisation."""
+        for _ in range(2):
+            grads = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(model.unet_apply, batch, None, schedule,
+                              cfg.model)
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+        return loss.item(), grads, (time.perf_counter() - t0) * 1e3
+
+    loss, grads, ms = loss_and_grads()
+    with _plain_ops():
+        plain_loss, plain_grads, plain_ms = loss_and_grads()
+    num = sum((a.float() - b.float()).square().sum()
+              for a, b in zip(grads, plain_grads))
+    den = sum(b.float().square().sum() for b in plain_grads)
+    rel = (num / den).sqrt().item()
+    loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f"train parity (b1 {SIZE}^2, t=500): loss kernels {loss:.6f} vs plain "
+        f"{plain_loss:.6f}, rel {loss_rel:.3e} (tol {TRAIN_LOSS_REL_TOL:g}); "
+        f"all {len(grads)} gradients rel L2 {rel:.3e} (tol "
+        f"{TRAIN_GRAD_REL_L2_TOL:g}), finite {finite}; warm forward+backward "
+        f"{ms:.2f} ms vs plain {plain_ms:.2f} ms")
+    check(finite, "train parity: a gradient is not finite")
+    check(loss_rel <= TRAIN_LOSS_REL_TOL, f"train parity loss {loss_rel}")
+    check(rel <= TRAIN_GRAD_REL_L2_TOL, f"train parity gradients {rel}")
+    del grads, plain_grads
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel_l2=rel, ms=ms, plain_ms=plain_ms)
+
+
+def kernel_report(k: dict, launches: dict) -> dict:
+    """One entry per kernel wrapper: errors over all of phase 3's shapes,
+    times at the shape named in ``at``, launches on the training path."""
+    gn, fl, bwd, adamw = k["gn"][1], k["flash"][0], k["flash_bwd"][0], \
+        k["adamw"][1]
+    measured = {
+        "gn_silu_stats": (max(r["stats_err"] for r in k["gn"]),
+                          gn["stats_ms"], gn["plain_stats_ms"],
+                          "[2, 4096, 640] bf16"),
+        "gn_silu_apply": (max(r["err"] for r in k["gn"]), gn["apply_ms"],
+                          gn["plain_apply_ms"], "[2, 4096, 640] bf16"),
+        "flash_fwd": (max(r["err"] for r in k["flash"]), fl["ms"],
+                      fl["plain_ms"], "B=2 S=T=4096 H=10 D=64"),
+        "flash_bwd_dq": (max(r["err"]["dq"] for r in k["flash_bwd"]),
+                         bwd["dq_ms"], bwd["plain_dq_ms"],
+                         "B=4 S=T=4096 H=10 D=64"),
+        "flash_bwd_dkv": (max(max(r["err"]["dk"], r["err"]["dv"])
+                              for r in k["flash_bwd"]),
+                          bwd["dkv_ms"], bwd["plain_dkv_ms"],
+                          "B=4 S=T=4096 H=10 D=64"),
+        "fused_adamw": (max(r["err"] for r in k["adamw"]), adamw["ms"],
+                        adamw["plain_ms"], "[10240, 1280] bf16, fp32 g"),
+        "probe": (k["probe"]["max_abs_err"], k["probe"]["ms"],
+                  k["probe"]["plain_ms"], "[4096, 4096] fp32"),
+    }
     return {"kernels": [
-        {"name": "gn_silu_stats", "route": "triton",
-         "source": src + "ops/groupnorm.py",
-         "replaces": tpu + "groupnorm.py:148", "launches":
-             launches["gn_silu_stats"],
-         "max_abs_err": max(r["stats_err"] for r in gn),
-         "ms": gn[gn_at]["stats_ms"], "plain_ms": gn[gn_at]["plain_stats_ms"],
-         "at": "[2, 4096, 640] bf16"},
-        {"name": "gn_silu_apply", "route": "triton",
-         "source": src + "ops/groupnorm.py",
-         "replaces": tpu + "groupnorm.py:161", "launches":
-             launches["gn_silu_apply"],
-         "max_abs_err": max(r["err"] for r in gn),
-         "ms": gn[gn_at]["apply_ms"], "plain_ms": gn[gn_at]["plain_apply_ms"],
-         "at": "[2, 4096, 640] bf16"},
-        {"name": "flash_fwd", "route": "cuda",
-         "source": src + "csrc/flash_fwd.cu",
-         "replaces": tpu + "flash_attention.py:49", "launches":
-             launches["flash_fwd"],
-         "max_abs_err": max(r["err"] for r in flash),
-         "ms": flash[fl_at]["ms"], "plain_ms": flash[fl_at]["plain_ms"],
-         "at": "B=2 S=T=4096 H=10 D=64"},
-    ]}
+        {"name": name, "route": route, "source": source, "replaces": tpu,
+         "launches": launches[name], "max_abs_err": measured[name][0],
+         "ms": measured[name][1], "plain_ms": measured[name][2],
+         "at": measured[name][3]}
+        for name, (route, source, tpu) in KERNELS.items()]}
 
 
 def main() -> None:
     phase_environment()
     phase_build()
-    gn, flash = phase_kernels()
+    kernels = phase_kernels()
+    from sdxl_training_improvements_tpu_torch.config import Config
     from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
+    from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
+    cfg = Config()
     t0 = time.perf_counter()
     model = SDXLModel.create(
         tiny=False, dtype=torch.bfloat16, device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(SEED))
+        generator=torch.Generator(device="cuda").manual_seed(SEED),
+        unet_config=UNetConfig.sdxl(remat=cfg.tpu.remat,
+                                    remat_policy=cfg.tpu.remat_policy))
     torch.cuda.synchronize()
     log(f"SDXLModel.create full width on cuda: "
         f"{time.perf_counter() - t0:.2f} s")
     phase_unet(model)
-    launches = phase_slice(model)
+    phase_slice(model)
     profile_unet_step(model)
-    log(json.dumps(kernel_report(gn, flash, launches)))
+    train = phase_train(model, cfg)
+    phase_train_parity(model, cfg)
+    log(json.dumps(kernel_report(kernels, train["launches"])))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

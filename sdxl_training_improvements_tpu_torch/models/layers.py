@@ -23,7 +23,8 @@ from torch import nn
 from sdxl_training_improvements_tpu_torch.ops.attention import (
     dot_product_attention)
 from sdxl_training_improvements_tpu_torch.ops.groupnorm import (
-    group_norm_f32, groupnorm_silu)
+    group_norm_bf16, group_norm_f32, groupnorm_silu, norm_arith_bf16_enabled,
+    normalize_bf16)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -58,9 +59,13 @@ class TimestepEmbedding(nn.Module):
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over channels-last [B, ..., C]: fp32 statistics and
-    interior, output in the input dtype.  Plain everywhere: the JAX
-    package runs this norm outside its Pallas kernel too."""
+    """GroupNorm over channels-last [B, ..., C]: fp32 statistics, output in
+    the input dtype.  The interior is fp32, or bf16 for a bf16 input under
+    ``norm_arith_bf16`` (the remat policy, JAX ``layers.py:65-106``).
+    Plain everywhere: the JAX package runs this norm outside its Pallas
+    kernel too."""
+    if x.dtype == torch.bfloat16 and norm_arith_bf16_enabled():
+        return group_norm_bf16(x, scale, bias, num_groups, eps)
     return group_norm_f32(x, scale, bias, num_groups, eps).to(x.dtype)
 
 
@@ -172,7 +177,9 @@ class FeedForward(nn.Module):
 
 class LayerNormF32(nn.Module):
     """LayerNorm with fp32 parameters and statistics, output in the input
-    dtype."""
+    dtype.  Same interior policy as ``group_norm``: bf16 inputs under
+    ``norm_arith_bf16`` normalize in bf16 after single-pass fp32
+    statistics."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -181,6 +188,9 @@ class LayerNormF32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
+        if x.dtype == torch.bfloat16 and norm_arith_bf16_enabled():
+            return (normalize_bf16(x, (-1,), self.eps)
+                    * self.weight.to(x.dtype) + self.bias.to(x.dtype))
         return F.layer_norm(x.float(), self.weight.shape, self.weight,
                             self.bias, self.eps).to(x.dtype)
 

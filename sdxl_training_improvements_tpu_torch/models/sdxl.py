@@ -3,13 +3,15 @@
 Port of ``sdxl_training_improvements_tpu/models/sdxl.py``: ``create`` with
 seeded weights for all four components, ``unet_apply``, ``encode_prompt``
 (dual CLIP -> prompt_embeds [B, 77, 2048] + pooled [B, 1280]) and
-``decode_latents``.  Dtypes follow the JAX package: UNet and CLIP weights
-in ``dtype`` (bf16 by default), norms' parameters fp32, the VAE fp32.
+``decode_latents``, and ``trainable_params`` (the UNet's parameters: the
+training slice trains the UNet only, as JAX does).  Dtypes follow the JAX
+package: UNet and CLIP weights in ``dtype`` (bf16 by default), norms'
+parameters fp32, the VAE fp32.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -69,11 +71,12 @@ class SDXLModel:
 
     @classmethod
     def create(cls, *, tiny: bool = False, dtype=torch.bfloat16,
-               device="cpu", generator: Optional[torch.Generator] = None
-               ) -> "SDXLModel":
+               device="cpu", generator: Optional[torch.Generator] = None,
+               unet_config: Optional[UNetConfig] = None) -> "SDXLModel":
         """Bundle with weights drawn from ``generator`` (a CPU generator
         seeded with 0 when None).  ``tiny`` builds the CPU-testable
-        miniature; otherwise full SDXL-base width."""
+        miniature; otherwise full SDXL-base width.  ``unet_config``
+        overrides the UNet's (e.g. its remat settings)."""
         if tiny:
             ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
             lcfg = CLIPTextConfig.tiny()
@@ -81,6 +84,8 @@ class SDXLModel:
         else:
             ucfg, vcfg = UNetConfig.sdxl(), VAEConfig.sdxl()
             lcfg, gcfg = CLIPTextConfig.clip_l(), CLIPTextConfig.clip_g()
+        if unet_config is not None:
+            ucfg = unet_config
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         # fp32 products in full fp32: the VAE runs fp32 for accuracy, and
@@ -136,3 +141,8 @@ class SDXLModel:
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents [B, 4, h, w] -> fp32 pixels [B, 3, 8h, 8w]."""
         return self.vae.decode(latents)
+
+    def trainable_params(self) -> Dict[str, torch.nn.Parameter]:
+        """The UNet's parameters by name: UNet-only training, as the JAX
+        package's ``trainable_params``."""
+        return dict(self.unet.named_parameters())

@@ -3,8 +3,16 @@
 Port of ``sdxl_training_improvements_tpu/models/unet.py``: the
 ``UNetConfig`` topology and the ``SDXLUNet`` forward.  Activations are NCHW
 held as ``channels_last``; attention and the resblock GroupNorm+SiLU go to
-the hand-written kernels on the card.  Not ported here: remat (this slice
-runs no autograd) and the DeepCache split (``deep_cache``/``return_deep``).
+the hand-written kernels on the card, forward and backward.
+
+Remat: with ``remat`` (and a gradient being recorded) every resnet and
+transformer block runs under ``torch.utils.checkpoint`` (non-reentrant), so
+only block inputs are saved and the backward recomputes each block: JAX's
+``nn.remat`` with the "full" policy.  The selective policies (``dots*``)
+are not ported.  ``norm_bf16_arith`` (None: the value of ``remat``) sets
+``ops.groupnorm.norm_arith_bf16`` for the forward and for every
+recomputation, as JAX's ``SDXLUNet.__call__`` sets it for its trace.
+Not ported here: the DeepCache split (``deep_cache``/``return_deep``).
 """
 from __future__ import annotations
 
@@ -13,10 +21,13 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sdxl_training_improvements_tpu_torch.models.layers import (
     Downsample2D, GroupNormSiLU, ResnetBlock2D, TimestepEmbedding,
     Transformer2DModel, Upsample2D, timestep_embedding)
+from sdxl_training_improvements_tpu_torch.ops.groupnorm import (
+    norm_arith_bf16)
 
 
 @dataclass(frozen=True)
@@ -38,6 +49,19 @@ class UNetConfig:
     # transformer depth of the mid block; None = the last stage's depth
     mid_block_transformer_layers: Optional[int] = None
     norm_num_groups: int = 32
+    # recompute each resnet/transformer block in the backward
+    remat: bool = True
+    # only "full" is ported; the JAX package's selective dots* policies
+    # are in ROADMAP queue 1
+    remat_policy: str = "full"
+    # bf16 norm interior; None = on iff remat (JAX unet.py:519-522)
+    norm_bf16_arith: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.remat and self.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} is not ported; only "
+                "'full' (ROADMAP queue 1, the selective remat policies)")
 
     @classmethod
     def sdxl(cls, **kw) -> "UNetConfig":
@@ -54,6 +78,7 @@ class UNetConfig:
             cross_attention_dim=64,
             addition_time_embed_dim=8,
             projection_class_embeddings_input_dim=32 + 6 * 8,
+            remat=False,
         )
         defaults.update(kw)
         return cls(**defaults)
@@ -72,6 +97,12 @@ class UNetConfig:
         if self.mid_block_transformer_layers is not None:
             return self.mid_block_transformer_layers
         return self.transformer_layers_per_block[-1]
+
+    @property
+    def norm_bf16(self) -> bool:
+        """Whether the plain norms keep a bf16 interior for bf16 inputs."""
+        return (self.remat if self.norm_bf16_arith is None
+                else self.norm_bf16_arith)
 
 
 class _Block(nn.Module):
@@ -149,12 +180,32 @@ class SDXLUNet(nn.Module):
         self.conv_norm_out = GroupNormSiLU(b0, g, 1e-5)
         self.conv_out = nn.Conv2d(b0, cfg.out_channels, 3, padding=1)
 
+    def _block(self, block, *args):
+        """Run one resnet or transformer block, under the full remat
+        policy when a gradient is being recorded."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(self._recomputable, block, *args,
+                              use_reentrant=False)
+        return block(*args)
+
+    def _recomputable(self, block, *args):
+        # the recomputation runs in the backward, outside forward()'s
+        # context (on the card, on autograd's own thread): set it again
+        with norm_arith_bf16(self.config.norm_bf16):
+            return block(*args)
+
     def forward(self, sample, timesteps, encoder_hidden_states, text_embeds,
                 time_ids):
         """sample [B, C, H, W] latents; timesteps [B] (or a scalar);
         encoder_hidden_states [B, 77, cross_attention_dim]; text_embeds
         [B, pooled_dim]; time_ids [B, num_time_ids].  Returns the [B, C,
         H, W] prediction in the weights' dtype."""
+        with norm_arith_bf16(self.config.norm_bf16):
+            return self._forward(sample, timesteps, encoder_hidden_states,
+                                 text_embeds, time_ids)
+
+    def _forward(self, sample, timesteps, encoder_hidden_states, text_embeds,
+                 time_ids):
         cfg = self.config
         dt = self.conv_in.weight.dtype
         x = sample.to(dt).contiguous(memory_format=torch.channels_last)
@@ -175,26 +226,26 @@ class SDXLUNet(nn.Module):
         for block in self.down_blocks:
             attns = getattr(block, "attentions", None)
             for j, res in enumerate(block.resnets):
-                x = res(x, emb)
+                x = self._block(res, x, emb)
                 if attns is not None:
-                    x = attns[j](x, ctx)
+                    x = self._block(attns[j], x, ctx)
                 skips.append(x)
             if hasattr(block, "downsamplers"):
                 x = block.downsamplers[0](x)
                 skips.append(x)
 
         mid = self.mid_block
-        x = mid.resnets[0](x, emb)
+        x = self._block(mid.resnets[0], x, emb)
         if hasattr(mid, "attentions"):
-            x = mid.attentions[0](x, ctx)
-        x = mid.resnets[1](x, emb)
+            x = self._block(mid.attentions[0], x, ctx)
+        x = self._block(mid.resnets[1], x, emb)
 
         for block in self.up_blocks:
             attns = getattr(block, "attentions", None)
             for j, res in enumerate(block.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=1), emb)
+                x = self._block(res, torch.cat([x, skips.pop()], dim=1), emb)
                 if attns is not None:
-                    x = attns[j](x, ctx)
+                    x = self._block(attns[j], x, ctx)
             if hasattr(block, "upsamplers"):
                 x = block.upsamplers[0](x)
 

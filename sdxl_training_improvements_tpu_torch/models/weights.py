@@ -1,4 +1,4 @@
-"""Parameters of the JAX package -> the port's ``state_dict``.
+"""Parameters and optimizer state of the JAX package -> the port's.
 
 Reproduces the key mapping of ``sdxl_training_improvements_tpu/models/
 weights.py`` (``_flax_seg_to_hf``, ``_leaf_to_hf``, ``_clip_flax_to_hf``)
@@ -9,12 +9,16 @@ key names, so ``load_state_dict(..., strict=True)`` takes the result.
 * Linear ``kernel`` [in, out] -> ``weight`` [out, in]
 * Conv ``kernel`` HWIO -> ``weight`` OIHW
 * Norm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``
+
+A gradient tree maps the same way.  ``from_jax_opt_state`` maps the JAX
+``AdamWBF16State`` (per-leaf layout) onto the port's optimizer state, so
+both optimizers can start from the same state.
 """
 from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,3 +93,31 @@ def from_jax_params(tree, clip: bool = False) -> Dict[str, torch.Tensor]:
         key, t = _leaf(path, value)
         out[_clip_key(key) if clip else key] = t
     return out
+
+
+def from_jax_opt_state(state, like: Optional[Mapping[str, torch.Tensor]] = None,
+                       generator: Optional[torch.Generator] = None):
+    """JAX ``AdamWBF16State`` (per-leaf layout; its trees as numpy arrays)
+    -> the port's ``AdamWBF16State``: the moments and shift through the
+    parameters' key and layout mapping, ``accumulated_decay`` per key as
+    0-d fp32 tensors, and ``step``.  ``like`` (the port's parameters by
+    name) gives each state tensor its parameter's device and strides, as
+    the port's ``init`` lays it out.  ``generator`` (a CPU generator,
+    seeded with 0 when None) draws the port's next per-leaf seeds."""
+    from sdxl_training_improvements_tpu_torch.training.optimizers import (
+        AdamWBF16State)
+
+    def tree(t):
+        out = from_jax_params(t)
+        if like is None:
+            return out
+        return {k: torch.empty_like(like[k], dtype=v.dtype).copy_(v)
+                for k, v in out.items()}
+
+    acc = {k: v.float().reshape(()) for k, v in
+           from_jax_params(state.accumulated_decay).items()}
+    return AdamWBF16State(
+        step=int(np.asarray(state.step)), exp_avg=tree(state.exp_avg),
+        exp_avg_sq=tree(state.exp_avg_sq), shift=tree(state.shift),
+        accumulated_decay=acc,
+        generator=generator or torch.Generator().manual_seed(0))

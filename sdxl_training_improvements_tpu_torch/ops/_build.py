@@ -15,12 +15,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# per-source flags: the optimizer must not contract a*b+c into an FMA
+EXTRA_FLAGS = {"fused_adamw": ("--fmad=false",)}
+KERNELS = ("flash_fwd", "flash_bwd", "fused_adamw")
 
 
 def nvcc_path() -> str:
@@ -33,23 +37,43 @@ def nvcc_path() -> str:
     raise FileNotFoundError("nvcc not found on PATH or under CUDA_HOME")
 
 
+def _target(name: str):
+    """(source, flags, library path) of ``csrc/<name>.cu``."""
+    src = CSRC / f"{name}.cu"
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                            ).hexdigest()[:16]
+    return src, flags, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_all(names, verbose: bool = False) -> Dict[str, Path]:
+    """Compile every stale ``csrc/<name>.cu`` at once, one ``nvcc`` process
+    per source, all started together.  ``verbose`` adds ``-Xptxas -v`` and
+    prints what it reports (registers, shared memory, spills)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for name in names:
+        src, flags, lib = _target(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *flags, *(("-Xptxas", "-v") if verbose else ()),
+               "-o", str(tmp), str(src)]
+        running.append((src, tmp, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for src, tmp, lib, proc in running:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{out}\n{err}")
+        if verbose:
+            print(f"nvcc {src.name}:\n{err.strip()}", flush=True)
+        os.replace(tmp, lib)
+    return {name: _target(name)[2] for name in names}
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,8 +1,10 @@
 """Attention dispatch for the UNet.
 
 Port of ``sdxl_training_improvements_tpu/ops/attention.py``.  On the card
-the hand-written flash kernel is the UNet's attention at every ``attn1`` /
-``attn2`` site; on the CPU the plain path runs.  The JAX module's
+the hand-written flash kernels are the UNet's attention at every ``attn1``
+/ ``attn2`` site, forward and backward (``ops/flash_attention.py::
+FlashAttention``); on the CPU the plain path runs, differentiable by
+autograd.  The JAX module's
 ``chunked`` path (a bounded-memory XLA workaround) has no port: the flash
 kernel never materialises the scores.
 
@@ -15,7 +17,7 @@ from typing import Optional
 import torch
 
 from sdxl_training_improvements_tpu_torch.ops.flash_attention import (
-    flash_attention_fwd_cuda)
+    flash_attention)
 
 
 def dot_product_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -32,9 +34,10 @@ def dot_product_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
-    """The flash kernel for CUDA tensors, the plain path for CPU tensors."""
+    """The flash kernels for CUDA tensors, the plain path for CPU
+    tensors; both carry the gradient."""
     if q.device.type == "cpu":
         return dot_product_attention_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"dot_product_attention: no kernel for {q.device}")
-    return flash_attention_fwd_cuda(q, k, v)[0]
+    return flash_attention(q, k, v)

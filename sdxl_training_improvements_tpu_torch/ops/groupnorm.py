@@ -9,8 +9,16 @@ Port of ``sdxl_training_improvements_tpu/ops/groupnorm.py``:
   that replace all three Pallas kernels of the JAX module:
   ``_gn_silu_kernel`` (single-block, ``groupnorm.py:110``),
   ``_gn_stats_kernel`` (``:148``) and ``_gn_apply_kernel`` (``:161``).
+* ``GroupNormSiLU`` — the ``torch.autograd.Function`` around the kernels:
+  the forward launches them, the backward recomputes the plain version
+  and takes its VJP, as JAX's ``_fused_bwd`` does (there is no Pallas
+  backward kernel).
 * ``groupnorm_silu`` — the dispatcher: a CPU tensor goes to the plain
-  version, a CUDA tensor to the kernels.
+  version, differentiable by autograd; a CUDA tensor to the Function.
+* ``norm_arith_bf16`` — the trace-time switch of the JAX module: with it
+  on, a bf16 input keeps the normalize/affine arithmetic in bf16 in the
+  plain versions (here and in ``models/layers.py``); the UNet sets it from
+  its config (on iff remat).
 
 Design.  The TPU split into a single-block kernel and a chunked two-pass
 pair exists only because one image's tile has to fit VMEM.  On Hopper one
@@ -37,9 +45,29 @@ Pallas kernel's does (it ignores the JAX remat-gated bf16 interior).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import torch
+
+_NORM_ARITH_BF16 = contextvars.ContextVar("sdxl_norm_arith_bf16",
+                                          default=False)
+
+
+def norm_arith_bf16_enabled() -> bool:
+    return _NORM_ARITH_BF16.get()
+
+
+@contextlib.contextmanager
+def norm_arith_bf16(enabled: bool):
+    """Within the block, bf16 inputs keep the plain norms' normalize/affine
+    arithmetic in bf16 (fp32 statistics either way)."""
+    tok = _NORM_ARITH_BF16.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _NORM_ARITH_BF16.reset(tok)
 
 
 def group_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -53,10 +81,37 @@ def group_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y * scale.float() + bias.float()
 
 
+def normalize_bf16(x: torch.Tensor, dims, eps: float) -> torch.Tensor:
+    """The ``norm_arith_bf16`` interior of JAX's norms: fp32 single-pass
+    statistics over ``dims`` (E[x^2] - E[x]^2), then (x - mean) * rstd in
+    x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=dims, keepdim=True)
+    var = torch.clamp(x32.square().mean(dim=dims, keepdim=True)
+                      - mean.square(), min=0.0)
+    return (x - mean.to(x.dtype)) * torch.rsqrt(var + eps).to(x.dtype)
+
+
+def group_norm_bf16(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, num_groups: int = 32,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """The ``norm_arith_bf16`` branch of JAX ``group_norm``: fp32
+    single-pass statistics, normalize and affine in the input dtype."""
+    b, c = x.shape[0], x.shape[-1]
+    xg = x.reshape(b, -1, num_groups, c // num_groups)
+    xhat = normalize_bf16(xg, (1, 3), eps).reshape(x.shape)
+    return xhat * scale.to(x.dtype) + bias.to(x.dtype)
+
+
 def groupnorm_silu_reference(x: torch.Tensor, scale: torch.Tensor,
                              bias: torch.Tensor, num_groups: int = 32,
                              eps: float = 1e-5) -> torch.Tensor:
-    """silu(groupnorm(x) * scale + bias) on channels-last [B, ..., C]."""
+    """silu(groupnorm(x) * scale + bias) on channels-last [B, ..., C]:
+    fp32 interior, or the bf16 one for a bf16 input under
+    ``norm_arith_bf16``."""
+    if x.dtype == torch.bfloat16 and norm_arith_bf16_enabled():
+        y = group_norm_bf16(x, scale, bias, num_groups, eps)
+        return y * torch.sigmoid(y)
     y = group_norm_f32(x, scale, bias, num_groups, eps)
     return (y * torch.sigmoid(y)).to(x.dtype)
 
@@ -228,14 +283,38 @@ def groupnorm_silu_cuda(x3, scale, bias, num_groups: int = 32,
                               num_groups, eps)
 
 
+class GroupNormSiLU(torch.autograd.Function):
+    """Forward through the kernels on [B, S, C]; backward through the VJP
+    of the plain version with its fp32 interior, recomputed from the saved
+    (x, scale, bias) as JAX ``_fused_bwd`` does.  ``groupnorm_silu_cuda``
+    is looked up at call time, so a test can put the plain version in its
+    place."""
+
+    @staticmethod
+    def forward(ctx, x3, scale, bias, num_groups, eps):
+        ctx.save_for_backward(x3, scale, bias)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return groupnorm_silu_cuda(x3, scale, bias, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, scale, bias = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_() for t in (x3, scale, bias)]
+        with torch.enable_grad(), norm_arith_bf16(False):
+            y = groupnorm_silu_reference(*leaves, ctx.num_groups, ctx.eps)
+        dx, dscale, dbias = torch.autograd.grad(y, leaves, dy)
+        return dx, dscale, dbias, None, None
+
+
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """Dispatcher over channels-last [B, ..., C]: the plain version for a
-    CPU tensor, the Triton kernels for a CUDA tensor."""
+    CPU tensor, the Triton kernels (through ``GroupNormSiLU``) for a CUDA
+    tensor; both carry the gradient."""
     if x.device.type == "cpu":
         return groupnorm_silu_reference(x, scale, bias, num_groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm_silu: no kernel for {x.device}")
     x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-    return groupnorm_silu_cuda(x3, scale, bias, num_groups,
+    return GroupNormSiLU.apply(x3, scale, bias, num_groups,
                                eps).reshape(x.shape)

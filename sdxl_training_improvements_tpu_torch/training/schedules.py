@@ -1,18 +1,22 @@
-"""Noise schedule and the ZTSNR Karras-Euler sampler, in PyTorch.
+"""Noise schedule, training numerics and the ZTSNR Karras-Euler sampler,
+in PyTorch.
 
-Port of the sampling half of ``sdxl_training_improvements_tpu/training/
-schedules.py``: the Karras sigma ramp with the ZTSNR sigma_max of 20000,
-the boundary scalings c_skip/c_out/c_in, the ``NoiseSchedule`` table the
-sampler reads, the denoiser composition per prediction type, and
-``sample_ztsnr`` as a Python loop over sigma pairs.  The training-side
-operations (noising, targets, MinSNR, timestep sampling) come with the
-training port.
+Port of ``sdxl_training_improvements_tpu/training/schedules.py``: the
+Karras sigma ramp with the ZTSNR sigma_max of 20000, the boundary scalings
+c_skip/c_out/c_in, the ``NoiseSchedule`` table; its training operations
+(noising with the ZTSNR clamp, the reference's velocity (eps - x)/sigma,
+SNR and MinSNR, timestep sampling), the flow-matching numerics
+(logit-normal times, the OT path and its target), timestep-bias weights
+and SDXL time ids; and the sampler: the denoiser composition per
+prediction type and ``sample_ztsnr`` as a Python loop over sigma pairs.
+Random draws take an explicit ``torch.Generator``; the schedule table
+stays on the CPU and is moved to the timesteps' device when indexed.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -62,6 +66,131 @@ class NoiseSchedule:
                    num_timesteps=num_timesteps, sigma_data=sigma_data,
                    use_ztsnr=use_ztsnr, prediction_type=prediction_type,
                    min_snr_gamma=min_snr_gamma, rho=rho)
+
+    @classmethod
+    def from_config(cls, config) -> "NoiseSchedule":
+        m = config.model
+        return cls.create(num_timesteps=m.num_timesteps,
+                          sigma_min=m.sigma_min, sigma_max=m.sigma_max,
+                          rho=m.rho, use_ztsnr=m.use_ztsnr,
+                          prediction_type=config.training.prediction_type,
+                          min_snr_gamma=m.min_snr_gamma)
+
+    # ---------------------------------------------------------- training
+    def timestep_to_sigma(self, timesteps: torch.Tensor) -> torch.Tensor:
+        return self.sigmas.to(timesteps.device)[timesteps]
+
+    def sample_timesteps(self, generator: Optional[torch.Generator],
+                         batch_size: int,
+                         weights: Optional[torch.Tensor] = None,
+                         device=None) -> torch.Tensor:
+        """Uniform integer timesteps, or categorical under ``weights``."""
+        if weights is None:
+            return torch.randint(0, self.num_timesteps, (batch_size,),
+                                 generator=generator, device=device)
+        return torch.multinomial(weights.to(device), batch_size,
+                                 replacement=True, generator=generator)
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """x + sigma * eps, clamped to +-20000 under ZTSNR."""
+        sigma = _bcast(self.timestep_to_sigma(timesteps), sample)
+        noisy = sample + sigma * noise.to(sigma.dtype)
+        if self.use_ztsnr:
+            noisy = torch.clamp(noisy, -ZTSNR_SIGMA_MAX, ZTSNR_SIGMA_MAX)
+        return noisy
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        """The reference's v-target: (eps - x) / sigma."""
+        sigma = _bcast(self.timestep_to_sigma(timesteps), sample)
+        return (noise.to(sigma.dtype) - sample) / sigma
+
+    def get_snr(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """(sigma_data / sigma)^2."""
+        return (self.sigma_data / self.timestep_to_sigma(timesteps)) ** 2
+
+    def min_snr_weight(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """min(snr, gamma) per MinSNR; ones when it is off."""
+        if self.min_snr_gamma is None:
+            return torch.ones(timesteps.shape, dtype=torch.float32,
+                              device=timesteps.device)
+        return torch.clamp(self.get_snr(timesteps),
+                           max=float(self.min_snr_gamma))
+
+
+def _bcast(per_example: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """[B] -> [B, 1, 1, ...] fp32, to broadcast against ``like``."""
+    shape = (per_example.shape[0],) + (1,) * (like.dim() - 1)
+    return per_example.reshape(shape).float()
+
+
+# ------------------------------------------------------- flow matching
+def sample_logit_normal(generator: Optional[torch.Generator], shape,
+                        mean: float = 0.0, std: float = 1.0,
+                        device=None) -> torch.Tensor:
+    """sigmoid(mean + std * N(0, 1)), fp32."""
+    normal = torch.randn(shape, generator=generator, device=device,
+                         dtype=torch.float32)
+    return torch.sigmoid(mean + std * normal)
+
+
+def optimal_transport_path(x0: torch.Tensor, x1: torch.Tensor,
+                           t: torch.Tensor) -> torch.Tensor:
+    """(1 - t) x0 + t x1 with t per example."""
+    tb = _bcast(t, x0).to(x0.dtype)
+    return (1.0 - tb) * x0 + tb * x1
+
+
+def flow_matching_target(x0: torch.Tensor, x1: torch.Tensor
+                         ) -> torch.Tensor:
+    """The straight path's velocity x1 - x0."""
+    return x1 - x0
+
+
+# ---------------------------------------------------- timestep weights
+def generate_timestep_weights(num_timesteps: int, bias_strategy: str = "none",
+                              bias_portion: float = 0.25,
+                              bias_multiplier: float = 2.0,
+                              bias_begin: Optional[int] = None,
+                              bias_end: Optional[int] = None
+                              ) -> torch.Tensor:
+    """Normalized sampling weights over timesteps, fp32."""
+    weights = torch.ones(num_timesteps, dtype=torch.float32)
+    if bias_strategy == "none":
+        return weights / weights.sum()
+    if bias_multiplier <= 0:
+        raise ValueError("Timestep bias multiplier must be positive; use "
+                         "bias_strategy='none' to disable biasing.")
+    num_to_bias = int(bias_portion * num_timesteps)
+    idx = torch.arange(num_timesteps)
+    if bias_strategy == "later":
+        mask = idx >= num_timesteps - num_to_bias
+    elif bias_strategy == "earlier":
+        mask = idx < num_to_bias
+    elif bias_strategy == "range":
+        if bias_begin is None or bias_end is None:
+            raise ValueError("bias_begin and bias_end must be specified for "
+                             "range strategy")
+        if bias_begin < 0 or bias_end > num_timesteps:
+            raise ValueError(f"Bias range must be within [0, "
+                             f"{num_timesteps}], got [{bias_begin}, "
+                             f"{bias_end}]")
+        mask = (idx >= bias_begin) & (idx < bias_end)
+    else:
+        raise ValueError(f"Unknown bias strategy: {bias_strategy}. "
+                         "Must be one of: none, earlier, later, range")
+    weights = torch.where(mask, weights * bias_multiplier, weights)
+    return weights / weights.sum()
+
+
+def get_add_time_ids(original_sizes: Sequence, crop_top_lefts: Sequence,
+                     target_sizes: Sequence,
+                     dtype=torch.float32) -> torch.Tensor:
+    """[B, 6] = (orig_h, orig_w, crop_t, crop_l, tgt_h, tgt_w) rows."""
+    rows = [list(o) + list(c) + list(t)
+            for o, c, t in zip(original_sizes, crop_top_lefts, target_sizes)]
+    return torch.tensor(rows, dtype=dtype)
 
 
 def make_denoised_fn(model_fn, schedule: NoiseSchedule):

@@ -81,18 +81,48 @@ def test_seeded_noise_is_reproducible(pipelines):
 
 
 def test_port_imports_no_jax():
-    """The port runs the tiny slice on the CPU without importing jax,
-    yaml or the JAX package."""
+    """The port runs the tiny serving slice and one step of the tiny
+    training slice on the CPU, with every module of both imported, without
+    importing jax, yaml or the JAX package."""
     script = textwrap.dedent("""
         import sys, torch
+        from sdxl_training_improvements_tpu_torch.config import Config
         from sdxl_training_improvements_tpu_torch.models.sdxl import (
             SDXLModel)
+        from sdxl_training_improvements_tpu_torch.models.weights import (
+            from_jax_opt_state)
+        from sdxl_training_improvements_tpu_torch.ops import (
+            fused_adamw, probe)
         from sdxl_training_improvements_tpu_torch.pipelines import (
             SDXLPipeline)
+        from sdxl_training_improvements_tpu_torch.training.optimizers import (
+            make_optimizer)
+        from sdxl_training_improvements_tpu_torch.training.schedules import (
+            NoiseSchedule)
+        from sdxl_training_improvements_tpu_torch.training.trainer import (
+            create_train_state, make_train_step)
         model = SDXLModel.create(tiny=True, dtype=torch.float32)
         images = SDXLPipeline.from_model(model)(
             ["a cat"], height=32, width=32, num_inference_steps=2)
         assert images[0].shape == (32, 32, 3), images[0].shape
+        cfg = Config()
+        cfg.training.batch_size = 1
+        opt = make_optimizer(cfg)
+        step = make_train_step(model.unet_apply,
+                               NoiseSchedule.from_config(cfg), opt, cfg)
+        u = model.unet_config
+        state, metrics = step(create_train_state(model.trainable_params(),
+                                                 opt), {
+            "vae_latents": torch.randn(1, 4, 8, 8),
+            "prompt_embeds": torch.randn(1, 77, u.cross_attention_dim),
+            "pooled_prompt_embeds": torch.randn(1, u.pooled_embed_dim),
+            "time_ids": torch.tensor([[64.0, 64, 0, 0, 64, 64]])})
+        assert torch.isfinite(metrics["loss"]), metrics
+        assert state.opt_state.step == 1
+        z = torch.zeros(8, dtype=torch.bfloat16)  # the bf16 leaves' chain
+        delta = fused_adamw.fused_adamw_update(z, z.float(), z, z, z, 1e-3,
+                                               0.0, 1, 2)[0]
+        assert delta.dtype == torch.bfloat16
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "flax", "yaml",
                       "sdxl_training_improvements_tpu"))
