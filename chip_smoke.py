@@ -12,7 +12,12 @@ Phases, each printing what it found:
    shapes, with max errors, median CUDA-event times and device times of
    both, and the rate: GN+SiLU, the flash forward, the flash backward
    (dq and dk/dv), the fused bf16-SR AdamW (``torch.equal`` to plain) and
-   the startup probe;
+   the startup probe; beside each, its bound (``bound_ms``: the larger of
+   its flops over the card's peak and its bytes over 3.35 TB/s) and, as a
+   yardstick the port never calls, one PyTorch call computing the same
+   function where there is one (``library_ms``): SDPA's forward and
+   backward under its fastest backend for the flash kernels, ``torch.add``
+   for the probe;
 4. the full-width SDXL-base UNet (bf16, weights from a seed) at 1024^2,
    batch 2, through the kernels and through the plain versions;
 5. serving: ``SDXLPipeline.from_model`` and one text-to-image call at
@@ -64,6 +69,7 @@ FLASH_SHAPES = (  # (B, S, T, heads, D)
     (2, 64, 77, 8, 16),
     (2, 1024, 77, 4, 32),
     (2, 1024, 77, 4, 128),
+    (2, 1024, 77, 20, 64),
 )
 FLASH_BWD_SHAPES = (  # (B, S, T, heads, D): the b4 training step's sites
     (4, 4096, 4096, 10, 64),
@@ -72,6 +78,7 @@ FLASH_BWD_SHAPES = (  # (B, S, T, heads, D): the b4 training step's sites
     (4, 256, 256, 4, 16),
     (4, 1024, 77, 4, 32),
     (4, 1024, 77, 4, 128),
+    (4, 1024, 77, 20, 64),
 )
 ADAMW_SHAPES = (  # (leaf shape, channels_last, gradient dtype, decay fires)
     ((1280, 1280), False, torch.float32, False),  # attention projection
@@ -116,6 +123,18 @@ KERNELS = {
     "probe": ("triton", SRC + "ops/probe.py", TPU + "probe.py:106"),
 }
 SERVING_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_fwd")
+# the card's peaks (H100 SXM data sheet, dense): bf16 tensor cores, fp32
+# outside them, device memory
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the peak rate and the bytes (each input read once,
+    each output written once) over the memory rate."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
 
 
 def log(msg: str) -> None:
@@ -260,6 +279,36 @@ def _gn_case(shape, dtype, eps, gen):
     return res
 
 
+def sdpa_ms(q, k, v, dout=None):
+    """(ms, backend) of the fastest of SDPA's flash, cuDNN and efficient
+    backends on [B, H, S, D] views made before the timer starts: the
+    forward, or with ``dout`` the backward (``torch.autograd.grad`` of one
+    output).  A yardstick only: the port never calls SDPA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        with sdpa_kernel(backend):
+            try:
+                if dout is None:
+                    times[backend.name] = time_ms(lambda: sdpa(qt, kt, vt))
+                    continue
+                leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+                out = sdpa(*leaves)
+                dt = dout.transpose(1, 2)
+                times[backend.name] = time_ms(lambda: torch.autograd.grad(
+                    out, leaves, dt, retain_graph=True))
+                del out, leaves
+            except RuntimeError:  # this backend does not take the shape
+                continue
+    if not times:
+        return None, None
+    best = min(times, key=times.get)
+    return times[best], best
+
+
 def _flash_case(b, s, t, h, d, gen):
     from sdxl_training_improvements_tpu_torch.ops import flash_attention as F
     q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda"
@@ -275,14 +324,20 @@ def _flash_case(b, s, t, h, d, gen):
     plain_dev = device_ms(lambda: F.flash_attention_fwd_reference(q, k, v),
                           iters=2)
     tflops = 4 * b * h * s * t * d / (ms * 1e-3) / 1e12
+    lib_ms, lib = sdpa_ms(q, k, v)
+    bound_ms, bound_by = bound(4 * b * h * s * t * d,
+                               2 * (2 * s + 2 * t) * b * h * d + 4 * b * h * s)
     log(f"flash_fwd B={b} S={s} T={t} H={h} D={d}: out max_abs_err "
         f"{err:.3e} (tol {FLASH_OUT_TOL:g}), lse {lse_err:.3e} "
         f"(tol {FLASH_LSE_TOL:g}); kernel {ms:.4f} ms ({tflops:.1f} "
         f"TFLOP/s; device {fmt_ms(dev)}) vs plain {plain_ms:.4f} ms (device "
-        f"{fmt_ms(plain_dev)})")
+        f"{fmt_ms(plain_dev)}); bound {bound_ms:.4f} ms ({bound_by}); SDPA "
+        f"{fmt_ms(lib_ms)} ({lib})")
     check(err <= FLASH_OUT_TOL, f"flash out {(b, s, t, h, d)}: {err}")
     check(lse_err <= FLASH_LSE_TOL, f"flash lse {(b, s, t, h, d)}: {lse_err}")
-    return dict(err=max(err, lse_err), ms=ms, plain_ms=plain_ms)
+    return dict(err=max(err, lse_err), ms=ms, plain_ms=plain_ms, dev=dev,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                library=lib)
 
 
 def _flash_bwd_case(b, s, t, h, d, gen):
@@ -310,8 +365,14 @@ def _flash_bwd_case(b, s, t, h, d, gen):
         res[f"plain_{name}_ms"] = time_ms(lambda: plain(*args), warmup=1,
                                           iters=2, repeats=3)
         res[f"plain_{name}_dev"] = device_ms(lambda: plain(*args), iters=2)
-    torch.cuda.empty_cache()
+    res["delta_ms"] = time_ms(lambda: F.flash_attention_bwd_delta(out, dout))
+    res["library_ms"], res["library"] = sdpa_ms(q, k, v, dout)
     work = b * h * s * t * d  # 6 flops per unit in dq, 8 in dk/dv
+    # bytes: q, k, v, dO bf16 and lse, Delta fp32 read; dq or dk, dv written
+    read = 2 * (2 * s + 2 * t) * b * h * d + 8 * b * h * s
+    res["dq_bound"] = bound(6 * work, read + 2 * b * s * h * d)
+    res["dkv_bound"] = bound(8 * work, read + 4 * b * t * h * d)
+    torch.cuda.empty_cache()
     dq_tf = 6 * work / (res["dq_ms"] * 1e-3) / 1e12
     dkv_tf = 8 * work / (res["dkv_ms"] * 1e-3) / 1e12
     pair_tf = 14 * work / ((res["dq_ms"] + res["dkv_ms"]) * 1e-3) / 1e12
@@ -324,7 +385,10 @@ def _flash_bwd_case(b, s, t, h, d, gen):
         f"{res['dkv_ms']:.4f} ms ({dkv_tf:.1f} TFLOP/s; device "
         f"{fmt_ms(res['dkv_dev'])}) vs plain {res['plain_dkv_ms']:.4f} ms "
         f"(device {fmt_ms(res['plain_dkv_dev'])}); pair {pair_tf:.1f} "
-        f"TFLOP/s")
+        f"TFLOP/s; bounds dq {res['dq_bound'][0]:.4f} dkv "
+        f"{res['dkv_bound'][0]:.4f} ms; dq + dkv + Delta "
+        f"{res['dq_ms'] + res['dkv_ms'] + res['delta_ms']:.4f} ms vs SDPA "
+        f"backward {fmt_ms(res['library_ms'])} ({res['library']})")
     check(max(rel.values()) <= FLASH_BWD_TOL,
           f"flash bwd {(b, s, t, h, d)}: {rel}")
     return res
@@ -383,11 +447,14 @@ def _probe_case():
                        device="cuda").reshape(P.PROBE_SHAPE)
     res["dev"] = device_ms(lambda: P.probe_cuda(x))
     res["plain_dev"] = device_ms(lambda: P.probe_reference(x))
+    one = torch.ones((), device="cuda")
+    res["library_ms"] = time_ms(lambda: torch.add(one, x, alpha=2.0))
     log(f"probe {list(P.PROBE_SHAPE)} fp32 x*2+1: max_abs_err "
         f"{res['max_abs_err']:.3e} (tol 0); kernel {res['ms']:.4f} ms "
         f"({res['gbps']:.1f} GB/s; device {fmt_ms(res['dev'])}) vs plain "
         f"{res['plain_ms']:.4f} ms ({res['plain_gbps']:.1f} GB/s; device "
-        f"{fmt_ms(res['plain_dev'])})")
+        f"{fmt_ms(res['plain_dev'])}); torch.add(1, x, alpha=2) "
+        f"{res['library_ms']:.4f} ms")
     check(res["max_abs_err"] == 0.0, f"probe error {res['max_abs_err']}")
     return res
 
@@ -464,7 +531,8 @@ def phase_unet(model) -> dict:
 def _kernel_group(name: str) -> str:
     n = name.lower()
     for group, keys in (("flash_fwd (hand CUDA)", ("flash_fwd",)),
-                        ("flash_bwd (hand CUDA)", ("flash_bwd",)),
+                        ("flash_bwd (hand CUDA)", ("flash_bwd",
+                                                   "dkv_reduce")),
                         ("fused_adamw (hand CUDA)", ("fused_adamw",)),
                         ("gn_silu (hand Triton)", ("stats_kernel",
                                                    "apply_kernel")),
@@ -776,37 +844,69 @@ def phase_train_parity(model, cfg) -> dict:
     return dict(loss_rel=loss_rel, grad_rel_l2=rel, ms=ms, plain_ms=plain_ms)
 
 
+# operations per element of the elementwise kernels, on the fp32 units
+# (not the tensor cores): GN statistics (sum, square, add), GN apply
+# (normalise, affine, SiLU), AdamW (moments, bias corrections, sqrt,
+# divide, decay, stochastic rounding), the probe (x * 2 + 1)
+OPS_PER_ELEMENT = {"gn_silu_stats": 3, "gn_silu_apply": 10,
+                   "fused_adamw": 40, "probe": 2}
+
+
 def kernel_report(k: dict, launches: dict) -> dict:
-    """One entry per kernel wrapper: errors over all of phase 3's shapes,
-    times at the shape named in ``at``, launches on the training path."""
+    """One entry per kernel wrapper: errors over all of phase 3's shapes;
+    times, bound and library time at the shape named in ``at``; launches on
+    the training path."""
     gn, fl, bwd, adamw = k["gn"][1], k["flash"][0], k["flash_bwd"][0], \
         k["adamw"][1]
+    gn_n, adamw_n, probe_n = 2 * 4096 * 640, 10240 * 1280, 4096 * 4096
+    ew = {name: bound(OPS_PER_ELEMENT[name] * n, nbytes, PEAK_FP32)
+          for name, n, nbytes in (
+              ("gn_silu_stats", gn_n, 2 * gn_n),
+              ("gn_silu_apply", gn_n, 2 * 2 * gn_n),
+              ("fused_adamw", adamw_n, (16 + 4) * adamw_n),
+              ("probe", probe_n, 8 * probe_n))}
+    bwd_lib = (bwd["library_ms"], f"SDPA backward ({bwd['library']}) for "
+               "dq + dk/dv + Delta together")
+    # (max abs err, ms, plain ms, at, (bound ms, by), (library ms, what))
     measured = {
         "gn_silu_stats": (max(r["stats_err"] for r in k["gn"]),
                           gn["stats_ms"], gn["plain_stats_ms"],
-                          "[2, 4096, 640] bf16"),
+                          "[2, 4096, 640] bf16", ew["gn_silu_stats"],
+                          (None, None)),
         "gn_silu_apply": (max(r["err"] for r in k["gn"]), gn["apply_ms"],
-                          gn["plain_apply_ms"], "[2, 4096, 640] bf16"),
+                          gn["plain_apply_ms"], "[2, 4096, 640] bf16",
+                          ew["gn_silu_apply"], (None, None)),
         "flash_fwd": (max(r["err"] for r in k["flash"]), fl["ms"],
-                      fl["plain_ms"], "B=2 S=T=4096 H=10 D=64"),
+                      fl["plain_ms"], "B=2 S=T=4096 H=10 D=64",
+                      (fl["bound_ms"], fl["bound_by"]),
+                      (fl["library_ms"], f"SDPA ({fl['library']})")),
         "flash_bwd_dq": (max(r["err"]["dq"] for r in k["flash_bwd"]),
                          bwd["dq_ms"], bwd["plain_dq_ms"],
-                         "B=4 S=T=4096 H=10 D=64"),
+                         "B=4 S=T=4096 H=10 D=64", bwd["dq_bound"], bwd_lib),
         "flash_bwd_dkv": (max(max(r["err"]["dk"], r["err"]["dv"])
                               for r in k["flash_bwd"]),
                           bwd["dkv_ms"], bwd["plain_dkv_ms"],
-                          "B=4 S=T=4096 H=10 D=64"),
+                          "B=4 S=T=4096 H=10 D=64", bwd["dkv_bound"],
+                          bwd_lib),
         "fused_adamw": (max(r["err"] for r in k["adamw"]), adamw["ms"],
-                        adamw["plain_ms"], "[10240, 1280] bf16, fp32 g"),
+                        adamw["plain_ms"], "[10240, 1280] bf16, fp32 g",
+                        ew["fused_adamw"], (None, None)),
         "probe": (k["probe"]["max_abs_err"], k["probe"]["ms"],
-                  k["probe"]["plain_ms"], "[4096, 4096] fp32"),
+                  k["probe"]["plain_ms"], "[4096, 4096] fp32", ew["probe"],
+                  (k["probe"]["library_ms"], "torch.add(1, x, alpha=2)")),
     }
+    # the kernels' own time per call from torch.profiler, where measured
+    device = {"flash_fwd": fl["dev"], "flash_bwd_dq": bwd["dq_dev"],
+              "flash_bwd_dkv": bwd["dkv_dev"], "fused_adamw": adamw["dev"],
+              "probe": k["probe"]["dev"]}
     return {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": measured[name][0],
-         "ms": measured[name][1], "plain_ms": measured[name][2],
-         "at": measured[name][3]}
-        for name, (route, source, tpu) in KERNELS.items()]}
+         "launches": launches[name], "max_abs_err": err, "ms": ms,
+         "device_ms": device.get(name), "plain_ms": plain_ms,
+         "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib[0],
+         "library": lib[1], "at": at}
+        for name, (route, source, tpu) in KERNELS.items()
+        for err, ms, plain_ms, at, bnd, lib in (measured[name],)]}
 
 
 def main() -> None:

@@ -71,12 +71,13 @@ class SDXLModel:
 
     @classmethod
     def create(cls, *, tiny: bool = False, dtype=torch.bfloat16,
-               device="cpu", generator: Optional[torch.Generator] = None,
+               device="cuda", generator: Optional[torch.Generator] = None,
                unet_config: Optional[UNetConfig] = None) -> "SDXLModel":
-        """Bundle with weights drawn from ``generator`` (a CPU generator
-        seeded with 0 when None).  ``tiny`` builds the CPU-testable
-        miniature; otherwise full SDXL-base width.  ``unet_config``
-        overrides the UNet's (e.g. its remat settings)."""
+        """Bundle on ``device`` (the card unless the caller asks for the
+        CPU) with weights drawn from ``generator`` (a CPU generator seeded
+        with 0 when None).  ``tiny`` builds the CPU-testable miniature;
+        otherwise full SDXL-base width.  ``unet_config`` overrides the
+        UNet's (e.g. its remat settings)."""
         if tiny:
             ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
             lcfg = CLIPTextConfig.tiny()

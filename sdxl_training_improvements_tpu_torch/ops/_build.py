@@ -38,11 +38,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str):
-    """(source, flags, library path) of ``csrc/<name>.cu``."""
+    """(source, flags, library path) of ``csrc/<name>.cu``; the name
+    hashes the source, the shared headers and the flags."""
     src = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
-                            ).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(flags).encode()).hexdigest()[:16]
     return src, flags, BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -6,9 +6,11 @@ Port of ``sdxl_training_improvements_tpu/ops/flash_attention.py``.
 * forward: ``csrc/flash_fwd.cu`` replaces the Pallas ``_fwd_kernel``;
 * backward: ``csrc/flash_bwd.cu`` replaces ``_bwd_dq_kernel`` (dq, a block
   per q tile looping over kv tiles) and ``_bwd_dkv_kernel`` (dk and dv, a
-  block per kv tile looping over q tiles).  Both recompute the
-  probabilities from (q, k, lse); Delta = rowsum(dO * O) is a plain torch
-  op, as JAX forms it outside Pallas.
+  block per kv tile looping over q tiles, the q loop split over several
+  blocks when the kv tiles alone cannot fill the card: ``plan_dkv_splits``).
+  Both recompute the probabilities from (q, k, lse), read their inputs
+  through TMA tensor maps and multiply with wgmma; Delta = rowsum(dO * O)
+  is a plain torch op, as JAX forms it outside Pallas.
 * ``FlashAttention`` saves (q, k, v, out, lse) in the forward, as
   ``_flash_core_fwd`` does, and runs the two backward kernels.
 
@@ -26,6 +28,14 @@ from typing import Optional, Tuple
 import torch
 
 HEAD_DIMS = (16, 32, 64, 128)
+DKV_KV_ROWS = 128  # rows of the dk/dv kernel's kv tile (flash_bwd.cu kOwn)
+H100_SMS = 132
+
+
+def dkv_q_rows(d: int) -> int:
+    """Rows of the q tiles the dk/dv kernel streams at head dim ``d``
+    (``csrc/flash_bwd.cu``: ``Cfg<D>::kStream``)."""
+    return 128 if d <= 64 else 64
 
 
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -76,6 +86,33 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale: float):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def plan_dkv_splits(b: int, h: int, s: int, t: int, d: int,
+                    sms: int = H100_SMS) -> Tuple[int, int]:
+    """(splits, q tiles per split) of the dk/dv kernel's q loop: enough
+    splits that the grid of (kv tiles, batch * heads, splits) blocks covers
+    ``sms`` SMs, none of them empty, and 1 when the kv tiles alone do."""
+    kv_tiles = -(-t // DKV_KV_ROWS)
+    q_tiles = -(-s // dkv_q_rows(d))
+    want = min(q_tiles, -(-sms // (b * h * kv_tiles)))
+    per = -(-q_tiles // want)
+    return -(-q_tiles // per), per
+
+
+def flash_bwd_dkv_split_reference(q, k, v, dout, lse, delta, scale: float,
+                                  splits: int, per: int):
+    """Plain version of the split dk/dv path: fp32 partials over q chunks
+    of ``per`` q tiles, summed in split order, then cast to k's dtype."""
+    rows = per * dkv_q_rows(q.shape[-1])
+    dk = dv = 0.0
+    for i in range(splits):
+        sl = slice(i * rows, (i + 1) * rows)
+        p, ds = _bwd_probs(q[:, sl], k, v, dout[:, sl], lse[..., sl],
+                           delta[..., sl], scale)
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds, q[:, sl].float())
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", p, dout[:, sl].float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_bwd_reference(q, k, v, out, lse, dout,
                                   scale: Optional[float] = None):
     """Plain (dq, dk, dv), fp32 throughout, the backward's formulas:
@@ -100,12 +137,37 @@ def _library():
     return fn
 
 
+def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
+    """x's (batch, seq, head) element strides, a dim of size 1 given the
+    stride a contiguous tensor would have (its stride is never used, and
+    TMA needs every stride to be a multiple of 16 bytes)."""
+    b, n, h, d = x.shape
+    sb, sn, sh, _ = x.stride()
+    return (sb if b > 1 else n * h * d, sn if n > 1 else h * d,
+            sh if h > 1 else d)
+
+
+def tma_addressable(x: torch.Tensor) -> bool:
+    """Whether a bf16 [B, N, H, D] tensor meets TMA's conditions: a
+    16-byte aligned base, (batch, seq, head) strides that are multiples of
+    16 bytes (8 elements) and a unit head-dim stride."""
+    sb, sn, sh = _strides(x)
+    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0 and sb % 8 == 0
+            and sn % 8 == 0 and sh % 8 == 0)
+
+
 def _addressable(x: torch.Tensor) -> torch.Tensor:
-    """x with a unit last stride and 16-byte aligned rows, copying only
-    when the given strides do not allow 16-byte loads."""
-    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s in x.stride()[:-1]))
-    return x if ok else x.contiguous()
+    """x itself where the kernels' TMA maps can read it in place, else a
+    contiguous copy."""
+    return x if tma_addressable(x) else x.contiguous()
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc >= 100000:  # hopper::kEncodeError + the driver's CUresult
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: "
+                           f"CUresult {rc - 100000}")
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
 
 
 def _check(q, k, v, *more):
@@ -160,10 +222,12 @@ def _bwd_library():
     """The two backward launchers, built and loaded at first use."""
     from sdxl_training_improvements_tpu_torch.ops import _build
     lib = _build.load("flash_bwd")
+    tail = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
+    lib.flash_bwd_dq_bf16.argtypes = ([ctypes.c_void_p] * 7
+                                      + [ctypes.c_int] * 5 + tail)
+    lib.flash_bwd_dkv_bf16.argtypes = ([ctypes.c_void_p] * 10
+                                       + [ctypes.c_int] * 7 + tail)
     for fn in (lib.flash_bwd_dq_bf16, lib.flash_bwd_dkv_bf16):
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                       + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
-                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -183,30 +247,28 @@ def _bwd_inputs(q, k, v, dout, lse, delta):
             delta.contiguous())
 
 
-def _bwd_launch(fn, name, q, k, v, dout, lse, delta, dq, dk, dv, scale):
-    """One backward launcher over (batch, seq, head)-strided bf16 tensors;
-    the outputs it does not write are None."""
-    b, s, h, d = q.shape
-    t = k.shape[1]
-    tensors = (q, k, v, dout, dq, dk, dv)
-    strides = (ctypes.c_int64 * 21)(
-        *[0 if x is None else x.stride(i) for x in tensors for i in range(3)])
-    ptrs = [0 if x is None else x.data_ptr()
-            for x in (q, k, v, dout, lse, delta, dq, dk, dv)]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*ptrs, b, h, s, t, d, strides, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {rc}")
+def _bwd_strides(q, k, v, dout, *outs):
+    """The 21 (batch, seq, head) strides of q, k, v, dO, dq, dk, dv (0 for
+    an output a launcher does not write)."""
+    return (ctypes.c_int64 * 21)(
+        *(_strides(q) + _strides(k) + _strides(v) + _strides(dout)),
+        *(i for x in outs for i in (_strides(x) if x is not None
+                                    else (0, 0, 0))))
 
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale: float):
     """Launch the dq kernel (Pallas ``_bwd_dq_kernel``); raises on what it
     does not take."""
     q, k, v, dout, lse, delta = _bwd_inputs(q, k, v, dout, lse, delta)
+    b, s, h, d = q.shape
     dq = torch.empty(q.shape, device=q.device, dtype=torch.bfloat16)
-    _bwd_launch(_bwd_library().flash_bwd_dq_bf16, "flash_bwd_dq", q, k, v,
-                dout, lse, delta, dq, None, None, scale)
+    strides = _bwd_strides(q, k, v, dout, dq, None, None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bwd_library().flash_bwd_dq_bf16(
+            *(x.data_ptr() for x in (q, k, v, dout, lse, delta, dq)), b, h,
+            s, k.shape[1], d, strides, float(scale), stream)
+    _raise_on(rc, "flash_bwd_dq")
     flash_bwd_dq_cuda.launches += 1
     return dq
 
@@ -214,14 +276,35 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale: float):
 flash_bwd_dq_cuda.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale: float):
-    """Launch the dk/dv kernel (Pallas ``_bwd_dkv_kernel``); raises on what
-    it does not take."""
+    """Launch the dk/dv kernel (Pallas ``_bwd_dkv_kernel``), with its q
+    loop split as ``plan_dkv_splits`` says and the fp32 partials summed
+    by the reduction kernel of the same source; raises on what it does
+    not take."""
     q, k, v, dout, lse, delta = _bwd_inputs(q, k, v, dout, lse, delta)
+    b, s, h, d = q.shape
+    t = k.shape[1]
     dk = torch.empty(k.shape, device=k.device, dtype=torch.bfloat16)
     dv = torch.empty_like(dk)
-    _bwd_launch(_bwd_library().flash_bwd_dkv_bf16, "flash_bwd_dkv", q, k, v,
-                dout, lse, delta, None, dk, dv, scale)
+    splits, per = plan_dkv_splits(b, h, s, t, d, _sm_count(q.device))
+    # fp32 partial dk and dv of each split, [2, splits, B*H, T, D]
+    part = (torch.empty((2, splits, b * h, t, d), device=k.device,
+                        dtype=torch.float32) if splits > 1 else None)
+    part_ptrs = ((part[0].data_ptr(), part[1].data_ptr())
+                 if part is not None else (0, 0))
+    strides = _bwd_strides(q, k, v, dout, None, dk, dv)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bwd_library().flash_bwd_dkv_bf16(
+            *(x.data_ptr() for x in (q, k, v, dout, lse, delta, dk, dv)),
+            *part_ptrs, b, h, s, t, d, splits, per, strides, float(scale),
+            stream)
+    _raise_on(rc, "flash_bwd_dkv")
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv
 

@@ -96,7 +96,7 @@ def _through_functions(monkeypatch):
 
 
 def _tiny_loss_grads(remat: bool):
-    model = SDXLModel.create(tiny=True, dtype=torch.float32,
+    model = SDXLModel.create(tiny=True, dtype=torch.float32, device="cpu",
                              unet_config=UNetConfig.tiny(remat=remat))
     g = torch.Generator().manual_seed(4)
     cfg = model.unet_config

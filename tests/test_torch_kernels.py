@@ -12,6 +12,7 @@ plain version; flash forward bf16 out 2e-2 and lse 1e-3 against the plain
 fp32-softmax version; the tiny UNet through the kernels against the plain
 path at relative L2 3e-2.
 """
+import inspect
 from contextlib import ExitStack
 from unittest import mock
 
@@ -97,7 +98,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_bf16_model_dtypes_and_cpu_run():
     """bf16 UNet and CLIP weights with fp32 norm parameters, an fp32 VAE
     (the card's configuration), run end to end on the CPU."""
-    model = SDXLModel.create(tiny=True, dtype=torch.bfloat16)
+    model = SDXLModel.create(tiny=True, dtype=torch.bfloat16, device="cpu")
     assert model.unet.conv_in.weight.dtype == torch.bfloat16
     assert model.unet.conv_in.weight.is_contiguous(
         memory_format=torch.channels_last)
@@ -114,11 +115,23 @@ def test_bf16_model_dtypes_and_cpu_run():
 
 
 def test_seeded_create_is_reproducible():
-    a = SDXLModel.create(tiny=True, generator=torch.Generator().manual_seed(5))
-    b = SDXLModel.create(tiny=True, generator=torch.Generator().manual_seed(5))
-    c = SDXLModel.create(tiny=True, generator=torch.Generator().manual_seed(6))
+    a, b, c = (SDXLModel.create(tiny=True, device="cpu",
+                                 generator=torch.Generator().manual_seed(s))
+               for s in (5, 5, 6))
     wa, wb, wc = (m.unet.conv_in.weight for m in (a, b, c))
     assert torch.equal(wa, wb) and not torch.equal(wa, wc)
+
+
+def test_create_defaults_to_the_card():
+    """The entry point builds on CUDA unless the caller asks for the CPU:
+    with no card it raises rather than building on the CPU."""
+    assert inspect.signature(SDXLModel.create).parameters[
+        "device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert SDXLModel.create(tiny=True).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            SDXLModel.create(tiny=True)
 
 
 def test_create_turns_tf32_off():
@@ -126,7 +139,7 @@ def test_create_turns_tf32_off():
     would otherwise put the fp32 VAE convolutions in TF32."""
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-    SDXLModel.create(tiny=True)
+    SDXLModel.create(tiny=True, device="cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 

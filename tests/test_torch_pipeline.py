@@ -39,7 +39,8 @@ def pipelines():
     jmodel = JModel.create(tiny=True, dtype=jnp.float32,
                            init_rng=jax.random.key(0),
                            init_components=COMPONENTS)
-    model = SDXLModel.create(tiny=True, dtype=torch.float32)
+    model = SDXLModel.create(tiny=True, dtype=torch.float32,
+                             device="cpu")
     for c in COMPONENTS:
         tree = jax.tree_util.tree_map(np.asarray, jmodel.params[c])
         getattr(model, c).load_state_dict(
@@ -101,7 +102,8 @@ def test_port_imports_no_jax():
             NoiseSchedule)
         from sdxl_training_improvements_tpu_torch.training.trainer import (
             create_train_state, make_train_step)
-        model = SDXLModel.create(tiny=True, dtype=torch.float32)
+        model = SDXLModel.create(tiny=True, dtype=torch.float32,
+                                 device="cpu")
         images = SDXLPipeline.from_model(model)(
             ["a cat"], height=32, width=32, num_inference_steps=2)
         assert images[0].shape == (32, 32, 3), images[0].shape

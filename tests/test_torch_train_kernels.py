@@ -6,8 +6,11 @@ without JAX:
     python -m pytest tests/test_torch_train_kernels.py -m cuda --noconftest
 
 On the CPU every test here skips.  On the card: the flash backward kernels
-against the plain fp32 backward (bf16 outputs, max abs error within 2e-2
-of gradients scaled to O(1)); the fused AdamW kernel ``torch.equal`` to
+(the TMA + wgmma dq and dk/dv) against the plain fp32 backward (bf16
+outputs, max abs error within 2e-2 of gradients scaled to O(1)) at every
+head dim, ragged S and T, strided projections and the split dk/dv path,
+which also gives bit-equal gradients run to run; the fused AdamW kernel
+``torch.equal`` to
 the plain chain in all four outputs; the probe kernel equal to
 ``x * 2 + 1``; and the bf16 tiny model's train step through the kernels
 against the same step through the plain versions.
@@ -50,8 +53,15 @@ def _bwd_errors(q, k, v, out, lse, dout):
 @pytest.mark.parametrize("b,s,t,h,d", [(2, 1024, 1024, 4, 64),
                                        (2, 4096, 77, 2, 64),
                                        (1, 100, 77, 3, 16),
+                                       (1, 130, 200, 2, 16),
                                        (1, 130, 200, 2, 32),
-                                       (1, 130, 200, 2, 128)])
+                                       (1, 130, 200, 2, 64),
+                                       (1, 130, 200, 2, 128),
+                                       (1, 1000, 77, 2, 16),
+                                       (1, 1000, 77, 2, 32),
+                                       (1, 1000, 77, 2, 64),
+                                       (1, 1000, 77, 2, 128),
+                                       (2, 2048, 2048, 8, 64)])
 def test_flash_bwd_kernels_match_plain(cuda, b, s, t, h, d):
     args = _flash_inputs(b, s, t, h, d, seed=3)
     before = (TF.flash_bwd_dq_cuda.launches, TF.flash_bwd_dkv_cuda.launches)
@@ -62,17 +72,43 @@ def test_flash_bwd_kernels_match_plain(cuda, b, s, t, h, d):
 
 
 @pytest.mark.cuda
-def test_flash_bwd_reads_strided_projections(cuda):
-    """q/k/v as views of [B, S, H*D] projections are read in place."""
+@pytest.mark.parametrize("t,h", [(77, 4), (2048, 8)])
+def test_flash_bwd_reads_strided_projections(cuda, t, h):
+    """q/k/v as views of [B, S, H*D] projections are read in place, by the
+    split (T = 77) and the unsplit (T = 2048) dk/dv path."""
     g = torch.Generator("cuda").manual_seed(4)
-    x = torch.randn(2, 300, 4 * 64, device="cuda", generator=g).bfloat16()
-    kv = torch.randn(2, 77, 2 * 4 * 64, device="cuda", generator=g
+    x = torch.randn(2, 300, h * 64, device="cuda", generator=g).bfloat16()
+    kv = torch.randn(2, t, 2 * h * 64, device="cuda", generator=g
                      ).bfloat16()
-    q = x.view(2, 300, 4, 64)
-    k, v = kv.view(2, 77, 2, 4, 64).unbind(2)
+    q = x.view(2, 300, h, 64)
+    k, v = kv.view(2, t, 2, h, 64).unbind(2)
+    assert all(TF.tma_addressable(y) for y in (q, k, v))
     out, lse = TF.flash_attention_fwd_cuda(q, k, v)
-    dout = torch.randn(2, 300, 4, 64, device="cuda", generator=g).bfloat16()
+    dout = torch.randn(2, 300, h, 64, device="cuda", generator=g).bfloat16()
     assert max(_bwd_errors(q, k, v, out, lse, dout)) <= FLASH_BWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,d", [(4, 1024, 77, 20, 64),
+                                       (2, 1000, 77, 4, 128)])
+def test_flash_dkv_split_matches_plain_and_repeats(cuda, b, s, t, h, d):
+    """The split dk/dv path (fp32 partials summed by the reduction kernel
+    in split order, no atomics) against its plain version, and bit-equal
+    over two runs."""
+    splits, per = TF.plan_dkv_splits(b, h, s, t, d)
+    assert splits > 1
+    q, k, v, out, lse, dout = _flash_inputs(b, s, t, h, d, seed=6)
+    scale = d ** -0.5
+    delta = TF.flash_attention_bwd_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, scale)
+    first = TF.flash_bwd_dkv_cuda(*args)
+    second = TF.flash_bwd_dkv_cuda(*args)
+    ref = TF.flash_bwd_dkv_split_reference(*args, splits, per)
+    torch.cuda.synchronize()
+    for a, a2, r in zip(first, second, ref):
+        assert torch.equal(a, a2)
+        err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+        assert err.item() <= FLASH_BWD_TOL
 
 
 @pytest.mark.cuda

@@ -155,7 +155,7 @@ def models():
     """The flax tiny UNet (fp32) and the port's holding its parameters."""
     jmodel = JModel.create(tiny=True, dtype=jnp.float32,
                            init_rng=jax.random.key(0))
-    model = SDXLModel.create(tiny=True, dtype=torch.float32)
+    model = SDXLModel.create(tiny=True, dtype=torch.float32, device="cpu")
     _load(model, jmodel.params["unet"])
     return jmodel, model
 

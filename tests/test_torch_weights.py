@@ -41,7 +41,8 @@ def jax_trees():
 
 @pytest.fixture(scope="module")
 def port_model():
-    return SDXLModel.create(tiny=True, dtype=torch.float32)
+    return SDXLModel.create(tiny=True, dtype=torch.float32,
+                            device="cpu")
 
 
 def _jax_export(name, tree):
