@@ -10,14 +10,17 @@ Phases, each printing what it found:
    together) and the Triton kernels;
 3. every kernel against its plain PyTorch version at the main paths'
    shapes, with max errors, median CUDA-event times and device times of
-   both, and the rate: GN+SiLU, the flash forward, the flash backward
+   both, and the rate: GN+SiLU, the flash forward (a second launch
+   bit-equal to the first; each serving attention site reported in the
+   kernel line's ``sites``), the flash backward
    (dq and dk/dv), the fused bf16-SR AdamW (``torch.equal`` to plain) and
    the startup probe; beside each, its bound (``bound_ms``: the larger of
    its flops over the card's peak and its bytes over 3.35 TB/s) and, as a
    yardstick the port never calls, one PyTorch call computing the same
-   function where there is one (``library_ms``): SDPA's forward and
-   backward under its fastest backend for the flash kernels, ``torch.add``
-   for the probe;
+   function where there is one (``library_ms`` per call and
+   ``library_device_ms``, to hold against ``device_ms``): SDPA's forward
+   and backward under the backend with the least device time for the
+   flash kernels, ``torch.add`` for the probe;
 4. the full-width SDXL-base UNet (bf16, weights from a seed) at 1024^2,
    batch 2, through the kernels and through the plain versions;
 5. serving: ``SDXLPipeline.from_model`` and one text-to-image call at
@@ -37,6 +40,7 @@ script exits non-zero without that line.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -71,6 +75,9 @@ FLASH_SHAPES = (  # (B, S, T, heads, D)
     (2, 1024, 77, 4, 128),
     (2, 1024, 77, 20, 64),
 )
+# the b2 serving step's attention sites, reported one by one for flash_fwd
+FLASH_SITES = ((2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64),
+               (2, 1024, 77, 20, 64), (2, 4096, 77, 10, 64))
 FLASH_BWD_SHAPES = (  # (B, S, T, heads, D): the b4 training step's sites
     (4, 4096, 4096, 10, 64),
     (4, 1024, 1024, 20, 64),
@@ -280,33 +287,36 @@ def _gn_case(shape, dtype, eps, gen):
 
 
 def sdpa_ms(q, k, v, dout=None):
-    """(ms, backend) of the fastest of SDPA's flash, cuDNN and efficient
-    backends on [B, H, S, D] views made before the timer starts: the
-    forward, or with ``dout`` the backward (``torch.autograd.grad`` of one
-    output).  A yardstick only: the port never calls SDPA."""
+    """(ms, backend, device ms) of SDPA's flash, cuDNN or efficient
+    backend, whichever has the least device time (``device_ms``, the
+    measure the port's kernels are held to), on [B, H, S, D] views made
+    before the timers start: the forward, or with ``dout`` the backward
+    (``torch.autograd.grad`` of one output).  ms is that backend's per-call
+    time (``time_ms``).  A yardstick only: the port never calls SDPA."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    times = {}
+    found = {}  # backend -> (ms, device ms)
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION):
         with sdpa_kernel(backend):
             try:
                 if dout is None:
-                    times[backend.name] = time_ms(lambda: sdpa(qt, kt, vt))
+                    call = functools.partial(sdpa, qt, kt, vt)
+                    found[backend.name] = (time_ms(call), device_ms(call))
                     continue
                 leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-                out = sdpa(*leaves)
-                dt = dout.transpose(1, 2)
-                times[backend.name] = time_ms(lambda: torch.autograd.grad(
-                    out, leaves, dt, retain_graph=True))
-                del out, leaves
+                call = functools.partial(
+                    torch.autograd.grad, sdpa(*leaves), leaves,
+                    dout.transpose(1, 2), retain_graph=True)
+                found[backend.name] = (time_ms(call), device_ms(call))
+                del call, leaves
             except RuntimeError:  # this backend does not take the shape
                 continue
-    if not times:
-        return None, None
-    best = min(times, key=times.get)
-    return times[best], best
+    if not found:
+        return None, None, None
+    best = min(found, key=lambda name: found[name][1] or float("inf"))
+    return found[best][0], best, found[best][1]
 
 
 def _flash_case(b, s, t, h, d, gen):
@@ -314,6 +324,9 @@ def _flash_case(b, s, t, h, d, gen):
     q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda"
                            ).to(torch.bfloat16) for n in (s, t, t))
     out, lse = F.flash_attention_fwd_cuda(q, k, v)
+    out2, lse2 = F.flash_attention_fwd_cuda(q, k, v)
+    rerun_equal = torch.equal(out, out2) and torch.equal(lse, lse2)
+    del out2, lse2
     ref, ref_lse = F.flash_attention_fwd_reference(q, k, v)
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
@@ -324,20 +337,26 @@ def _flash_case(b, s, t, h, d, gen):
     plain_dev = device_ms(lambda: F.flash_attention_fwd_reference(q, k, v),
                           iters=2)
     tflops = 4 * b * h * s * t * d / (ms * 1e-3) / 1e12
-    lib_ms, lib = sdpa_ms(q, k, v)
+    lib_ms, lib, lib_dev = sdpa_ms(q, k, v)
     bound_ms, bound_by = bound(4 * b * h * s * t * d,
                                2 * (2 * s + 2 * t) * b * h * d + 4 * b * h * s)
+    dev_tflops = (f"{4 * b * h * s * t * d / (dev * 1e-3) / 1e12:.1f}"
+                  if dev else "not measured")
     log(f"flash_fwd B={b} S={s} T={t} H={h} D={d}: out max_abs_err "
         f"{err:.3e} (tol {FLASH_OUT_TOL:g}), lse {lse_err:.3e} "
-        f"(tol {FLASH_LSE_TOL:g}); kernel {ms:.4f} ms ({tflops:.1f} "
-        f"TFLOP/s; device {fmt_ms(dev)}) vs plain {plain_ms:.4f} ms (device "
+        f"(tol {FLASH_LSE_TOL:g}), rerun bit-equal {rerun_equal}; kernel "
+        f"{ms:.4f} ms ({tflops:.1f} TFLOP/s; device {fmt_ms(dev)}, "
+        f"{dev_tflops} TFLOP/s) vs plain {plain_ms:.4f} ms (device "
         f"{fmt_ms(plain_dev)}); bound {bound_ms:.4f} ms ({bound_by}); SDPA "
-        f"{fmt_ms(lib_ms)} ({lib})")
+        f"({lib}) {fmt_ms(lib_ms)} (device {fmt_ms(lib_dev)})")
     check(err <= FLASH_OUT_TOL, f"flash out {(b, s, t, h, d)}: {err}")
     check(lse_err <= FLASH_LSE_TOL, f"flash lse {(b, s, t, h, d)}: {lse_err}")
-    return dict(err=max(err, lse_err), ms=ms, plain_ms=plain_ms, dev=dev,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-                library=lib)
+    check(rerun_equal, f"flash fwd {(b, s, t, h, d)}: a second launch "
+          "differs from the first")
+    return dict(shape=(b, s, t, h, d), err=max(err, lse_err), ms=ms,
+                plain_ms=plain_ms, dev=dev, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms, library=lib,
+                library_dev=lib_dev)
 
 
 def _flash_bwd_case(b, s, t, h, d, gen):
@@ -366,7 +385,8 @@ def _flash_bwd_case(b, s, t, h, d, gen):
                                           iters=2, repeats=3)
         res[f"plain_{name}_dev"] = device_ms(lambda: plain(*args), iters=2)
     res["delta_ms"] = time_ms(lambda: F.flash_attention_bwd_delta(out, dout))
-    res["library_ms"], res["library"] = sdpa_ms(q, k, v, dout)
+    res["library_ms"], res["library"], res["library_dev"] = sdpa_ms(
+        q, k, v, dout)
     work = b * h * s * t * d  # 6 flops per unit in dq, 8 in dk/dv
     # bytes: q, k, v, dO bf16 and lse, Delta fp32 read; dq or dk, dv written
     read = 2 * (2 * s + 2 * t) * b * h * d + 8 * b * h * s
@@ -388,7 +408,8 @@ def _flash_bwd_case(b, s, t, h, d, gen):
         f"TFLOP/s; bounds dq {res['dq_bound'][0]:.4f} dkv "
         f"{res['dkv_bound'][0]:.4f} ms; dq + dkv + Delta "
         f"{res['dq_ms'] + res['dkv_ms'] + res['delta_ms']:.4f} ms vs SDPA "
-        f"backward {fmt_ms(res['library_ms'])} ({res['library']})")
+        f"backward ({res['library']}) {fmt_ms(res['library_ms'])} (device "
+        f"{fmt_ms(res['library_dev'])})")
     check(max(rel.values()) <= FLASH_BWD_TOL,
           f"flash bwd {(b, s, t, h, d)}: {rel}")
     return res
@@ -449,12 +470,13 @@ def _probe_case():
     res["plain_dev"] = device_ms(lambda: P.probe_reference(x))
     one = torch.ones((), device="cuda")
     res["library_ms"] = time_ms(lambda: torch.add(one, x, alpha=2.0))
+    res["library_dev"] = device_ms(lambda: torch.add(one, x, alpha=2.0))
     log(f"probe {list(P.PROBE_SHAPE)} fp32 x*2+1: max_abs_err "
         f"{res['max_abs_err']:.3e} (tol 0); kernel {res['ms']:.4f} ms "
         f"({res['gbps']:.1f} GB/s; device {fmt_ms(res['dev'])}) vs plain "
         f"{res['plain_ms']:.4f} ms ({res['plain_gbps']:.1f} GB/s; device "
         f"{fmt_ms(res['plain_dev'])}); torch.add(1, x, alpha=2) "
-        f"{res['library_ms']:.4f} ms")
+        f"{res['library_ms']:.4f} ms (device {fmt_ms(res['library_dev'])})")
     check(res["max_abs_err"] == 0.0, f"probe error {res['max_abs_err']}")
     return res
 
@@ -895,16 +917,29 @@ def kernel_report(k: dict, launches: dict) -> dict:
                   k["probe"]["plain_ms"], "[4096, 4096] fp32", ew["probe"],
                   (k["probe"]["library_ms"], "torch.add(1, x, alpha=2)")),
     }
-    # the kernels' own time per call from torch.profiler, where measured
+    # the kernels' own time per call from torch.profiler, where measured,
+    # and the library call's
     device = {"flash_fwd": fl["dev"], "flash_bwd_dq": bwd["dq_dev"],
               "flash_bwd_dkv": bwd["dkv_dev"], "fused_adamw": adamw["dev"],
               "probe": k["probe"]["dev"]}
+    library_device = {"flash_fwd": fl["library_dev"],
+                      "flash_bwd_dq": bwd["library_dev"],
+                      "flash_bwd_dkv": bwd["library_dev"],
+                      "probe": k["probe"]["library_dev"]}
+    # the forward at each attention site of the serving step
+    extra = {"flash_fwd": {"sites": [
+        {"at": "B={} S={} T={} H={} D={}".format(*r["shape"]),
+         "ms": r["ms"], "device_ms": r["dev"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"], "library_device_ms": r["library_dev"]}
+        for r in k["flash"] if r["shape"] in FLASH_SITES]}}
     return {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": tpu,
          "launches": launches[name], "max_abs_err": err, "ms": ms,
          "device_ms": device.get(name), "plain_ms": plain_ms,
          "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib[0],
-         "library": lib[1], "at": at}
+         "library_device_ms": library_device.get(name), "library": lib[1],
+         "at": at, **extra.get(name, {})}
         for name, (route, source, tpu) in KERNELS.items()
         for err, ms, plain_ms, at, bnd, lib in (measured[name],)]}
 

@@ -3,55 +3,100 @@
 // Replaces the Pallas kernel `_fwd_kernel` of
 // sdxl_training_improvements_tpu/ops/flash_attention.py (driven by `_fwd`).
 // It computes, per (batch, head), out = softmax(q k^T * scale) v without
-// materialising the [S, T] score matrix, and the per-row logsumexp that a
-// backward pass recomputes the probabilities from.
+// materialising the [S, T] score matrix, and the per-row logsumexp that the
+// backward kernels (flash_bwd.cu) recompute the probabilities from.
 //
-// Layout: one thread block of 4 warps per (batch*head, 64-row q tile).  Each
-// warp owns 16 q rows, keeps them as mma.sync A fragments in registers for
-// the whole kv loop, and walks 64-row K/V tiles staged in shared memory (V is
-// stored transposed so its B fragments are 32-bit shared loads).  Products
-// run on the tensor cores through mma.sync m16n8k16 (bf16 in, fp32
-// accumulate); the softmax is online: a running max, a normaliser and an
-// fp32 output accumulator rescaled per tile, as in the Pallas kernel.
-// Bound: at SDXL's D = 64 the kernel does 4*S*T*D flops for 2*(S+T)*D*2
-// bytes, so it is compute-bound; this first version has no cp.async/TMA
-// pipelining and no wgmma, so it reaches a fraction of the tensor-core rate.
+// Bound: 4*S*T*D flops for 2*(S+T)*D*2 bytes, so at SDXL's D = 64 the
+// tensor cores are the limit (0.087 ms for B2 S=T=4096 H10 at 989 TFLOP/s).
+// At D = 64 the softmax's exponentials (one per score, on the 16-a-cycle
+// MUFU unit) take about as long as the two products, so the design is
+// about keeping the tensor cores busy while the exponentials run.  The
+// warp-specialised Hopper shape of the backward (hopper.cuh for the
+// building blocks):
 //
-// The ragged kv edge (T = 77 text tokens) is masked here from T itself, so
-// the wrapper pads nothing: rows >= T load as zeros and their logits are set
-// to -1e30 before the max, as the Pallas kernel masks columns >= kv_valid.
-// Inputs are addressed through (batch, seq, head) strides with a unit head
-// dim stride, so the projections' [B, S, H*D] outputs are read in place.
+// * one block per (batch*head, 128-row q tile) and three warpgroups: a
+//   producer whose one thread issues TMA and whose group gives its
+//   registers up (setmaxnreg 24), and two consumer warpgroups at 240
+//   registers that each own 64 q rows and keep their fp32 output
+//   accumulator, running max and running sum in registers for the whole
+//   kv loop;
+// * the q tile arrives once by TMA; K and V tiles (128 rows, 64 at
+//   D = 128) stream through a ring of 3 stages (2 starve the overlapped
+//   loop, which still reads tile j-1's V while tile j's scores run; 4 are
+//   no faster) with a full barrier each for K and for V (the scores need
+//   only K) and an empty barrier the consumers release;
+// * S = Q K^T is an SS wgmma, both operands K-major; the online softmax runs
+//   on the accumulator layout in log2 units (scale folded into one FFMA
+//   before ex2), a quad of threads shares each row; P is rounded to bf16 in
+//   registers, as the Pallas kernel casts p to v's dtype, and O += P V is an
+//   RS wgmma that reads V MN-major from its TMA buffer (trans-b): nothing is
+//   transposed in shared memory;
+// * overlap inside a warpgroup: tile j's Q K^T and tile j-1's P V are
+//   issued together, tile j's softmax runs while P V does, and the output
+//   is rescaled once P V has landed;
+// * overlap across warpgroups (ping-pong): the two consumers take turns on
+//   the tensor cores through two named barriers, so one warpgroup's
+//   softmax runs while the other's products do;
+// * the epilogue writes out = O / l as bf16 over the warpgroup's own q rows
+//   in shared memory, swizzled as TMA reads them, and one thread stores
+//   them by TMA; lse = (m * scale_log2 + log2 l) * ln 2 goes out from
+//   registers.
 //
-// C interface for ctypes; the launcher returns the cudaError_t of the launch.
+// Masking from S and T, with no padded copies: TMA fills rows >= S and
+// >= T with zeros and clips the store at S; columns >= T get a score of
+// -inf on the last kv tile only (and only when T is not a multiple of the
+// tile), so the T = 4096 loop pays no mask.
+//
+// Deterministic: no atomics, every sum in a fixed order, so two launches
+// on the same inputs give bit-equal out and lse (the remat step recomputes
+// this forward and must see the same values).
+//
+// Inputs are read through (batch, seq, head) strides with a unit head-dim
+// stride, so the projections' [B, S, H*D] outputs are read in place.
+//
+// C interface for ctypes; the launcher returns the cudaError_t of the launch
+// (or hopper::kEncodeError + the CUresult of a tensor map it cannot build).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;
-constexpr int kBlockN = 64;
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
+using namespace hopper;
 
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int kOwn = 128;      // q rows of a block, 64 per consumer
+constexpr int kThreads = 384;  // 2 consumer warpgroups + the producer's
+constexpr int kStages = 3;
+constexpr int kTurnBar = 1;   // named barriers 1, 2: consumer 0's, 1's turn
+constexpr int kStoreBar = 3;  // 3, 4: consumer 0's, 1's output staged
+constexpr int kSmemLimit = 232448;    // the opt-in limit of a block on sm_90
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Cfg {
+  static constexpr int kCW = D < 64 ? D : 64;  // columns per swizzled chunk
+  static constexpr int kChunks = D / kCW;
+  static constexpr int kRow = 2 * kCW;          // bytes per chunk row
+  // rows of a K/V tile: the consumers hold a 64 x kStream score tile, its
+  // bf16 copy and the 64 x D output in registers
+  static constexpr int kStream = D <= 64 ? 128 : 64;
+  static constexpr int kQBytes = kOwn * D * 2;
+  static constexpr int kTileBytes = kStream * D * 2;
+  // q | K[stages] | V[stages] | barriers q_full, full_k[s], full_v[s],
+  // empty[s] | slack to align the base to 1024 bytes
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kSmem = kBarOffset + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kSmem <= kSmemLimit, "K/V ring exceeds shared memory");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -64,199 +109,388 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffff, x, 2);
 }
 
+// Addresses of one block's shared memory, aligned to the 1024-byte swizzle
+// atom, and its barriers initialised.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int H, int S, int T,
-                 int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                 int64_t k_sb, int64_t k_st, int64_t k_sh,
-                 int64_t v_sb, int64_t v_st, int64_t v_sh,
-                 int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                 float scale_log2) {
-  constexpr int kKStride = D + 8;        // padded row of the K tile
-  constexpr int kVStride = kBlockN + 8;  // padded row of the transposed V tile
-  constexpr int kChunks = D / 8;         // 16-byte chunks per K/V row
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kKStride];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[D * kVStride];
+struct Smem {
+  using C = Cfg<D>;
+  uint32_t base;
 
+  __device__ __forceinline__ Smem(unsigned char* raw) {
+    base = (smem_u32(raw) + 1023) & ~1023u;
+    if (threadIdx.x == 0) {
+      mbar_init(q_full(), 1);
+      for (int i = 0; i < kStages; ++i) {
+        mbar_init(full_k(i), 1);
+        mbar_init(full_v(i), 1);
+        mbar_init(empty(i), 2 * 128);
+      }
+      fence_barrier_init();
+    }
+    __syncthreads();
+  }
+  __device__ __forceinline__ uint32_t q() const { return base; }
+  __device__ __forceinline__ uint32_t k(int st) const {
+    return base + C::kQBytes + st * C::kTileBytes;
+  }
+  __device__ __forceinline__ uint32_t v(int st) const {
+    return base + C::kQBytes + (kStages + st) * C::kTileBytes;
+  }
+  __device__ __forceinline__ uint32_t q_full() const {
+    return base + C::kBarOffset;
+  }
+  __device__ __forceinline__ uint32_t full_k(int st) const {
+    return q_full() + 8 * (1 + st);
+  }
+  __device__ __forceinline__ uint32_t full_v(int st) const {
+    return q_full() + 8 * (1 + kStages + st);
+  }
+  __device__ __forceinline__ uint32_t empty(int st) const {
+    return q_full() + 8 * (1 + 2 * kStages + st);
+  }
+};
+
+// Load `rows` rows from r0 of one tensor into `dst` (one box per chunk),
+// counted on `bar`.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, uint32_t bar,
+                                          const CUtensorMap* map, int rows,
+                                          int h, int r0, int b) {
+  using C = Cfg<D>;
+  mbar_arrive_expect_tx(bar, rows * D * 2);
+#pragma unroll
+  for (int c = 0; c < C::kChunks; ++c) {
+    tma_load_4d(dst + c * rows * C::kRow, map, bar, c * C::kCW, h, r0, b);
+  }
+}
+
+// s[64 x kStream] = Q K^T over the head dim: Q the consumer's 64 rows of the
+// q tile, K a streamed tile, both K-major.
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[Cfg<D>::kStream / 2],
+                                       uint32_t q, uint32_t k) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / (C::kCW / 16);
+    const int off = (kk % (C::kCW / 16)) * 32;
+    wgmma_ss<C::kStream>(s, desc_k<C::kCW>(q + c * kOwn * C::kRow + off),
+                         desc_k<C::kCW>(k + c * C::kStream * C::kRow + off),
+                         kk > 0);
+  }
+}
+
+// o[64 x D] += P V over the kStream rows of a V tile read MN-major, P as
+// A fragments.
+template <int D>
+__device__ __forceinline__ void accumulate(
+    float (&o)[Cfg<D>::kChunks][Cfg<D>::kCW / 2],
+    const uint32_t (&p)[Cfg<D>::kStream / 16][4], uint32_t v) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < C::kStream / 16; ++kk) {
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) {
+      wgmma_rs<C::kCW>(o[c], p[kk],
+                       desc_mn<C::kCW>(v + c * C::kStream * C::kRow +
+                                       kk * 16 * C::kRow));
+    }
+  }
+}
+
+// The online softmax of one consumer thread's two rows (r0 and r0 + 8).
+// s[4 n + e] is the score of row r0 (e < 2) or r0 + 8 and kv column
+// n0 + 8 n + 2 t + e % 2.  m is the running row max of the raw scores
+// (scale > 0, so it is also the max of the scaled ones), l this thread's
+// share of the running row sum.
+template <int N>
+struct OnlineSoftmax {
+  float m[2];
+  float l[2];
+  float scale_log2;
+
+  __device__ __forceinline__ explicit OnlineSoftmax(float scale_log2_)
+      : scale_log2(scale_log2_) {
+    m[0] = m[1] = -__int_as_float(0x7f800000);
+    l[0] = l[1] = 0.f;
+  }
+
+  // s <- exp2((s - m_new) * scale_log2), l <- l * alpha + rowsum(s);
+  // alpha = exp2((m_old - m_new) * scale_log2) rescales the output.
+  // kMask sets columns >= T to -inf first (the last, ragged kv tile).
+  template <bool kMask>
+  __device__ __forceinline__ void step(float (&s)[N / 2], int col0, int T,
+                                       float (&alpha)[2]) {
+    if (kMask) {
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (col0 + 8 * n + (e & 1) >= T) {
+            s[4 * n + e] = -__int_as_float(0x7f800000);
+          }
+        }
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+    float ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = ex2((m[r] - mx[r]) * scale_log2);
+      m[r] = mx[r];
+      ms[r] = mx[r] * scale_log2;
+    }
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * n + e] = ex2(fmaf(s[4 * n + e], scale_log2, -ms[e >> 1]));
+        sum[e >> 1] += s[4 * n + e];
+      }
+    }
+    l[0] = l[0] * alpha[0] + sum[0];
+    l[1] = l[1] * alpha[1] + sum[1];
+  }
+};
+
+template <int D>
+__device__ __forceinline__ void rescale(
+    float (&o)[Cfg<D>::kChunks][Cfg<D>::kCW / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int c = 0; c < Cfg<D>::kChunks; ++c) {
+#pragma unroll
+    for (int i = 0; i < Cfg<D>::kCW / 2; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+  }
+}
+
+// The consumers' turns on the tensor cores: a warpgroup issues its
+// products between begin() and end(); end() hands the turn to the other.
+// Consumer 1 hands consumer 0 the first turn, and consumer 0 takes one turn
+// more after its loop, so every arrival on a barrier is waited for.
+struct Turn {
+  int wg;
+  __device__ __forceinline__ void start() const {
+    if (wg == 1) bar_arrive(kTurnBar, 256);
+  }
+  __device__ __forceinline__ void begin() const {
+    bar_sync(kTurnBar + wg, 256);
+  }
+  __device__ __forceinline__ void end() const {
+    bar_arrive(kTurnBar + 1 - wg, 256);
+  }
+  __device__ __forceinline__ void finish() const {
+    if (wg == 0) bar_sync(kTurnBar, 256);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap o_map,
+                 float* __restrict__ lse, int H, int S, int T,
+                 float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int kStream = C::kStream;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<D> sm(smem_raw);
+  const int m0 = blockIdx.x * kOwn;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
+  const int n_tiles = (T + kStream - 1) / kStream;
 
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-
-  // This thread's two q rows: r0 and r0 + 8.
-  const int r0 = blockIdx.x * kBlockM + warp * 16 + g;
-  const int r1 = r0 + 8;
-
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < S ? load_pair(qb + r0 * q_ss + c) : 0u;
-    qf[kk][1] = r1 < S ? load_pair(qb + r1 * q_ss + c) : 0u;
-    qf[kk][2] = r0 < S ? load_pair(qb + r0 * q_ss + c + 8) : 0u;
-    qf[kk][3] = r1 < S ? load_pair(qb + r1 * q_ss + c + 8) : 0u;
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  }
-  float m0 = kNegInf, m1 = kNegInf;  // running max, log2 units
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the normaliser
-
-  for (int n0 = 0; n0 < T; n0 += kBlockN) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = tid; i < kBlockN * kChunks; i += kThreads) {
-      const int row = i / kChunks;
-      const int c8 = (i - row * kChunks) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + row < T) {
-        kv = *reinterpret_cast<const uint4*>(kb + (n0 + row) * k_st + c8);
-        vv = *reinterpret_cast<const uint4*>(vb + (n0 + row) * v_st + c8);
-      }
-      *reinterpret_cast<uint4*>(k_s + row * kKStride + c8) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt_s[(c8 + j) * kVStride + row] = ve[j];
-    }
-    __syncthreads();
-
-    // s = q k^T for this warp's 16 rows x 64 kv columns.
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = k_s + (nt * 8 + g) * kKStride + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        mma_16816(s[nt], qf[kk], load_pair(kr + kk * 16),
-                  load_pair(kr + kk * 16 + 8));
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer: the q tile once, then K and V tiles
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      load_tile<D>(sm.q(), sm.q_full(), &q_map, kOwn, h, m0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kStages;
+        mbar_wait(sm.empty(st), ((j / kStages) & 1) ^ 1);
+        load_tile<D>(sm.k(st), sm.full_k(st), &k_map, kStream, h,
+                     j * kStream, b);
+        load_tile<D>(sm.v(st), sm.full_v(st), &v_map, kStream, h,
+                     j * kStream, b);
       }
     }
+  } else {  // consumers: warpgroup wg owns q rows [wg * 64, wg * 64 + 64)
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid & 31;
+    const int t = lane & 3;
+    const int r0 = m0 + wg * 64 + (tid >> 5) * 16 + (lane >> 2);
+    // only the last tile can hold columns >= T
+    const bool ragged = T % kStream != 0;
+    const Turn turn{wg};
+    const uint32_t q_wg = sm.q() + wg * 64 * C::kRow;
 
-    float mx0 = kNegInf, mx1 = kNegInf;
+    float acc[C::kChunks][C::kCW / 2];
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      const int col = n0 + nt * 8 + 2 * t;
+    for (int c = 0; c < C::kChunks; ++c) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = col + (e & 1) < T;
-        s[nt][e] = valid ? s[nt][e] * scale_log2 : kNegInf;
+      for (int i = 0; i < C::kCW / 2; ++i) acc[c][i] = 0.f;
+    }
+    float s[kStream / 2];
+    uint32_t p[kStream / 16][4];
+    float alpha[2];
+    OnlineSoftmax<kStream> soft(scale_log2);
+
+    turn.start();
+    mbar_wait(sm.q_full(), 0);
+    // tile 0's scores alone; then tile j's scores with tile j-1's P V
+    mbar_wait(sm.full_k(0), 0);
+    turn.begin();
+    wgmma_fence();
+    scores<D>(s, q_wg, sm.k(0));
+    wgmma_commit();
+    turn.end();
+    wgmma_wait<0>();
+    fence_operands(s);
+    if (n_tiles == 1 && ragged) {
+      soft.template step<true>(s, 2 * t, T, alpha);
+    } else {
+      soft.template step<false>(s, 2 * t, T, alpha);
+    }
+    acc_to_a<kStream>(s, p);
+    for (int j = 1; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      const int prev = (j - 1) % kStages;
+      mbar_wait(sm.full_k(st), (j / kStages) & 1);
+      mbar_wait(sm.full_v(prev), ((j - 1) / kStages) & 1);
+      turn.begin();
+      wgmma_fence();
+      scores<D>(s, q_wg, sm.k(st));
+      wgmma_commit();
+      accumulate<D>(acc, p, sm.v(prev));
+      wgmma_commit();
+      turn.end();
+      wgmma_wait<1>();  // the scores; P V may still run
+      fence_operands(s);
+      if (j == n_tiles - 1 && ragged) {
+        soft.template step<true>(s, j * kStream + 2 * t, T, alpha);
+      } else {
+        soft.template step<false>(s, j * kStream + 2 * t, T, alpha);
       }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) fence_operands(acc[c]);
+      fence_operands(p);
+      mbar_arrive(sm.empty(prev));
+      rescale<D>(acc, alpha);
+      acc_to_a<kStream>(s, p);
     }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float alpha0 = exp2f(m0 - mn0);
-    const float alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
+    const int last = (n_tiles - 1) % kStages;
+    mbar_wait(sm.full_v(last), ((n_tiles - 1) / kStages) & 1);
+    turn.begin();
+    wgmma_fence();
+    accumulate<D>(acc, p, sm.v(last));
+    wgmma_commit();
+    turn.end();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) fence_operands(acc[c]);
+    fence_operands(p);
+    mbar_arrive(sm.empty(last));
+    turn.finish();
 
-    float ps0 = 0.f, ps1 = 0.f;
+    // out = acc / l as bf16, lse = (m * scale_log2 + log2 l) * ln 2
+    float inv[2];
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mn0);
-      s[nt][1] = exp2f(s[nt][1] - mn0);
-      s[nt][2] = exp2f(s[nt][2] - mn1);
-      s[nt][3] = exp2f(s[nt][3] - mn1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
+    for (int r = 0; r < 2; ++r) {
+      soft.l[r] = quad_sum(soft.l[r]);
+      inv[r] = 1.f / soft.l[r];
     }
-    l0 = l0 * alpha0 + ps0;
-    l1 = l1 * alpha1 + ps1;
+    // staged over the warpgroup's own q rows (no longer read), swizzled as
+    // TMA reads them, then stored by one thread (rows >= S clipped)
+    const int lr = (tid >> 5) * 16 + (lane >> 2);
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= alpha0;
-      acc[dt][1] *= alpha0;
-      acc[dt][2] *= alpha1;
-      acc[dt][3] *= alpha1;
-    }
-
-    // acc += p v: the s accumulators of two adjacent 8-column tiles are
-    // exactly the A fragment of one 16-deep k step.
+    for (int c = 0; c < C::kChunks; ++c) {
+      const uint32_t chunk = q_wg + c * kOwn * C::kRow;
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vr =
-            vt_s + (dt * 8 + g) * kVStride + kk * 16 + 2 * t;
-        mma_16816(acc[dt], pf, load_pair(vr), load_pair(vr + 8));
+      for (int jj = 0; jj < C::kCW / 8; ++jj) {
+        const int byte = 2 * (8 * jj + 2 * t);
+        st_shared(chunk + swizzled<C::kCW>(lr, byte),
+                  pack_bf16(acc[c][4 * jj] * inv[0],
+                            acc[c][4 * jj + 1] * inv[0]));
+        st_shared(chunk + swizzled<C::kCW>(lr + 8, byte),
+                  pack_bf16(acc[c][4 * jj + 2] * inv[1],
+                            acc[c][4 * jj + 3] * inv[1]));
       }
     }
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+    fence_proxy_async();
+    bar_sync(kStoreBar + wg, 128);
+    if (tid == 0) {
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r0 < S) {
-      *reinterpret_cast<uint32_t*>(ob + r0 * o_ss + c) =
-          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
+      for (int c = 0; c < C::kChunks; ++c) {
+        tma_store_4d(&o_map, q_wg + c * kOwn * C::kRow, c * C::kCW, h,
+                     m0 + wg * 64, b);
+      }
+      tma_store_commit_and_wait();
     }
-    if (r1 < S) {
-      *reinterpret_cast<uint32_t*>(ob + r1 * o_ss + c) =
-          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+    if (t == 0) {
+      const int64_t rows = static_cast<int64_t>(bh) * S;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (r0 + 8 * r < S) {
+          lse[rows + r0 + 8 * r] =
+              (soft.m[r] * scale_log2 + log2f(soft.l[r])) * kLn2;
+        }
+      }
     }
-  }
-  if (t == 0) {
-    const float ln2 = 0.6931471805599453f;
-    if (r0 < S) lse[(int64_t)bh * S + r0] = (m0 + log2f(l0)) * ln2;
-    if (r1 < S) lse[(int64_t)bh * S + r1] = (m1 + log2f(l1)) * ln2;
   }
 }
 
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* o, void* lse,
-            int B, int H, int S, int T, const int64_t* st, float scale_log2,
-            cudaStream_t stream) {
-  dim3 grid((S + kBlockM - 1) / kBlockM, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, S, T, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale_log2);
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int H, int S, int T, const int64_t* st, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap q_map, k_map, v_map, o_map;
+  int rc = make_map<C::kCW>(&q_map, q, B, S, H, D, st[0], st[1], st[2], kOwn);
+  if (rc == 0) {
+    rc = make_map<C::kCW>(&k_map, k, B, T, H, D, st[3], st[4], st[5],
+                          C::kStream);
+  }
+  if (rc == 0) {
+    rc = make_map<C::kCW>(&v_map, v, B, T, H, D, st[6], st[7], st[8],
+                          C::kStream);
+  }
+  if (rc == 0) {
+    rc = make_map<C::kCW>(&o_map, o, B, S, H, D, st[9], st[10], st[11], 64);
+  }
+  if (rc != 0) return rc;
+  static uint64_t smem_allowed = 0;  // devices where the limit is raised
+  cudaError_t e = allow_smem(flash_fwd_kernel<D>, C::kSmem, smem_allowed);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_fwd_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
+      q_map, k_map, v_map, o_map, static_cast<float*>(lse), H, S, T,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn.
+// strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn;
+// scale > 0.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int S, int T,
                               int D, const int64_t* strides, float scale,
                               void* stream) {
-  const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: launch<16>(q, k, v, o, lse, B, H, S, T, strides, scale_log2, st); break;
-    case 32: launch<32>(q, k, v, o, lse, B, H, S, T, strides, scale_log2, st); break;
-    case 64: launch<64>(q, k, v, o, lse, B, H, S, T, strides, scale_log2, st); break;
-    case 128: launch<128>(q, k, v, o, lse, B, H, S, T, strides, scale_log2, st); break;
+    case 16: return launch<16>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
+    case 32: return launch<32>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
+    case 64: return launch<64>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
+    case 128: return launch<128>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

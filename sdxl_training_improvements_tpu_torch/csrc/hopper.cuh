@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels (the
-// flash-attention backward, flash_bwd.cu): mbarriers, TMA tile loads through
-// 4-D tensor maps, warpgroup MMA (wgmma) with shared-memory matrix
-// descriptors, and register reallocation (setmaxnreg).  Inline PTX only, so
+// flash-attention forward and backward, flash_fwd.cu and flash_bwd.cu):
+// mbarriers, named barriers, TMA tile loads through 4-D tensor maps,
+// warpgroup MMA (wgmma) with shared-memory matrix descriptors, and register
+// reallocation (setmaxnreg).  Inline PTX only, so
 // a source that includes it builds in seconds with a plain C interface (no
 // CUTLASS/CuTe templates).
 //
@@ -66,6 +67,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
   } while (!done);
 }
 
+// ---------------------------------------------------------------- named barriers
+
+// Barrier `id` (1-15; 0 is __syncthreads) completes once `threads` threads
+// have reached it: bar_sync waits for that, bar_arrive only counts.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------- TMA
 
 // Copy the box at coordinates (c0, c1, c2, c3), innermost first, of the
@@ -80,6 +93,42 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Copy the box at `src` in shared memory to the tensor map's coordinates
+// (c0, c1, c2, c3); elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Commit the thread's TMA stores, and wait until they have read shared
+// memory.
+__device__ __forceinline__ void tma_store_commit_and_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Make this thread's writes to shared memory visible to TMA (the async
+// proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of (row, byte) in a chunk of CW bf16 columns, as the TMA
+// swizzle of hopper's tiles places it: the 16-byte unit index is XORed with
+// the row's position in the 1024-byte atom.
+template <int CW>
+__device__ __forceinline__ uint32_t swizzled(int row, int byte) {
+  constexpr uint32_t mask = CW == 64 ? 7 : CW == 32 ? 3 : 1;
+  const uint32_t off = static_cast<uint32_t>(row * 2 * CW + byte);
+  return off ^ (((off >> 7) & mask) << 4);
 }
 
 // ---------------------------------------------------------------- registers
@@ -100,6 +149,16 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for register A operands, read by wgmma until its wait.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
 }
 
 // ---------------------------------------------------------------- wgmma

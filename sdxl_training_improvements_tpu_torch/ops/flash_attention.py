@@ -3,7 +3,10 @@
 
 Port of ``sdxl_training_improvements_tpu/ops/flash_attention.py``.
 
-* forward: ``csrc/flash_fwd.cu`` replaces the Pallas ``_fwd_kernel``;
+* forward: ``csrc/flash_fwd.cu`` replaces the Pallas ``_fwd_kernel``: a
+  block per (b*h, 128-row q tile) with a TMA producer warp and two
+  consumer warpgroups that stream K/V tiles through an mbarrier ring,
+  multiply with wgmma and take turns on the tensor cores;
 * backward: ``csrc/flash_bwd.cu`` replaces ``_bwd_dq_kernel`` (dq, a block
   per q tile looping over kv tiles) and ``_bwd_dkv_kernel`` (dk and dv, a
   block per kv tile looping over q tiles, the q loop split over several
@@ -181,8 +184,6 @@ def _check(q, k, v, *more):
                          f"v {tuple(v.shape)} do not match")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
     for x in (q, k, v) + more:
         if x.dtype != torch.bfloat16 or x.device != q.device:
             raise TypeError("flash kernel takes bf16 q, k, v on one device")
@@ -190,26 +191,30 @@ def _check(q, k, v, *more):
         raise ValueError("empty sequence")
     if b * h > 65535:  # grid.y of the launch
         raise ValueError(f"batch * heads = {b * h} exceeds 65535")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernel needs CUDA tensors, got {q.device}")
 
 
 def flash_attention_fwd_cuda(q, k, v, scale: Optional[float] = None):
-    """Launch the CUDA kernel; raises on what it does not take."""
+    """Launch the CUDA kernel; raises on what it does not take (the kernel
+    takes the row max of the unscaled scores, so scale must be > 0)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if not scale > 0:
+        raise ValueError(f"flash forward needs scale > 0, got {scale}")
     _check(q, k, v)
     b, s, h, d = q.shape
     t = k.shape[1]
-    scale = d ** -0.5 if scale is None else scale
     q, k, v = _addressable(q), _addressable(k), _addressable(v)
     out = torch.empty((b, s, h, d), device=q.device, dtype=torch.bfloat16)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     strides = (ctypes.c_int64 * 12)(
-        *[x.stride(i) for x in (q, k, v, out) for i in range(3)])
-    fn = _library()
+        *(_strides(q) + _strides(k) + _strides(v) + _strides(out)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), b, h, s, t, d, strides, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError_t {rc}")
+        rc = _library()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, s, t, d, strides, float(scale), stream)
+    _raise_on(rc, "flash_fwd")
     flash_attention_fwd_cuda.launches += 1
     return out, lse
 

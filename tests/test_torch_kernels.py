@@ -172,15 +172,29 @@ def test_gn_kernels_match_plain(cuda, shape, dtype, eps, tol):
                                        (2, 4096, 77, 2, 64),
                                        (1, 100, 77, 3, 16),
                                        (1, 130, 200, 2, 32),
-                                       (1, 130, 200, 2, 128)])
+                                       (1, 130, 200, 2, 128),
+                                       (1, 127, 77, 2, 16),
+                                       (1, 129, 129, 2, 16),
+                                       (1, 300, 300, 2, 32),
+                                       (1, 129, 77, 3, 32),
+                                       (1, 127, 127, 2, 64),
+                                       (2, 300, 129, 3, 64),
+                                       (1, 129, 77, 2, 128),
+                                       (1, 300, 300, 2, 128),
+                                       (2, 4096, 4096, 10, 64)])
 def test_flash_kernel_matches_plain(cuda, b, s, t, h, d):
+    """Every head dim, q lengths on both sides of the 128-row tile, the
+    77-token and 129-row kv edges, T = S, and the B2 H10 S=T=4096 site;
+    one launch per call, and a second launch bit-equal to the first."""
     q, k, v = _qkv(b, s, t, h, d, seed=9, device="cuda",
                    dtype=torch.bfloat16)
     before = _launches()[2]
     out, lse = TF.flash_attention_fwd_cuda(q, k, v)
-    ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v)
     torch.cuda.synchronize()
     assert _launches()[2] == before + 1
+    out2, lse2 = TF.flash_attention_fwd_cuda(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
@@ -192,9 +206,10 @@ def test_flash_kernel_reads_strided_projections(cuda):
     q = x.view(2, 300, 4, 64)
     kv = torch.randn(2, 77, 2 * 4 * 64, device="cuda").bfloat16()
     k, v = kv.view(2, 77, 2, 4, 64).unbind(2)
-    out, _ = TF.flash_attention_fwd_cuda(q, k, v)
-    ref, _ = TF.flash_attention_fwd_reference(q, k, v)
+    out, lse = TF.flash_attention_fwd_cuda(q, k, v)
+    ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda
