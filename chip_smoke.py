@@ -6,21 +6,25 @@ Phases, each printing what it found:
 
 1. environment: the card's name and power limit, torch/CUDA/Triton/nvcc;
    fails at once when no CUDA device is present;
-2. build: compiles the three CUDA sources (one ``nvcc`` each, all started
+2. build: compiles the four CUDA sources (one ``nvcc`` each, all started
    together) and the Triton kernels;
 3. every kernel against its plain PyTorch version at the main paths'
    shapes, with max errors, median CUDA-event times and device times of
-   both, and the rate: GN+SiLU, the flash forward (a second launch
-   bit-equal to the first; each serving attention site reported in the
-   kernel line's ``sites``), the flash backward
-   (dq and dk/dv), the fused bf16-SR AdamW (``torch.equal`` to plain) and
-   the startup probe; beside each, its bound (``bound_ms``: the larger of
-   its flops over the card's peak and its bytes over 3.35 TB/s) and, as a
-   yardstick the port never calls, one PyTorch call computing the same
-   function where there is one (``library_ms`` per call and
-   ``library_device_ms``, to hold against ``device_ms``): SDPA's forward
-   and backward under the backend with the least device time for the
-   flash kernels, ``torch.add`` for the probe;
+   both, and the rate: GN+SiLU (bf16, fp16, fp32), the flash forward (a
+   second launch bit-equal to the first; each serving attention site
+   reported in the kernel line's ``sites``), the flash backward (dq and
+   dk/dv, bit-equal on a second launch), the fused bf16-SR AdamW
+   (``torch.equal`` to plain) and the startup probe; the flash kernels of
+   the other precisions, fp16 (the Hopper kernels' second instantiation)
+   and fp32 (``csrc/flash_f32.cu``), at the four serving sites and, for
+   the backward, at B4 S=T=4096 too; beside each, its bound
+   (``bound_ms``: the larger of its flops over the card's peak for its
+   type and its bytes over 3.35 TB/s) and, as a yardstick the port never
+   calls, one PyTorch call computing the same function where there is one
+   (``library_ms`` per call and ``library_device_ms``, to hold against
+   ``device_ms``): SDPA's forward and backward in the same dtype under
+   the backend with the least device time for the flash kernels,
+   ``torch.add`` for the probe;
 4. the full-width SDXL-base UNet (bf16, weights from a seed) at 1024^2,
    batch 2, through the kernels and through the plain versions;
 5. serving: ``SDXLPipeline.from_model`` and one text-to-image call at
@@ -32,21 +36,33 @@ Phases, each printing what it found:
    split, peak memory, one profiled step and the kernels' launches;
 7. training parity: one forward and backward at batch 1, 1024^2, through
    the kernels and through the plain versions: loss and the relative L2
-   of all gradients.
+   of all gradients;
+8. fp16: the bf16 model freed, ``SDXLModel.from_config`` with
+   ``training.mixed_precision="fp16"`` at full width, one text-to-image
+   call at 1024x1024 as in phase 5 (where a value overflows fp16, the
+   first module that makes it non-finite, on the kernel and the plain
+   path) and one profiled UNet step, then one forward and backward at
+   batch 1, 512^2, through the kernels and the plain versions (the fp16
+   backward kernels' path);
+9. fp32 training: the settings of ``configs/ddpm_512_smoke.yaml``
+   (``DDPM_512_SMOKE``) at full SDXL-base width, ``mixed_precision "no"``,
+   plain ``adamw``, batch 1 at 512^2: phases 6 and 7 on that model.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failure raises and the
-script exits non-zero without that line.
+The line before the last is a JSON object with one entry per kernel and
+dtype; the last line is ``{"ok": true, "device": {...}}``.  Any failure
+raises and the script exits non-zero without that line.
 """
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
 from contextlib import ExitStack
+from typing import Optional
 from unittest import mock
 
 import numpy as np
@@ -57,10 +73,13 @@ STEPS = 8  # denoising steps of the measured text-to-image call
 DEVICE = "cuda"
 SIZE = 1024  # image side of the training phases; latents are SIZE // 8
 
-GN_SHAPES = (  # (shape, dtype, eps): UNet resnets bf16, VAE decoder fp32
+GN_SHAPES = (  # (shape, dtype, eps): UNet resnets in each precision,
+    # VAE decoder fp32
     ((2, 16384, 320), torch.bfloat16, 1e-5),
     ((2, 4096, 640), torch.bfloat16, 1e-5),
     ((2, 1024, 2560), torch.bfloat16, 1e-5),
+    ((2, 4096, 640), torch.float16, 1e-5),
+    ((2, 4096, 640), torch.float32, 1e-5),
     ((1, 65536, 512), torch.float32, 1e-6),
     ((1, 1048576, 128), torch.float32, 1e-6),
 )
@@ -78,6 +97,10 @@ FLASH_SHAPES = (  # (B, S, T, heads, D)
 # the b2 serving step's attention sites, reported one by one for flash_fwd
 FLASH_SITES = ((2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64),
                (2, 1024, 77, 20, 64), (2, 4096, 77, 10, 64))
+# the fp16 and fp32 kernels: the serving sites, and for the backward the
+# b4 training step's S=T=4096 site too
+FLASH_DTYPES = (torch.float16, torch.float32)
+FLASH_BWD_SITES = FLASH_SITES + ((4, 4096, 4096, 10, 64),)
 FLASH_BWD_SHAPES = (  # (B, S, T, heads, D): the b4 training step's sites
     (4, 4096, 4096, 10, 64),
     (4, 1024, 1024, 20, 64),
@@ -94,11 +117,21 @@ ADAMW_SHAPES = (  # (leaf shape, channels_last, gradient dtype, decay fires)
     ((1000003,), False, torch.float32, True),  # not a multiple of a block
     ((1280,), False, torch.bfloat16, True),  # a bias, bf16 accumulator
 )
-GN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-FLASH_OUT_TOL, FLASH_LSE_TOL = 2e-2, 1e-3
-# max abs error over the plain gradient's max magnitude: the kernels round
-# P and dS to bf16 for their products, the plain backward keeps fp32
-FLASH_BWD_TOL = 2e-2
+# max abs error against the fp32-interior plain version: about half an
+# output ulp at |y| < 8 for the 16-bit types
+GN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+# flash forward out and lse: the 16-bit kernels round P to their type
+# before the P V product, the plain version after normalising; fp32 is the
+# Pallas kernels' own bar (tests/test_flash_attention.py)
+FLASH_OUT_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
+                 torch.float32: 2e-5}
+FLASH_LSE_TOL = {torch.bfloat16: 1e-3, torch.float16: 1e-3,
+                 torch.float32: 2e-5}
+# max abs error over the plain gradient's max magnitude: the 16-bit
+# kernels round P and dS to their type for their products, the plain
+# backward keeps fp32; the fp32 kernels differ in summation order only
+FLASH_BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3,
+                 torch.float32: 1e-4}
 UNET_REL_L2_TOL = 3e-2
 SLICE_REL_L2_TOL = 1e-1  # 8 CFG-5 steps compound the UNet's bf16 spread
 TRAIN_STEPS = 3
@@ -107,32 +140,70 @@ TRAIN_STEPS = 3
 # kernel's fp32 interior against the plain bf16 one)
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_L2_TOL = 2e-2
+# fp16 (phase 8): the loss at 8 times bf16's resolution; the gradients at
+# bf16's bar, as this unscaled loss puts them in fp16's subnormal range
+# (9.4% of the plain path's elements are 0 on an H100), where fp16 holds
+# fewer bits than bf16
+F16_LOSS_REL_TOL, F16_GRAD_REL_L2_TOL = 2e-3, TRAIN_GRAD_REL_L2_TOL
+# fp32 (phase 9): kernels and plain versions differ in summation order only
+F32_LOSS_REL_TOL, F32_GRAD_REL_L2_TOL = 1e-4, 1e-3
+F32_SIZE = 512
+# configs/ddpm_512_smoke.yaml as a Config.from_dict literal (the card's
+# machine has no pyyaml), with model_type "sdxl", as the file's first
+# comment says for the real run; its data section sets 512^2 (F32_SIZE)
+DDPM_512_SMOKE = {
+    "model": {"model_type": "sdxl", "prediction_type": "epsilon",
+              "use_ztsnr": False, "sigma_max": 80.0, "min_snr_gamma": None},
+    "optimizer": {"optimizer_type": "adamw", "learning_rate": 1.0e-5},
+    "training": {"method": "ddpm", "prediction_type": "epsilon",
+                 "batch_size": 1, "gradient_accumulation_steps": 1,
+                 "num_epochs": 1, "mixed_precision": "no"},
+}
 PROMPTS = ("a photograph of an astronaut riding a horse",
            "a watercolor painting of a lighthouse at dawn",
            "a close-up of a red fox in the snow",
            "an isometric illustration of a tiny city")
-# the wrappers of the main paths' kernels: route, source, TPU kernel
+# the main paths' kernel instantiations: route, source, TPU kernel.  A
+# name without a suffix is the bf16 one; "_f16" and "_f32" the others.
 SRC = "sdxl_training_improvements_tpu_torch/"
 TPU = "sdxl_training_improvements_tpu/ops/"
-KERNELS = {
-    "gn_silu_stats": ("triton", SRC + "ops/groupnorm.py",
-                      TPU + "groupnorm.py:148"),
-    "gn_silu_apply": ("triton", SRC + "ops/groupnorm.py",
-                      TPU + "groupnorm.py:161"),
-    "flash_fwd": ("cuda", SRC + "csrc/flash_fwd.cu",
-                  TPU + "flash_attention.py:49"),
-    "flash_bwd_dq": ("cuda", SRC + "csrc/flash_bwd.cu",
-                     TPU + "flash_attention.py:115"),
-    "flash_bwd_dkv": ("cuda", SRC + "csrc/flash_bwd.cu",
-                      TPU + "flash_attention.py:145"),
+SUFFIX = {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}
+KERNELS = {}
+for _dt, _sfx in SUFFIX.items():
+    _fwd, _bwd = (("flash_f32.cu",) * 2 if _dt == torch.float32
+                  else ("flash_fwd.cu", "flash_bwd.cu"))
+    KERNELS.update({
+        "gn_silu_stats" + _sfx: ("triton", SRC + "ops/groupnorm.py",
+                                 TPU + "groupnorm.py:148"),
+        "gn_silu_apply" + _sfx: ("triton", SRC + "ops/groupnorm.py",
+                                 TPU + "groupnorm.py:161"),
+        "flash_fwd" + _sfx: ("cuda", SRC + "csrc/" + _fwd,
+                             TPU + "flash_attention.py:49"),
+        "flash_bwd_dq" + _sfx: ("cuda", SRC + "csrc/" + _bwd,
+                                TPU + "flash_attention.py:115"),
+        "flash_bwd_dkv" + _sfx: ("cuda", SRC + "csrc/" + _bwd,
+                                 TPU + "flash_attention.py:145")})
+KERNELS.update({
     "fused_adamw": ("cuda", SRC + "csrc/fused_adamw.cu",
                     TPU + "fused_adamw.py:53"),
-    "probe": ("triton", SRC + "ops/probe.py", TPU + "probe.py:106"),
-}
-SERVING_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_fwd")
-# the card's peaks (H100 SXM data sheet, dense): bf16 tensor cores, fp32
-# outside them, device memory
+    "probe": ("triton", SRC + "ops/probe.py", TPU + "probe.py:106")})
+# the kernels each main path launches (the VAE's GroupNorm is fp32)
+SERVING_KERNELS = ("gn_silu_stats", "gn_silu_apply", "gn_silu_stats_f32",
+                   "gn_silu_apply_f32", "flash_fwd")
+TRAIN_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_fwd",
+                 "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw")
+F16_SERVING_KERNELS = ("gn_silu_stats_f16", "gn_silu_apply_f16",
+                       "gn_silu_stats_f32", "gn_silu_apply_f32",
+                       "flash_fwd_f16")
+F16_TRAIN_KERNELS = ("gn_silu_stats_f16", "gn_silu_apply_f16",
+                     "flash_fwd_f16", "flash_bwd_dq_f16", "flash_bwd_dkv_f16")
+F32_TRAIN_KERNELS = ("gn_silu_stats_f32", "gn_silu_apply_f32",
+                     "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+# the card's peaks (H100 SXM data sheet, dense): bf16 and fp16 tensor
+# cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK = {torch.bfloat16: PEAK_BF16, torch.float16: PEAK_BF16,
+        torch.float32: PEAK_FP32}
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
@@ -234,10 +305,10 @@ def phase_build() -> None:
 def _gn_case(shape, dtype, eps, gen):
     from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
     b, s, c = shape
-    x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 1.0
+    x = (torch.randn(shape, generator=gen, device=DEVICE) * 1.5 + 1.0
          ).to(dtype)
-    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
-    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
+    bias = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
     # stats kernel against plain per-group statistics
     var, mean = torch.var_mean(x.reshape(b, s, 32, c // 32).float(),
                                dim=(1, 3), correction=0)
@@ -262,7 +333,7 @@ def _gn_case(shape, dtype, eps, gen):
         return (y * torch.sigmoid(y)).to(dtype)
 
     res = dict(
-        err=err, stats_err=stats_err,
+        shape=shape, dtype=dtype, err=err, stats_err=stats_err,
         stats_ms=time_ms(lambda: G.gn_silu_stats_cuda(x, 32)),
         apply_ms=time_ms(lambda: G.gn_silu_apply_cuda(
             x, *stats, scale, bias, 32, eps)),
@@ -319,10 +390,17 @@ def sdpa_ms(q, k, v, dout=None):
     return found[best][0], best, found[best][1]
 
 
-def _flash_case(b, s, t, h, d, gen):
+def _timers(slow: bool):
+    """(time_ms, device_ms) keyword arguments: fewer calls for a kernel
+    that takes tens of ms (the fp32 ones at the larger sites)."""
+    return ((dict(warmup=1, iters=3, repeats=3), dict(iters=3)) if slow
+            else ({}, {}))
+
+
+def _flash_case(b, s, t, h, d, gen, dtype=torch.bfloat16):
     from sdxl_training_improvements_tpu_torch.ops import flash_attention as F
-    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda"
-                           ).to(torch.bfloat16) for n in (s, t, t))
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device=DEVICE
+                           ).to(dtype) for n in (s, t, t))
     out, lse = F.flash_attention_fwd_cuda(q, k, v)
     out2, lse2 = F.flash_attention_fwd_cuda(q, k, v)
     rerun_equal = torch.equal(out, out2) and torch.equal(lse, lse2)
@@ -330,44 +408,55 @@ def _flash_case(b, s, t, h, d, gen):
     ref, ref_lse = F.flash_attention_fwd_reference(q, k, v)
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
-    ms = time_ms(lambda: F.flash_attention_fwd_cuda(q, k, v))
+    del out, lse, ref, ref_lse
+    kw, dkw = _timers(dtype == torch.float32)
+    ms = time_ms(lambda: F.flash_attention_fwd_cuda(q, k, v), **kw)
     plain_ms = time_ms(lambda: F.flash_attention_fwd_reference(q, k, v),
                        warmup=1, iters=2, repeats=3)
-    dev = device_ms(lambda: F.flash_attention_fwd_cuda(q, k, v))
+    dev = device_ms(lambda: F.flash_attention_fwd_cuda(q, k, v), **dkw)
     plain_dev = device_ms(lambda: F.flash_attention_fwd_reference(q, k, v),
                           iters=2)
-    tflops = 4 * b * h * s * t * d / (ms * 1e-3) / 1e12
+    flops = 4 * b * h * s * t * d
+    tflops = flops / (ms * 1e-3) / 1e12
     lib_ms, lib, lib_dev = sdpa_ms(q, k, v)
-    bound_ms, bound_by = bound(4 * b * h * s * t * d,
-                               2 * (2 * s + 2 * t) * b * h * d + 4 * b * h * s)
-    dev_tflops = (f"{4 * b * h * s * t * d / (dev * 1e-3) / 1e12:.1f}"
-                  if dev else "not measured")
-    log(f"flash_fwd B={b} S={s} T={t} H={h} D={d}: out max_abs_err "
-        f"{err:.3e} (tol {FLASH_OUT_TOL:g}), lse {lse_err:.3e} "
-        f"(tol {FLASH_LSE_TOL:g}), rerun bit-equal {rerun_equal}; kernel "
-        f"{ms:.4f} ms ({tflops:.1f} TFLOP/s; device {fmt_ms(dev)}, "
+    size = q.element_size()
+    bound_ms, bound_by = bound(
+        flops, size * (2 * s + 2 * t) * b * h * d + 4 * b * h * s,
+        PEAK[dtype])
+    dev_tflops = (f"{flops / (dev * 1e-3) / 1e12:.1f}" if dev
+                  else "not measured")
+    out_tol, lse_tol = FLASH_OUT_TOL[dtype], FLASH_LSE_TOL[dtype]
+    what = f"flash_fwd {str(dtype)[6:]} B={b} S={s} T={t} H={h} D={d}"
+    log(f"{what}: out max_abs_err {err:.3e} (tol {out_tol:g}), lse "
+        f"{lse_err:.3e} (tol {lse_tol:g}), rerun bit-equal {rerun_equal}; "
+        f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s; device {fmt_ms(dev)}, "
         f"{dev_tflops} TFLOP/s) vs plain {plain_ms:.4f} ms (device "
         f"{fmt_ms(plain_dev)}); bound {bound_ms:.4f} ms ({bound_by}); SDPA "
         f"({lib}) {fmt_ms(lib_ms)} (device {fmt_ms(lib_dev)})")
-    check(err <= FLASH_OUT_TOL, f"flash out {(b, s, t, h, d)}: {err}")
-    check(lse_err <= FLASH_LSE_TOL, f"flash lse {(b, s, t, h, d)}: {lse_err}")
-    check(rerun_equal, f"flash fwd {(b, s, t, h, d)}: a second launch "
-          "differs from the first")
+    check(err <= out_tol, f"{what}: out {err}")
+    check(lse_err <= lse_tol, f"{what}: lse {lse_err}")
+    check(rerun_equal, f"{what}: a second launch differs from the first")
+    torch.cuda.empty_cache()
     return dict(shape=(b, s, t, h, d), err=max(err, lse_err), ms=ms,
                 plain_ms=plain_ms, dev=dev, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms, library=lib,
                 library_dev=lib_dev)
 
 
-def _flash_bwd_case(b, s, t, h, d, gen):
+def _flash_bwd_case(b, s, t, h, d, gen, dtype=torch.bfloat16):
     from sdxl_training_improvements_tpu_torch.ops import flash_attention as F
-    q, k, v, dout = (torch.randn((b, n, h, d), generator=gen, device="cuda"
-                                 ).to(torch.bfloat16) for n in (s, t, t, s))
+    q, k, v, dout = (torch.randn((b, n, h, d), generator=gen, device=DEVICE
+                                 ).to(dtype) for n in (s, t, t, s))
     out, lse = F.flash_attention_fwd_cuda(q, k, v)
     scale = d ** -0.5
     delta = F.flash_attention_bwd_delta(out, dout)
     args = (q, k, v, dout, lse, delta, scale)
-    got = (F.flash_bwd_dq_cuda(*args), *F.flash_bwd_dkv_cuda(*args))
+    # max|dO| (fp16: the kernels' dS factor) once, as the backward forms it
+    kargs = args + (F.dout_absmax(dout),)
+    got = (F.flash_bwd_dq_cuda(*kargs), *F.flash_bwd_dkv_cuda(*kargs))
+    again = (F.flash_bwd_dq_cuda(*kargs), *F.flash_bwd_dkv_cuda(*kargs))
+    rerun_equal = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    del again
     ref = (F.flash_bwd_dq_reference(*args),
            *F.flash_bwd_dkv_reference(*args))
     err, rel = {}, {}
@@ -375,12 +464,13 @@ def _flash_bwd_case(b, s, t, h, d, gen):
         err[name] = (a.float() - r.float()).abs().max().item()
         rel[name] = err[name] / r.float().abs().max().item()
     del got, ref
-    res = dict(err=err, rel=rel)
+    res = dict(shape=(b, s, t, h, d), err=err, rel=rel)
+    kw, dkw = _timers(dtype == torch.float32)
     for name, kernel, plain in (
             ("dq", F.flash_bwd_dq_cuda, F.flash_bwd_dq_reference),
             ("dkv", F.flash_bwd_dkv_cuda, F.flash_bwd_dkv_reference)):
-        res[f"{name}_ms"] = time_ms(lambda: kernel(*args))
-        res[f"{name}_dev"] = device_ms(lambda: kernel(*args))
+        res[f"{name}_ms"] = time_ms(lambda: kernel(*kargs), **kw)
+        res[f"{name}_dev"] = device_ms(lambda: kernel(*kargs), **dkw)
         res[f"plain_{name}_ms"] = time_ms(lambda: plain(*args), warmup=1,
                                           iters=2, repeats=3)
         res[f"plain_{name}_dev"] = device_ms(lambda: plain(*args), iters=2)
@@ -388,17 +478,23 @@ def _flash_bwd_case(b, s, t, h, d, gen):
     res["library_ms"], res["library"], res["library_dev"] = sdpa_ms(
         q, k, v, dout)
     work = b * h * s * t * d  # 6 flops per unit in dq, 8 in dk/dv
-    # bytes: q, k, v, dO bf16 and lse, Delta fp32 read; dq or dk, dv written
-    read = 2 * (2 * s + 2 * t) * b * h * d + 8 * b * h * s
-    res["dq_bound"] = bound(6 * work, read + 2 * b * s * h * d)
-    res["dkv_bound"] = bound(8 * work, read + 4 * b * t * h * d)
+    # bytes: q, k, v, dO and lse, Delta fp32 read; dq or dk, dv written
+    size = q.element_size()
+    read = size * (2 * s + 2 * t) * b * h * d + 8 * b * h * s
+    res["dq_bound"] = bound(6 * work, read + size * b * s * h * d,
+                            PEAK[dtype])
+    res["dkv_bound"] = bound(8 * work, read + 2 * size * b * t * h * d,
+                             PEAK[dtype])
     torch.cuda.empty_cache()
     dq_tf = 6 * work / (res["dq_ms"] * 1e-3) / 1e12
     dkv_tf = 8 * work / (res["dkv_ms"] * 1e-3) / 1e12
     pair_tf = 14 * work / ((res["dq_ms"] + res["dkv_ms"]) * 1e-3) / 1e12
-    log(f"flash_bwd B={b} S={s} T={t} H={h} D={d}: max_abs_err dq "
+    tol = FLASH_BWD_TOL[dtype]
+    what = f"flash_bwd {str(dtype)[6:]} B={b} S={s} T={t} H={h} D={d}"
+    log(f"{what}: max_abs_err dq "
         f"{err['dq']:.3e} dk {err['dk']:.3e} dv {err['dv']:.3e}, over max "
-        f"|plain| {max(rel.values()):.3e} (tol {FLASH_BWD_TOL:g}); dq kernel "
+        f"|plain| {max(rel.values()):.3e} (tol {tol:g}), rerun bit-equal "
+        f"{rerun_equal}; dq kernel "
         f"{res['dq_ms']:.4f} ms ({dq_tf:.1f} TFLOP/s; device "
         f"{fmt_ms(res['dq_dev'])}) vs plain {res['plain_dq_ms']:.4f} ms "
         f"(device {fmt_ms(res['plain_dq_dev'])}); dkv kernel "
@@ -410,8 +506,8 @@ def _flash_bwd_case(b, s, t, h, d, gen):
         f"{res['dq_ms'] + res['dkv_ms'] + res['delta_ms']:.4f} ms vs SDPA "
         f"backward ({res['library']}) {fmt_ms(res['library_ms'])} (device "
         f"{fmt_ms(res['library_dev'])})")
-    check(max(rel.values()) <= FLASH_BWD_TOL,
-          f"flash bwd {(b, s, t, h, d)}: {rel}")
+    check(max(rel.values()) <= tol, f"{what}: {rel}")
+    check(rerun_equal, f"{what}: a second launch differs from the first")
     return res
 
 
@@ -490,6 +586,12 @@ def phase_kernels() -> dict:
                    for shape in FLASH_BWD_SHAPES],
         adamw=[_adamw_case(*case, gen) for case in ADAMW_SHAPES],
         probe=_probe_case())
+    for dt in FLASH_DTYPES:
+        res["flash" + SUFFIX[dt]] = [_flash_case(*shape, gen, dtype=dt)
+                                     for shape in FLASH_SITES]
+        res["flash_bwd" + SUFFIX[dt]] = [
+            _flash_bwd_case(*shape, gen, dtype=dt)
+            for shape in FLASH_BWD_SITES]
     torch.cuda.empty_cache()
     return res
 
@@ -552,9 +654,12 @@ def phase_unet(model) -> dict:
 
 def _kernel_group(name: str) -> str:
     n = name.lower()
-    for group, keys in (("flash_fwd (hand CUDA)", ("flash_fwd",)),
+    for group, keys in (("flash_fwd (hand CUDA)", ("flash_fwd",
+                                                   "flash_f32_fwd")),
                         ("flash_bwd (hand CUDA)", ("flash_bwd",
-                                                   "dkv_reduce")),
+                                                   "dkv_reduce",
+                                                   "flash_f32_dq",
+                                                   "flash_f32_dkv")),
                         ("fused_adamw (hand CUDA)", ("fused_adamw",)),
                         ("gn_silu (hand Triton)", ("stats_kernel",
                                                    "apply_kernel")),
@@ -591,7 +696,7 @@ def _log_profile(prof, what: str, wall_ms: float) -> float:
     return idle
 
 
-def profile_unet_step(model) -> None:
+def profile_unet_step(model, label: str = "unet step") -> None:
     """Where one denoising step's time goes: device time of one CFG
     forward (b2, 1024^2) by kernel group, and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
@@ -610,7 +715,7 @@ def profile_unet_step(model) -> None:
             model.unet_apply(*args)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    _log_profile(prof, "unet step (b2 1024^2)", wall_ms)
+    _log_profile(prof, f"{label} (b2 1024^2)", wall_ms)
 
 
 def _timed(fn, record):
@@ -624,85 +729,146 @@ def _timed(fn, record):
     return wrapper
 
 
-def _kernel_wrappers() -> dict:
-    """Every kernel wrapper of the main paths, by the name it is reported
-    under; each counts its launches in ``.launches``."""
+def _counters() -> dict:
+    """Each kernel instantiation of the main paths, by the name it is
+    reported under, to a function reading its launch count."""
     from sdxl_training_improvements_tpu_torch.ops import flash_attention as F
     from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
     from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
     from sdxl_training_improvements_tpu_torch.ops import probe as P
-    return {"gn_silu_stats": G.gn_silu_stats_cuda,
-            "gn_silu_apply": G.gn_silu_apply_cuda,
-            "flash_fwd": F.flash_attention_fwd_cuda,
-            "flash_bwd_dq": F.flash_bwd_dq_cuda,
-            "flash_bwd_dkv": F.flash_bwd_dkv_cuda,
-            "fused_adamw": O.fused_adamw_cuda,
-            "probe": P.probe_cuda}
+    counters = {"fused_adamw": lambda: O.fused_adamw_cuda.launches,
+                "probe": lambda: P.probe_cuda.launches}
+    for dt, sfx in SUFFIX.items():
+        counters.update({
+            "gn_silu_stats" + sfx: functools.partial(
+                G.gn_silu_stats_cuda.launches_by_dtype.__getitem__, dt),
+            "gn_silu_apply" + sfx: functools.partial(
+                G.gn_silu_apply_cuda.launches_by_dtype.__getitem__, dt),
+            **{name + sfx: functools.partial(
+                getattr, F.LAUNCHERS[kind][dt], "launches")
+               for name, kind in (("flash_fwd", "fwd"),
+                                  ("flash_bwd_dq", "dq"),
+                                  ("flash_bwd_dkv", "dkv"))}})
+    return counters
 
 
-def _zero_launches(wrappers: dict) -> None:
-    for w in wrappers.values():
+def _zero_launches() -> None:
+    """Every kernel wrapper's and launcher's count to 0."""
+    from sdxl_training_improvements_tpu_torch.ops import flash_attention as F
+    from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
+    from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
+    from sdxl_training_improvements_tpu_torch.ops import probe as P
+    for w in (F.flash_attention_fwd_cuda, F.flash_bwd_dq_cuda,
+              F.flash_bwd_dkv_cuda, O.fused_adamw_cuda, P.probe_cuda,
+              G.gn_silu_stats_cuda, G.gn_silu_apply_cuda):
         w.launches = 0
+    for w in (G.gn_silu_stats_cuda, G.gn_silu_apply_cuda):
+        w.launches_by_dtype.clear()
+    for by_dtype in F.LAUNCHERS.values():
+        for launcher in by_dtype.values():
+            launcher.launches = 0
 
 
-def _launches(wrappers: dict) -> dict:
-    return {k: w.launches for k, w in wrappers.items()}
+def _launches(names) -> dict:
+    counters = _counters()
+    return {k: counters[k]() for k in names}
 
 
-def phase_slice(model, size: int = 1024) -> dict:
-    """Text-to-image at size x size through the port's pipeline."""
+def _first_nonfinite(model, calls) -> Optional[tuple]:
+    """(call, module) of the first UNet module, in execution order, whose
+    output holds a non-finite value over the recorded UNet calls, else
+    None."""
+    names = {m: n or "unet" for n, m in model.unet.named_modules()}
+    found = []
+
+    def hook(module, inputs, output):
+        if (not found and isinstance(output, torch.Tensor)
+                and not bool(torch.isfinite(output).all())):
+            found.append(names[module])
+
+    handles = [m.register_forward_hook(hook) for m in model.unet.modules()]
+    try:
+        with torch.inference_mode():
+            for i, args in enumerate(calls):
+                model.unet_apply(*args)
+                if found:
+                    return i, found[0]
+    finally:
+        for h in handles:
+            h.remove()
+    return None
+
+
+def phase_slice(model, kernels=SERVING_KERNELS, label: str = "slice",
+                size: int = 1024, overflow_ok: bool = False) -> dict:
+    """Text-to-image at size x size through the port's pipeline, with the
+    launches of ``kernels``.  The latents must be finite, unless
+    ``overflow_ok``: then the first UNet module that makes a value
+    non-finite on the kernel path and on the plain path is logged, and the
+    two must agree (the overflow is the model's, not a kernel's)."""
     from sdxl_training_improvements_tpu_torch.pipelines import SDXLPipeline
     pipe = SDXLPipeline.from_model(model)
     pipe(["warm up"], height=size, width=size, num_inference_steps=2)
     rec = {"clip": [], "unet": [], "vae": []}
+    prompt = ["a photograph of an astronaut riding a horse"]
     with ExitStack() as stack:
         for name, attr in (("clip", "encode_prompt"), ("unet", "unet_apply"),
                            ("vae", "decode_latents")):
             stack.enter_context(mock.patch.object(
                 model, attr, _timed(getattr(model, attr), rec[name])))
-        wrappers = {k: w for k, w in _kernel_wrappers().items()
-                    if k in SERVING_KERNELS}
-        _zero_launches(wrappers)
+        _zero_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        images = pipe(["a photograph of an astronaut riding a horse"],
-                      height=size, width=size, num_inference_steps=STEPS,
-                      guidance_scale=5.0, seed=SEED)
+        images = pipe(prompt, height=size, width=size,
+                      num_inference_steps=STEPS, guidance_scale=5.0,
+                      seed=SEED)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = _launches(wrappers)
+        launches = _launches(kernels)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     latents = rec["vae"][0][1][0]
     img = images[0]
     step_ms = [t for t, _ in rec["unet"]]
-    log(f"slice {size}x{size} euler {STEPS} steps guidance 5.0: image "
+    finite = bool(torch.isfinite(latents).all())
+    log(f"{label} {size}x{size} euler {STEPS} steps guidance 5.0: image "
         f"{img.shape} {img.dtype}, latents {list(latents.shape)} finite "
-        f"{bool(torch.isfinite(latents).all())}")
-    log(f"slice times: clip encode {rec['clip'][0][0]:.2f} ms, unet "
+        f"{finite}")
+    log(f"{label} times: clip encode {rec['clip'][0][0]:.2f} ms, unet "
         f"{statistics.mean(step_ms):.2f} ms/step over {len(step_ms)} "
         f"calls, vae decode {rec['vae'][0][0]:.2f} ms, total "
         f"{total_s:.3f} s, peak memory {peak_gb:.2f} GiB")
-    log(f"slice kernel launches: {launches}")
+    log(f"{label} kernel launches: {launches}")
+    calls = [a for _, a in rec["unet"]]
     with _plain_ops():
-        plain = pipe(["a photograph of an astronaut riding a horse"],
-                     height=size, width=size, num_inference_steps=STEPS,
-                     guidance_scale=5.0, seed=SEED, return_latents=True)
-    rel = ((latents - plain).norm() / plain.norm()).item()
-    log(f"slice latents, kernel path vs plain path (same seed): rel L2 "
-        f"{rel:.3e} (tol {SLICE_REL_L2_TOL:g})")
-    check(rel <= SLICE_REL_L2_TOL, f"slice latents rel L2 {rel}")
+        plain = pipe(prompt, height=size, width=size,
+                     num_inference_steps=STEPS, guidance_scale=5.0,
+                     seed=SEED, return_latents=True)
+        plain_where = (None if bool(torch.isfinite(plain).all())
+                       else _first_nonfinite(model, calls))
+    if finite:
+        rel = ((latents - plain).norm() / plain.norm()).item()
+        log(f"{label} latents, kernel path vs plain path (same seed): rel "
+            f"L2 {rel:.3e} (tol {SLICE_REL_L2_TOL:g})")
+        check(rel <= SLICE_REL_L2_TOL, f"{label} latents rel L2 {rel}")
+    else:
+        check(overflow_ok, f"{label}: latents not finite")
+        where = _first_nonfinite(model, calls)
+        log(f"{label}: the latents overflow; first non-finite (UNet call, "
+            f"module): kernel path {where}, plain path {plain_where}")
+        check(where is not None and where == plain_where,
+              f"{label}: the kernel path overflows at {where}, the plain "
+              f"path at {plain_where}")
     check(img.shape == (size, size, 3) and img.dtype == np.uint8,
           f"image {img.shape} {img.dtype}")
-    check(bool(torch.isfinite(latents).all()), "latents not finite")
     check(len(step_ms) == STEPS, f"{len(step_ms)} UNet calls")
     for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the main path")
-    return launches
+        check(n > 0, f"kernel {k} was not launched on the {label} path")
+    return dict(launches=launches, finite=finite, peak_gb=peak_gb)
 
 
-def _train_batch(model, n: int, gen) -> dict:
-    """A training batch of ``n`` samples at 1024^2, keyed as the JAX
+def _train_batch(model, n: int, gen, size: int = SIZE) -> dict:
+    """A training batch of ``n`` samples at size^2, keyed as the JAX
     trainer's (``methods/__init__.py``): prompt embeddings from the port's
     dual CLIP on a few prompts, seeded latents in place of the VAE encode,
     and SDXL time ids."""
@@ -714,11 +880,11 @@ def _train_batch(model, n: int, gen) -> dict:
         enc = model.encode_prompt(
             torch.as_tensor(ids_l, dtype=torch.int64, device=DEVICE),
             torch.as_tensor(ids_g, dtype=torch.int64, device=DEVICE))
-    return {"vae_latents": torch.randn(n, 4, SIZE // 8, SIZE // 8,
+    return {"vae_latents": torch.randn(n, 4, size // 8, size // 8,
                                        generator=gen, device=DEVICE),
             "prompt_embeds": enc["prompt_embeds"],
             "pooled_prompt_embeds": enc["pooled_prompt_embeds"],
-            "time_ids": torch.tensor([[SIZE, SIZE, 0, 0, SIZE, SIZE]] * n,
+            "time_ids": torch.tensor([[size, size, 0, 0, size, size]] * n,
                                      dtype=torch.float32, device=DEVICE)}
 
 
@@ -726,10 +892,11 @@ WATCHED = ("mid_block.attentions.0.transformer_blocks.0.attn1.to_q.weight",
            "down_blocks.0.resnets.0.norm1.weight", "conv_norm_out.bias")
 
 
-def phase_train(model, cfg) -> dict:
+def phase_train(model, cfg, kernels=TRAIN_KERNELS, size: int = SIZE) -> dict:
     """The training slice as the JAX entry drives it: ``make_optimizer`` ->
     ``make_train_step`` -> ``create_train_state`` -> ``TRAIN_STEPS`` steps
-    at the default config; the last step runs under the profiler."""
+    at ``cfg``; the last step runs under the profiler.  Every kernel in
+    ``kernels`` must launch in every step."""
     from torch.profiler import ProfilerActivity, profile
 
     from sdxl_training_improvements_tpu_torch.training.optimizers import (
@@ -741,9 +908,9 @@ def phase_train(model, cfg) -> dict:
     t = cfg.training
     n = t.batch_size * t.gradient_accumulation_steps
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    batch = _train_batch(model, n, gen)
-    wrappers = _kernel_wrappers()
-    _zero_launches(wrappers)
+    batch = _train_batch(model, n, gen, size)
+    names = tuple(kernels) + ("probe",)
+    _zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -753,16 +920,17 @@ def phase_train(model, cfg) -> dict:
     state = create_train_state(model.trainable_params(), optimizer,
                                seed=t.seed)
     torch.cuda.synchronize()
-    setup_launches = _launches(wrappers)
+    setup_launches = _launches(names)
     n_params = sum(p.numel() for p in state.params.values())
-    log(f"train setup: {len(state.params)} leaves, {n_params} parameters, "
+    log(f"train setup ({t.mixed_precision}, {type(optimizer).__name__}): "
+        f"{len(state.params)} leaves, {n_params} parameters, "
         f"{(time.perf_counter() - t0) * 1e3:.2f} ms (startup probe "
         f"{state.probe['ms']:.4f} ms, {state.probe['gbps']:.1f} GB/s); "
         f"launches {setup_launches}")
     watched = {k: state.params[k].detach().clone() for k in WATCHED}
     steps = []
     for i in range(TRAIN_STEPS):
-        before = _launches(wrappers)
+        before = _launches(names)
         events: dict = {}
         profiled = i == TRAIN_STEPS - 1
         with ExitStack() as stack:
@@ -774,13 +942,14 @@ def phase_train(model, cfg) -> dict:
             state, metrics = step(state, batch, events)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        after = _launches(names)
         row = dict(
             loss=metrics["loss"].item(), grad_norm=metrics["grad_norm"].item(),
             wall_ms=wall_ms,
             fwd_bwd_ms=events["start"].elapsed_time(events["backward"]),
             clip_ms=events["backward"].elapsed_time(events["clip"]),
             opt_ms=events["clip"].elapsed_time(events["update"]),
-            launches={k: w.launches - before[k] for k, w in wrappers.items()})
+            launches={k: after[k] - before[k] for k in names})
         steps.append(row)
         log(f"train step {i + 1}{' (profiled)' if profiled else ''}: loss "
             f"{row['loss']:.6f}, grad norm {row['grad_norm']:.6f}; "
@@ -789,41 +958,43 @@ def phase_train(model, cfg) -> dict:
             f"(CUDA events); launches {row['launches']}")
         if profiled:
             row["idle"] = _log_profile(
-                prof, f"train step {i + 1} (b{n} {SIZE}^2)", wall_ms)
+                prof, f"train step {i + 1} (b{n} {size}^2)", wall_ms)
         check(np.isfinite(row["loss"]), f"train step {i + 1} loss not finite")
         check(np.isfinite(row["grad_norm"]), f"step {i + 1} grad norm")
-        for k in KERNELS:
-            if k != "probe":
-                check(row["launches"][k] > 0,
-                      f"kernel {k} was not launched in train step {i + 1}")
+        for k in kernels:
+            check(row["launches"][k] > 0,
+                  f"kernel {k} was not launched in train step {i + 1}")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     changed = {k: int((state.params[k].detach() != v).sum())
                for k, v in watched.items()}
-    log(f"train: {TRAIN_STEPS} steps, batch {n} at {SIZE}^2, remat "
+    log(f"train: {TRAIN_STEPS} steps, batch {n} at {size}^2, remat "
         f"{model.unet_config.remat} ({model.unet_config.remat_policy}); "
         f"peak memory {peak_gb:.2f} GiB; elements changed in watched "
         f"leaves {changed}")
     check(all(changed.values()), f"parameters did not change: {changed}")
     check(setup_launches["probe"] > 0, "the startup probe did not launch")
     launches = {k: setup_launches[k] + sum(r["launches"][k] for r in steps)
-                for k in wrappers}
+                for k in names}
     log(f"train kernel launches (setup + {TRAIN_STEPS} steps): {launches}")
-    del state, watched
+    del state, watched, step, optimizer
     torch.cuda.empty_cache()
     return dict(steps=steps, peak_gb=peak_gb, launches=launches)
 
 
-def phase_train_parity(model, cfg) -> dict:
-    """One forward and backward at batch 1, 1024^2, with replayed noise
+def phase_train_parity(model, cfg, size: int = SIZE,
+                       tols=(TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_L2_TOL),
+                       kernels=()) -> dict:
+    """One forward and backward at batch 1, size^2, with replayed noise
     and timestep, through the kernels and through the plain versions:
-    the loss and the relative L2 of all gradients together."""
+    the loss and the relative L2 of all gradients together (within
+    ``tols``), and the launches of ``kernels`` on the kernel path."""
     from sdxl_training_improvements_tpu_torch.training.methods import (
         get_method)
     from sdxl_training_improvements_tpu_torch.training.schedules import (
         NoiseSchedule)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    batch = _train_batch(model, 1, gen)
-    batch["noise"] = torch.randn(1, 4, SIZE // 8, SIZE // 8, generator=gen,
+    batch = _train_batch(model, 1, gen, size)
+    batch["noise"] = torch.randn(1, 4, size // 8, size // 8, generator=gen,
                                  device=DEVICE)
     batch["timesteps"] = torch.tensor([500], device=DEVICE)
     loss_fn = get_method(cfg.training.method)
@@ -844,7 +1015,9 @@ def phase_train_parity(model, cfg) -> dict:
             torch.cuda.synchronize()
         return loss.item(), grads, (time.perf_counter() - t0) * 1e3
 
+    _zero_launches()
     loss, grads, ms = loss_and_grads()
+    launches = _launches(kernels)
     with _plain_ops():
         plain_loss, plain_grads, plain_ms = loss_and_grads()
     num = sum((a.float() - b.float()).square().sum()
@@ -853,17 +1026,114 @@ def phase_train_parity(model, cfg) -> dict:
     rel = (num / den).sqrt().item()
     loss_rel = abs(loss - plain_loss) / abs(plain_loss)
     finite = all(bool(torch.isfinite(g).all()) for g in grads)
-    log(f"train parity (b1 {SIZE}^2, t=500): loss kernels {loss:.6f} vs plain "
-        f"{plain_loss:.6f}, rel {loss_rel:.3e} (tol {TRAIN_LOSS_REL_TOL:g}); "
-        f"all {len(grads)} gradients rel L2 {rel:.3e} (tol "
-        f"{TRAIN_GRAD_REL_L2_TOL:g}), finite {finite}; warm forward+backward "
-        f"{ms:.2f} ms vs plain {plain_ms:.2f} ms")
+    nonzero = sum(int(g.count_nonzero()) for g in plain_grads) / sum(
+        g.numel() for g in plain_grads)
+    loss_tol, grad_tol = tols
+    log(f"train parity ({cfg.training.mixed_precision}, b1 {size}^2, "
+        f"t=500): loss kernels {loss:.6f} vs plain {plain_loss:.6f}, rel "
+        f"{loss_rel:.3e} (tol {loss_tol:g}); all {len(grads)} gradients rel "
+        f"L2 {rel:.3e} (tol {grad_tol:g}), finite {finite}, nonzero share "
+        f"of the plain gradients {nonzero:.4f}; warm "
+        f"forward+backward {ms:.2f} ms vs plain {plain_ms:.2f} ms; "
+        f"launches {launches}")
     check(finite, "train parity: a gradient is not finite")
-    check(loss_rel <= TRAIN_LOSS_REL_TOL, f"train parity loss {loss_rel}")
-    check(rel <= TRAIN_GRAD_REL_L2_TOL, f"train parity gradients {rel}")
+    check(nonzero > 0, "train parity: the plain gradients are all zero")
+    check(loss_rel <= loss_tol, f"train parity loss {loss_rel}")
+    check(rel <= grad_tol, f"train parity gradients {rel}")
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched in the parity run")
     del grads, plain_grads
     torch.cuda.empty_cache()
-    return dict(loss_rel=loss_rel, grad_rel_l2=rel, ms=ms, plain_ms=plain_ms)
+    return dict(loss_rel=loss_rel, grad_rel_l2=rel, ms=ms, plain_ms=plain_ms,
+                launches=launches)
+
+
+def _free() -> None:
+    """After the caller has dropped its references: give the cached memory
+    back and restart the peak count."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _model_from_config(raw: dict):
+    from sdxl_training_improvements_tpu_torch.config import Config
+    from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
+    cfg = Config.from_dict(raw)
+    t0 = time.perf_counter()
+    model = SDXLModel.from_config(
+        cfg, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"SDXLModel.from_config ({cfg.model.model_type}, mixed_precision "
+        f"{cfg.training.mixed_precision!r}) on {DEVICE}: UNet "
+        f"{model.unet.conv_in.weight.dtype}, CLIP "
+        f"{model.clip_g.text_model.embeddings.token_embedding.weight.dtype}"
+        f", VAE "
+        f"{next(model.vae.parameters()).dtype}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, model
+
+
+def _nonzero_grads(model, cfg, size: int) -> float:
+    """The share of nonzero UNet gradient elements of one forward and
+    backward at b1 size^2 under ``cfg``'s loss, through the kernels."""
+    from sdxl_training_improvements_tpu_torch.training.methods import (
+        get_method)
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    batch = _train_batch(model, 1, gen, size)
+    loss, _ = get_method(cfg.training.method)(
+        model.unet_apply, batch, gen, NoiseSchedule.from_config(cfg),
+        cfg.model)
+    grads = torch.autograd.grad(loss, list(model.unet.parameters()))
+    share = sum(int(g.count_nonzero()) for g in grads) / sum(
+        g.numel() for g in grads)
+    log(f"fp16 gradients under {cfg.model.prediction_type} (ZTSNR "
+        f"{cfg.model.use_ztsnr}, MinSNR {cfg.model.min_snr_gamma}) at b1 "
+        f"{size}^2: loss {loss.item():.3e}, nonzero share {share:.4f}")
+    return share
+
+
+def phase_fp16() -> dict:
+    """Phase 8: the fp16 model serves one image, then one forward and
+    backward at b1 512^2 through the kernels against the plain path.
+    Under the default loss (v-prediction, ZTSNR, MinSNR 5) the fp16
+    gradients fall below fp16's least subnormal and are all zero, on
+    both paths (neither package scales the loss; logged here), so the
+    comparison takes the ddpm-epsilon loss of ``DDPM_512_SMOKE``."""
+    from sdxl_training_improvements_tpu_torch.config import Config
+    cfg, model = _model_from_config({"training": {"mixed_precision": "fp16"}})
+    check(model.unet.conv_in.weight.dtype == torch.float16,
+          "fp16 policy did not give an fp16 UNet")
+    serving = phase_slice(model, F16_SERVING_KERNELS, label="fp16 slice",
+                          overflow_ok=True)
+    profile_unet_step(model, "fp16 unet step")
+    _nonzero_grads(model, cfg, F32_SIZE)
+    eps_cfg = Config.from_dict({**DDPM_512_SMOKE, "training": {
+        **DDPM_512_SMOKE["training"], "mixed_precision": "fp16"}})
+    parity = phase_train_parity(model, eps_cfg, F32_SIZE,
+                                (F16_LOSS_REL_TOL, F16_GRAD_REL_L2_TOL),
+                                F16_TRAIN_KERNELS)
+    del model
+    _free()
+    return dict(serving=serving, parity=parity,
+                launches={**serving["launches"], **parity["launches"]})
+
+
+def phase_fp32_training() -> dict:
+    """Phase 9: the ddpm_512_smoke settings at full width, fp32."""
+    cfg, model = _model_from_config(DDPM_512_SMOKE)
+    check(model.unet.conv_in.weight.dtype == torch.float32,
+          "mixed_precision 'no' did not give an fp32 UNet")
+    train = phase_train(model, cfg, F32_TRAIN_KERNELS, F32_SIZE)
+    parity = phase_train_parity(model, cfg, F32_SIZE,
+                                (F32_LOSS_REL_TOL, F32_GRAD_REL_L2_TOL),
+                                F32_TRAIN_KERNELS)
+    del model
+    _free()
+    return dict(train=train, parity=parity)
 
 
 # operations per element of the elementwise kernels, on the fp32 units
@@ -874,65 +1144,87 @@ OPS_PER_ELEMENT = {"gn_silu_stats": 3, "gn_silu_apply": 10,
                    "fused_adamw": 40, "probe": 2}
 
 
+def _site(shape) -> str:
+    return "B={} S={} T={} H={} D={}".format(*shape)
+
+
 def kernel_report(k: dict, launches: dict) -> dict:
-    """One entry per kernel wrapper: errors over all of phase 3's shapes;
-    times, bound and library time at the shape named in ``at``; launches on
-    the training path."""
-    gn, fl, bwd, adamw = k["gn"][1], k["flash"][0], k["flash_bwd"][0], \
-        k["adamw"][1]
-    gn_n, adamw_n, probe_n = 2 * 4096 * 640, 10240 * 1280, 4096 * 4096
-    ew = {name: bound(OPS_PER_ELEMENT[name] * n, nbytes, PEAK_FP32)
-          for name, n, nbytes in (
-              ("gn_silu_stats", gn_n, 2 * gn_n),
-              ("gn_silu_apply", gn_n, 2 * 2 * gn_n),
-              ("fused_adamw", adamw_n, (16 + 4) * adamw_n),
-              ("probe", probe_n, 8 * probe_n))}
-    bwd_lib = (bwd["library_ms"], f"SDPA backward ({bwd['library']}) for "
-               "dq + dk/dv + Delta together")
-    # (max abs err, ms, plain ms, at, (bound ms, by), (library ms, what))
-    measured = {
-        "gn_silu_stats": (max(r["stats_err"] for r in k["gn"]),
-                          gn["stats_ms"], gn["plain_stats_ms"],
-                          "[2, 4096, 640] bf16", ew["gn_silu_stats"],
-                          (None, None)),
-        "gn_silu_apply": (max(r["err"] for r in k["gn"]), gn["apply_ms"],
-                          gn["plain_apply_ms"], "[2, 4096, 640] bf16",
-                          ew["gn_silu_apply"], (None, None)),
-        "flash_fwd": (max(r["err"] for r in k["flash"]), fl["ms"],
-                      fl["plain_ms"], "B=2 S=T=4096 H=10 D=64",
-                      (fl["bound_ms"], fl["bound_by"]),
-                      (fl["library_ms"], f"SDPA ({fl['library']})")),
-        "flash_bwd_dq": (max(r["err"]["dq"] for r in k["flash_bwd"]),
-                         bwd["dq_ms"], bwd["plain_dq_ms"],
-                         "B=4 S=T=4096 H=10 D=64", bwd["dq_bound"], bwd_lib),
-        "flash_bwd_dkv": (max(max(r["err"]["dk"], r["err"]["dv"])
-                              for r in k["flash_bwd"]),
-                          bwd["dkv_ms"], bwd["plain_dkv_ms"],
-                          "B=4 S=T=4096 H=10 D=64", bwd["dkv_bound"],
-                          bwd_lib),
-        "fused_adamw": (max(r["err"] for r in k["adamw"]), adamw["ms"],
-                        adamw["plain_ms"], "[10240, 1280] bf16, fp32 g",
-                        ew["fused_adamw"], (None, None)),
-        "probe": (k["probe"]["max_abs_err"], k["probe"]["ms"],
-                  k["probe"]["plain_ms"], "[4096, 4096] fp32", ew["probe"],
-                  (k["probe"]["library_ms"], "torch.add(1, x, alpha=2)")),
-    }
-    # the kernels' own time per call from torch.profiler, where measured,
-    # and the library call's
-    device = {"flash_fwd": fl["dev"], "flash_bwd_dq": bwd["dq_dev"],
-              "flash_bwd_dkv": bwd["dkv_dev"], "fused_adamw": adamw["dev"],
-              "probe": k["probe"]["dev"]}
-    library_device = {"flash_fwd": fl["library_dev"],
-                      "flash_bwd_dq": bwd["library_dev"],
-                      "flash_bwd_dkv": bwd["library_dev"],
-                      "probe": k["probe"]["library_dev"]}
-    # the forward at each attention site of the serving step
-    extra = {"flash_fwd": {"sites": [
-        {"at": "B={} S={} T={} H={} D={}".format(*r["shape"]),
-         "ms": r["ms"], "device_ms": r["dev"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], "library_device_ms": r["library_dev"]}
-        for r in k["flash"] if r["shape"] in FLASH_SITES]}}
+    """One entry per kernel instantiation: errors over all of phase 3's
+    shapes of its dtype; times, bound and library time at the shape named
+    in ``at``; launches on the main path that runs it."""
+    measured, device, library_device, extra = {}, {}, {}, {}
+    gn_n = 2 * 4096 * 640
+    for dt, sfx in SUFFIX.items():
+        gn = next(r for r in k["gn"] if r["shape"] == (2, 4096, 640)
+                  and r["dtype"] == dt)
+        size = torch.empty((), dtype=dt).element_size()
+        errs = [r for r in k["gn"] if r["dtype"] == dt]
+        at = f"[2, 4096, 640] {str(dt)[6:]}"
+        measured["gn_silu_stats" + sfx] = (
+            max(r["stats_err"] for r in errs), gn["stats_ms"],
+            gn["plain_stats_ms"], at,
+            bound(OPS_PER_ELEMENT["gn_silu_stats"] * gn_n, size * gn_n,
+                  PEAK_FP32), (None, None))
+        measured["gn_silu_apply" + sfx] = (
+            max(r["err"] for r in errs), gn["apply_ms"],
+            gn["plain_apply_ms"], at,
+            bound(OPS_PER_ELEMENT["gn_silu_apply"] * gn_n, 2 * size * gn_n,
+                  PEAK_FP32), (None, None))
+        fwd_rows, bwd_rows = k["flash" + sfx], k["flash_bwd" + sfx]
+        fl = next(r for r in fwd_rows if r["shape"] == FLASH_SITES[0])
+        bwd = next(r for r in bwd_rows
+                   if r["shape"] == (4, 4096, 4096, 10, 64))
+        bwd_lib = (bwd["library_ms"], f"SDPA backward ({bwd['library']}) for "
+                   "dq + dk/dv + Delta together")
+        measured["flash_fwd" + sfx] = (
+            max(r["err"] for r in fwd_rows), fl["ms"], fl["plain_ms"],
+            _site(fl["shape"]), (fl["bound_ms"], fl["bound_by"]),
+            (fl["library_ms"], f"SDPA ({fl['library']})"))
+        measured["flash_bwd_dq" + sfx] = (
+            max(r["err"]["dq"] for r in bwd_rows), bwd["dq_ms"],
+            bwd["plain_dq_ms"], _site(bwd["shape"]), bwd["dq_bound"],
+            bwd_lib)
+        measured["flash_bwd_dkv" + sfx] = (
+            max(max(r["err"]["dk"], r["err"]["dv"]) for r in bwd_rows),
+            bwd["dkv_ms"], bwd["plain_dkv_ms"], _site(bwd["shape"]),
+            bwd["dkv_bound"], bwd_lib)
+        device.update({"flash_fwd" + sfx: fl["dev"],
+                       "flash_bwd_dq" + sfx: bwd["dq_dev"],
+                       "flash_bwd_dkv" + sfx: bwd["dkv_dev"]})
+        library_device.update({"flash_fwd" + sfx: fl["library_dev"],
+                               "flash_bwd_dq" + sfx: bwd["library_dev"],
+                               "flash_bwd_dkv" + sfx: bwd["library_dev"]})
+        # every site measured, for the forward at the serving step's sites
+        extra["flash_fwd" + sfx] = {"sites": [
+            {"at": _site(r["shape"]), "ms": r["ms"], "device_ms": r["dev"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "library_device_ms": r["library_dev"]}
+            for r in fwd_rows if r["shape"] in FLASH_SITES]}
+        if dt != torch.bfloat16:
+            for name in ("dq", "dkv"):
+                extra[f"flash_bwd_{name}{sfx}"] = {"sites": [
+                    {"at": _site(r["shape"]), "ms": r[f"{name}_ms"],
+                     "device_ms": r[f"{name}_dev"],
+                     "plain_ms": r[f"plain_{name}_ms"],
+                     "bound_ms": r[f"{name}_bound"][0],
+                     "bound_by": r[f"{name}_bound"][1],
+                     "library_ms": r["library_ms"],
+                     "library_device_ms": r["library_dev"]}
+                    for r in bwd_rows]}
+    adamw, adamw_n, probe_n = k["adamw"][1], 10240 * 1280, 4096 * 4096
+    measured["fused_adamw"] = (
+        max(r["err"] for r in k["adamw"]), adamw["ms"], adamw["plain_ms"],
+        "[10240, 1280] bf16, fp32 g",
+        bound(OPS_PER_ELEMENT["fused_adamw"] * adamw_n, (16 + 4) * adamw_n,
+              PEAK_FP32), (None, None))
+    measured["probe"] = (
+        k["probe"]["max_abs_err"], k["probe"]["ms"], k["probe"]["plain_ms"],
+        "[4096, 4096] fp32",
+        bound(OPS_PER_ELEMENT["probe"] * probe_n, 8 * probe_n, PEAK_FP32),
+        (k["probe"]["library_ms"], "torch.add(1, x, alpha=2)"))
+    device.update({"fused_adamw": adamw["dev"], "probe": k["probe"]["dev"]})
+    library_device["probe"] = k["probe"]["library_dev"]
     return {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": tpu,
          "launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -966,7 +1258,14 @@ def main() -> None:
     profile_unet_step(model)
     train = phase_train(model, cfg)
     phase_train_parity(model, cfg)
-    log(json.dumps(kernel_report(kernels, train["launches"])))
+    del model
+    _free()
+    fp16 = phase_fp16()
+    fp32 = phase_fp32_training()
+    # each instantiation's launches on the main path that runs it
+    launches = {**fp16["launches"], **fp32["train"]["launches"],
+                **train["launches"]}
+    log(json.dumps(kernel_report(kernels, launches)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

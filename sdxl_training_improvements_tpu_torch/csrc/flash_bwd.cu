@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): bf16 q, k, v, dO in, bf16
-// dq, dk, dv out, fp32 lse and Delta = rowsum(dO * O).
+// Flash-attention backward for Hopper (sm_90a): bf16 or fp16 q, k, v, dO
+// in, dq, dk, dv out in the same type, fp32 lse and Delta = rowsum(dO * O).
 //
 // Replaces the Pallas kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel` of
 // sdxl_training_improvements_tpu/ops/flash_attention.py (driven by `_bwd`),
@@ -27,10 +27,18 @@
 // * the two score-shaped products (S = Q K^T and dP = dO V^T, or their
 //   transposes S^T = K Q^T and dP^T = V dO^T) are SS wgmmas with K-major
 //   operands; P and dS are formed in registers on the accumulator layout
-//   and rounded to bf16, as the forward rounds P;
+//   and rounded to the input type, as the forward rounds P;
 // * the gradient products (dq += dS K, dv += P^T dO, dk += dS^T Q) take P
 //   or dS as the register A operand and read the streamed tile MN-major
 //   (the trans-b flag) from the same TMA buffer, so no tile is transposed.
+//
+// dS in fp16: its range ends at 6e-8, and with no loss scale a small dO
+// puts dS below it (the Pallas kernels keep dS in fp32).  So the fp16
+// kernels form u * dS, u = 2^-floor(log2 max|dO|) (at least 1; max|dO| is
+// read from the launcher's `dout_absmax`), and multiply the fp32
+// accumulators of the dS products (dq, dk) by 1 / u before they are
+// stored: u is a power of two, so no other rounding changes.  bf16 keeps
+// fp32's range, and its kernels take u = 1 (`ds_unit`).
 //
 // Masking from S and T, with no padded copies: TMA fills rows >= S and
 // >= T with zeros; the dq kernel sets P = 0 in kv columns >= T, the dk/dv
@@ -41,8 +49,12 @@
 // Small T (cross-attention, T = 77: one kv tile per head, too few blocks
 // for 132 SMs): the wrapper splits the dk/dv q loop over `splits` blocks.
 // Each writes fp32 partial dk and dv into scratch the wrapper allocates,
-// and `dkv_reduce_kernel` sums them in split order and casts to bf16: no
+// and `dkv_reduce_kernel` sums them in split order and casts to the
+// output type: no
 // atomics, so the gradients are the same from run to run.
+//
+// The kernels are templates on the element type (hopper.cuh: Bf16, F16);
+// the `_bf16` and `_f16` launchers run their two instantiations.
 //
 // C interface for ctypes; each launcher returns the cudaError_t of its
 // launches (or hopper::kEncodeError + the CUresult of a tensor map it cannot
@@ -171,7 +183,7 @@ __device__ __forceinline__ void load_stream(const Smem<D>& sm, int st,
 
 // acc[64 x kStream] = A B^T over the head dim: A the consumer's 64 rows of an
 // own tile, B a streamed tile, both K-major.
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void scores(float (&acc)[Cfg<D>::kStream / 2],
                                        uint32_t own, uint32_t stream) {
   using C = Cfg<D>;
@@ -179,7 +191,7 @@ __device__ __forceinline__ void scores(float (&acc)[Cfg<D>::kStream / 2],
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk / (C::kCW / 16);
     const int off = (kk % (C::kCW / 16)) * 32;
-    wgmma_ss<C::kStream>(
+    wgmma_ss<E, C::kStream>(
         acc, desc_k<C::kCW>(own + c * kOwn * C::kRow + off),
         desc_k<C::kCW>(stream + c * C::kStream * C::kRow + off), kk > 0);
   }
@@ -187,7 +199,7 @@ __device__ __forceinline__ void scores(float (&acc)[Cfg<D>::kStream / 2],
 
 // acc[64 x D] += X B over kStream rows of B: X as A fragments, B the
 // first kStream rows of a tile of ROWS rows, read MN-major.
-template <int D, int ROWS>
+template <typename E, int D, int ROWS>
 __device__ __forceinline__ void accumulate(
     float (&acc)[Cfg<D>::kChunks][Cfg<D>::kCW / 2],
     const uint32_t (&x)[Cfg<D>::kStream / 16][4], uint32_t tile) {
@@ -196,17 +208,17 @@ __device__ __forceinline__ void accumulate(
   for (int kk = 0; kk < C::kStream / 16; ++kk) {
 #pragma unroll
     for (int c = 0; c < C::kChunks; ++c) {
-      wgmma_rs<C::kCW>(acc[c], x[kk],
+      wgmma_rs<E, C::kCW>(acc[c], x[kk],
                        desc_mn<C::kCW>(tile + c * ROWS * C::kRow +
                                        kk * 16 * C::kRow));
     }
   }
 }
 
-// Store rows r0 and r0 + 8 (< n) of an accumulator [64 x D] as bf16.
-template <int D>
+// Store rows r0 and r0 + 8 (< n) of an accumulator [64 x D] as E.
+template <typename E, int D>
 __device__ __forceinline__ void store_rows(
-    __nv_bfloat16* base, int64_t row_stride,
+    typename E::T* base, int64_t row_stride,
     const float (&acc)[Cfg<D>::kChunks][Cfg<D>::kCW / 2], int r0, int n,
     int t) {
   using C = Cfg<D>;
@@ -217,11 +229,11 @@ __device__ __forceinline__ void store_rows(
       const int col = c * C::kCW + 8 * j + 2 * t;
       if (r0 < n) {
         *reinterpret_cast<uint32_t*>(base + r0 * row_stride + col) =
-            pack_bf16(acc[c][4 * j], acc[c][4 * j + 1]);
+            E::pack(acc[c][4 * j], acc[c][4 * j + 1]);
       }
       if (r0 + 8 < n) {
         *reinterpret_cast<uint32_t*>(base + (r0 + 8) * row_stride + col) =
-            pack_bf16(acc[c][4 * j + 2], acc[c][4 * j + 3]);
+            E::pack(acc[c][4 * j + 2], acc[c][4 * j + 3]);
       }
     }
   }
@@ -251,6 +263,26 @@ __device__ __forceinline__ void store_partial(
 }
 
 template <int D>
+__device__ __forceinline__ void scale_acc(
+    float (&acc)[Cfg<D>::kChunks][Cfg<D>::kCW / 2], float f) {
+#pragma unroll
+  for (int c = 0; c < Cfg<D>::kChunks; ++c) {
+#pragma unroll
+    for (int i = 0; i < Cfg<D>::kCW / 2; ++i) acc[c][i] *= f;
+  }
+}
+
+// The factor u of dS (see the note at the top): 1 but for fp16.
+template <typename E>
+__device__ __forceinline__ float ds_unit(const float* dout_absmax) {
+  if constexpr (E::kNarrowRange) {
+    const float m = *dout_absmax;
+    if (m > 0.f && m < 1.f) return ldexpf(1.f, -ilogbf(m));
+  }
+  return 1.f;
+}
+
+template <int D>
 __device__ __forceinline__ void zero(
     float (&acc)[Cfg<D>::kChunks][Cfg<D>::kCW / 2]) {
 #pragma unroll
@@ -260,7 +292,7 @@ __device__ __forceinline__ void zero(
   }
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap do_map,
@@ -268,7 +300,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap v_map,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int H, int S, int T,
+                    const float* __restrict__ dout_absmax,
+                    typename E::T* __restrict__ dq, int H, int S, int T,
                     int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
                     float scale) {
   using C = Cfg<D>;
@@ -306,6 +339,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     const float dl0 = r0 < S ? delta[rows + r0] : 0.f;
     const float dl1 = r1 < S ? delta[rows + r1] : 0.f;
     const float scale_log2 = scale * kLog2e;
+    const float unit = ds_unit<E>(dout_absmax);
+    const float ds_scale = scale * unit;
 
     float acc[C::kChunks][C::kCW / 2];
     zero<D>(acc);
@@ -319,8 +354,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       const int st = j % kStages;
       mbar_wait(sm.full(st), (j / kStages) & 1);
       wgmma_fence();
-      scores<D>(s, q_wg, sm.stream_a(st));    // q k^T
-      scores<D>(dp, do_wg, sm.stream_b(st));  // dO v^T
+      scores<E, D>(s, q_wg, sm.stream_a(st));    // q k^T
+      scores<E, D>(dp, do_wg, sm.stream_b(st));  // dO v^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(s);
@@ -335,23 +370,24 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
           const float l = e < 2 ? lse0 : lse1;
           const float dl = e < 2 ? dl0 : dl1;
           const float p = valid ? exp2f(s[4 * n + e] * scale_log2 - l) : 0.f;
-          s[4 * n + e] = p * (dp[4 * n + e] - dl) * scale;  // dS
+          s[4 * n + e] = p * (dp[4 * n + e] - dl) * ds_scale;  // u dS
         }
       }
-      acc_to_a<kStream>(s, ds);
+      acc_to_a<E, kStream>(s, ds);
       wgmma_fence();
-      accumulate<D, kStream>(acc, ds, sm.stream_a(st));  // dq += dS k
+      accumulate<E, D, kStream>(acc, ds, sm.stream_a(st));  // dq += dS k
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
       for (int c = 0; c < C::kChunks; ++c) fence_operands(acc[c]);
       mbar_arrive(sm.empty(st));
     }
-    store_rows<D>(dq + b * dq_sb + h * dq_sh, dq_ss, acc, r0, S, t);
+    if constexpr (E::kNarrowRange) scale_acc<D>(acc, 1.f / unit);
+    store_rows<E, D>(dq + b * dq_sb + h * dq_sh, dq_ss, acc, r0, S, t);
   }
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
@@ -359,8 +395,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap do_map,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv,
+                     const float* __restrict__ dout_absmax,
+                     typename E::T* __restrict__ dk,
+                     typename E::T* __restrict__ dv,
                      float* __restrict__ dk_part, float* __restrict__ dv_part,
                      int H, int S, int T, int q_tiles_per_split, Strides st,
                      float scale) {
@@ -403,6 +440,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
     const int lane = tid & 31;
     const int t = lane & 3;
     const float scale_log2 = scale * kLog2e;
+    const float unit = ds_unit<E>(dout_absmax);
+    const float ds_scale = scale * unit;
 
     float dk_acc[C::kChunks][C::kCW / 2], dv_acc[C::kChunks][C::kCW / 2];
     zero<D>(dk_acc);
@@ -417,8 +456,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
       const int s_ = i % kStages;
       mbar_wait(sm.full(s_), (i / kStages) & 1);
       wgmma_fence();
-      scores<D>(s, k_wg, sm.stream_a(s_));    // S^T = k q^T
-      scores<D>(dp, v_wg, sm.stream_b(s_));   // dP^T = v dO^T
+      scores<E, D>(s, k_wg, sm.stream_a(s_));    // S^T = k q^T
+      scores<E, D>(dp, v_wg, sm.stream_b(s_));   // dP^T = v dO^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_operands(s);
@@ -436,14 +475,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
           const float p =
               exp2f(s[4 * n + e] * scale_log2 - ((e & 1) ? l.y : l.x));
           s[4 * n + e] = p;
-          dp[4 * n + e] = p * (dp[4 * n + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+          dp[4 * n + e] =
+              p * (dp[4 * n + e] - ((e & 1) ? dl.y : dl.x)) * ds_scale;
         }
       }
-      acc_to_a<kStream>(s, pa);
-      acc_to_a<kStream>(dp, da);
+      acc_to_a<E, kStream>(s, pa);
+      acc_to_a<E, kStream>(dp, da);
       wgmma_fence();
-      accumulate<D, kStream>(dv_acc, pa, sm.stream_b(s_));  // dv += P^T dO
-      accumulate<D, kStream>(dk_acc, da, sm.stream_a(s_));  // dk += dS^T q
+      accumulate<E, D, kStream>(dv_acc, pa, sm.stream_b(s_));  // dv += P^T dO
+      accumulate<E, D, kStream>(dk_acc, da, sm.stream_a(s_));  // dk += dS^T q
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
@@ -454,26 +494,28 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
       mbar_arrive(sm.empty(s_));
     }
     const int r0 = n0 + wg * 64 + (tid >> 5) * 16 + (lane >> 2);
+    if constexpr (E::kNarrowRange) scale_acc<D>(dk_acc, 1.f / unit);
     if (dk_part != nullptr) {
       const int64_t part =
           (static_cast<int64_t>(blockIdx.z) * gridDim.y + bh) * T * D;
       store_partial<D>(dk_part + part, dk_acc, r0, T, t);
       store_partial<D>(dv_part + part, dv_acc, r0, T, t);
     } else {
-      store_rows<D>(dk + b * st.dk[0] + h * st.dk[2], st.dk[1], dk_acc, r0,
+      store_rows<E, D>(dk + b * st.dk[0] + h * st.dk[2], st.dk[1], dk_acc, r0,
                     T, t);
-      store_rows<D>(dv + b * st.dv[0] + h * st.dv[2], st.dv[1], dv_acc, r0,
+      store_rows<E, D>(dv + b * st.dv[0] + h * st.dv[2], st.dv[1], dv_acc, r0,
                     T, t);
     }
   }
 }
 
 // dk, dv = sum over splits of the fp32 partials [splits, B*H, T, D], in
-// split order, rounded to bf16; one thread per pair of columns.
+// split order, rounded to E; one thread per pair of columns.
+template <typename E>
 __global__ void dkv_reduce_kernel(const float* __restrict__ dk_part,
                                   const float* __restrict__ dv_part,
-                                  __nv_bfloat16* __restrict__ dk,
-                                  __nv_bfloat16* __restrict__ dv, int splits,
+                                  typename E::T* __restrict__ dk,
+                                  typename E::T* __restrict__ dv, int splits,
                                   int H, int T, int D, int64_t pairs,
                                   Strides st) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -496,9 +538,9 @@ __global__ void dkv_reduce_kernel(const float* __restrict__ dk_part,
     v2.y += pv.y;
   }
   *reinterpret_cast<uint32_t*>(dk + b * st.dk[0] + t * st.dk[1] +
-                               h * st.dk[2] + d) = pack_bf16(k2.x, k2.y);
+                               h * st.dk[2] + d) = E::pack(k2.x, k2.y);
   *reinterpret_cast<uint32_t*>(dv + b * st.dv[0] + t * st.dv[1] +
-                               h * st.dv[2] + d) = pack_bf16(v2.x, v2.y);
+                               h * st.dv[2] + d) = E::pack(v2.x, v2.y);
 }
 
 Strides unpack(const int64_t* s) {
@@ -512,70 +554,75 @@ Strides unpack(const int64_t* s) {
 
 // Tensor maps of q, dO (seq S) and k, v (seq T) with boxes of `q_rows` and
 // `kv_rows` rows.
-template <int D>
+template <typename E, int D>
 int make_maps(CUtensorMap* q_map, CUtensorMap* do_map, CUtensorMap* k_map,
               CUtensorMap* v_map, const void* q, const void* k, const void* v,
               const void* dO, int B, int H, int S, int T, const Strides& st,
               int q_rows, int kv_rows) {
   constexpr int kCW = Cfg<D>::kCW;
-  int rc = make_map<kCW>(q_map, q, B, S, H, D, st.q[0], st.q[1], st.q[2],
+  int rc = make_map<E, kCW>(q_map, q, B, S, H, D, st.q[0], st.q[1], st.q[2],
                          q_rows);
   if (rc == 0) {
-    rc = make_map<kCW>(do_map, dO, B, S, H, D, st.dO[0], st.dO[1], st.dO[2],
+    rc = make_map<E, kCW>(do_map, dO, B, S, H, D, st.dO[0], st.dO[1], st.dO[2],
                        q_rows);
   }
   if (rc == 0) {
-    rc = make_map<kCW>(k_map, k, B, T, H, D, st.k[0], st.k[1], st.k[2],
+    rc = make_map<E, kCW>(k_map, k, B, T, H, D, st.k[0], st.k[1], st.k[2],
                        kv_rows);
   }
   if (rc == 0) {
-    rc = make_map<kCW>(v_map, v, B, T, H, D, st.v[0], st.v[1], st.v[2],
+    rc = make_map<E, kCW>(v_map, v, B, T, H, D, st.v[0], st.v[1], st.v[2],
                        kv_rows);
   }
   return rc;
 }
 
-template <int D>
+template <typename E, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dO,
-              const void* lse, const void* delta, void* dq, int B, int H,
+              const void* lse, const void* delta, const void* dout_absmax,
+              void* dq, int B, int H,
               int S, int T, const Strides& st, float scale,
               cudaStream_t stream) {
   CUtensorMap q_map, do_map, k_map, v_map;
-  int rc = make_maps<D>(&q_map, &do_map, &k_map, &v_map, q, k, v, dO, B, H,
+  int rc = make_maps<E, D>(&q_map, &do_map, &k_map, &v_map, q, k, v, dO, B, H,
                         S, T, st, kOwn, Cfg<D>::kStream);
   if (rc != 0) return rc;
   constexpr int smem = Cfg<D>::kSmem;
   static uint64_t smem_allowed = 0;  // devices where the limit is raised
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, smem, smem_allowed);
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<E, D>, smem, smem_allowed);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((S + kOwn - 1) / kOwn, B * H);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<E, D><<<grid, kThreads, smem, stream>>>(
       q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), H,
-      S, T, st.dq[0], st.dq[1], st.dq[2], scale);
+      static_cast<const float*>(delta),
+      static_cast<const float*>(dout_absmax),
+      static_cast<typename E::T*>(dq), H, S, T, st.dq[0], st.dq[1], st.dq[2],
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <typename E, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
-               const void* lse, const void* delta, void* dk, void* dv,
+               const void* lse, const void* delta, const void* dout_absmax,
+               void* dk, void* dv,
                void* dk_part, void* dv_part, int B, int H, int S, int T,
                int splits, int q_tiles_per_split, const Strides& st,
                float scale, cudaStream_t stream) {
   CUtensorMap q_map, do_map, k_map, v_map;
-  int rc = make_maps<D>(&q_map, &do_map, &k_map, &v_map, q, k, v, dO, B, H,
+  int rc = make_maps<E, D>(&q_map, &do_map, &k_map, &v_map, q, k, v, dO, B, H,
                         S, T, st, Cfg<D>::kStream, kOwn);
   if (rc != 0) return rc;
   constexpr int smem = Cfg<D>::kSmem;
   static uint64_t smem_allowed = 0;  // devices where the limit is raised
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D>, smem, smem_allowed);
+  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<E, D>, smem, smem_allowed);
   if (e != cudaSuccess) return static_cast<int>(e);
   const bool split = splits > 1;
   dim3 grid((T + kOwn - 1) / kOwn, B * H, splits);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_kernel<E, D><<<grid, kThreads, smem, stream>>>(
       k_map, v_map, q_map, do_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv),
+      static_cast<const float*>(delta),
+      static_cast<const float*>(dout_absmax), static_cast<typename E::T*>(dk),
+      static_cast<typename E::T*>(dv),
       split ? static_cast<float*>(dk_part) : nullptr,
       split ? static_cast<float*>(dv_part) : nullptr, H, S, T,
       q_tiles_per_split, st, scale);
@@ -583,12 +630,46 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
   if (e != cudaSuccess || !split) return static_cast<int>(e);
   const int64_t pairs = static_cast<int64_t>(B) * H * T * D / 2;
   const int threads = 256;
-  dkv_reduce_kernel<<<static_cast<unsigned>((pairs + threads - 1) / threads),
+  dkv_reduce_kernel<E><<<static_cast<unsigned>((pairs + threads - 1) / threads),
                       threads, 0, stream>>>(
       static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      static_cast<typename E::T*>(dk), static_cast<typename E::T*>(dv),
       splits, H, T, D, pairs, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int dq_d(const void* q, const void* k, const void* v, const void* dO,
+         const void* lse, const void* delta, const void* dout_absmax,
+         void* dq, int B, int H, int S,
+         int T, int D, const int64_t* strides, float scale, void* stream) {
+  const Strides st = unpack(strides);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_dq<E, 16>(q, k, v, dO, lse, delta, dout_absmax, dq, B, H, S, T, st, scale, s);
+    case 32: return launch_dq<E, 32>(q, k, v, dO, lse, delta, dout_absmax, dq, B, H, S, T, st, scale, s);
+    case 64: return launch_dq<E, 64>(q, k, v, dO, lse, delta, dout_absmax, dq, B, H, S, T, st, scale, s);
+    case 128: return launch_dq<E, 128>(q, k, v, dO, lse, delta, dout_absmax, dq, B, H, S, T, st, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename E>
+int dkv_d(const void* q, const void* k, const void* v, const void* dO,
+          const void* lse, const void* delta, const void* dout_absmax,
+          void* dk, void* dv,
+          void* dk_part, void* dv_part, int B, int H, int S, int T, int D,
+          int splits, int q_tiles_per_split, const int64_t* strides,
+          float scale, void* stream) {
+  const Strides st = unpack(strides);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_dkv<E, 16>(q, k, v, dO, lse, delta, dout_absmax, dk, dv, dk_part, dv_part, B, H, S, T, splits, q_tiles_per_split, st, scale, s);
+    case 32: return launch_dkv<E, 32>(q, k, v, dO, lse, delta, dout_absmax, dk, dv, dk_part, dv_part, B, H, S, T, splits, q_tiles_per_split, st, scale, s);
+    case 64: return launch_dkv<E, 64>(q, k, v, dO, lse, delta, dout_absmax, dk, dv, dk_part, dv_part, B, H, S, T, splits, q_tiles_per_split, st, scale, s);
+    case 128: return launch_dkv<E, 128>(q, k, v, dO, lse, delta, dout_absmax, dk, dv, dk_part, dv_part, B, H, S, T, splits, q_tiles_per_split, st, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -600,19 +681,23 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* delta, void* dq, int B, int H,
                                  int S, int T, int D, const int64_t* strides,
                                  float scale, void* stream) {
-  const Strides st = unpack(strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dq<16>(q, k, v, dO, lse, delta, dq, B, H, S, T, st, scale, s);
-    case 32: return launch_dq<32>(q, k, v, dO, lse, delta, dq, B, H, S, T, st, scale, s);
-    case 64: return launch_dq<64>(q, k, v, dO, lse, delta, dq, B, H, S, T, st, scale, s);
-    case 128: return launch_dq<128>(q, k, v, dO, lse, delta, dq, B, H, S, T, st, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dq_d<Bf16>(q, k, v, dO, lse, delta, nullptr, dq, B, H, S, T, D,
+                    strides, scale, stream);
+}
+
+// dout_absmax: max|dO| as one fp32 value on the device (the dS factor).
+extern "C" int flash_bwd_dq_f16(const void* q, const void* k, const void* v,
+                                const void* dO, const void* lse,
+                                const void* delta, const void* dout_absmax,
+                                void* dq, int B, int H, int S, int T, int D,
+                                const int64_t* strides, float scale,
+                                void* stream) {
+  return dq_d<F16>(q, k, v, dO, lse, delta, dout_absmax, dq, B, H, S, T, D,
+                   strides, scale, stream);
 }
 
 // splits > 1 splits each kv tile's q loop over that many blocks of
-// q_tiles_per_split 64-row tiles, with fp32 partials in dk_part and dv_part
+// q_tiles_per_split q tiles, with fp32 partials in dk_part and dv_part
 // ([splits, B*H, T, D] each) summed by the reduction kernel.
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
                                   const void* v, const void* dO,
@@ -622,13 +707,21 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k,
                                   int D, int splits, int q_tiles_per_split,
                                   const int64_t* strides, float scale,
                                   void* stream) {
-  const Strides st = unpack(strides);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dkv<16>(q, k, v, dO, lse, delta, dk, dv, dk_part, dv_part, B, H, S, T, splits, q_tiles_per_split, st, scale, s);
-    case 32: return launch_dkv<32>(q, k, v, dO, lse, delta, dk, dv, dk_part, dv_part, B, H, S, T, splits, q_tiles_per_split, st, scale, s);
-    case 64: return launch_dkv<64>(q, k, v, dO, lse, delta, dk, dv, dk_part, dv_part, B, H, S, T, splits, q_tiles_per_split, st, scale, s);
-    case 128: return launch_dkv<128>(q, k, v, dO, lse, delta, dk, dv, dk_part, dv_part, B, H, S, T, splits, q_tiles_per_split, st, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dkv_d<Bf16>(q, k, v, dO, lse, delta, nullptr, dk, dv, dk_part,
+                     dv_part, B, H, S, T, D, splits, q_tiles_per_split,
+                     strides, scale, stream);
+}
+
+extern "C" int flash_bwd_dkv_f16(const void* q, const void* k,
+                                 const void* v, const void* dO,
+                                 const void* lse, const void* delta,
+                                 const void* dout_absmax,
+                                 void* dk, void* dv, void* dk_part,
+                                 void* dv_part, int B, int H, int S, int T,
+                                 int D, int splits, int q_tiles_per_split,
+                                 const int64_t* strides, float scale,
+                                 void* stream) {
+  return dkv_d<F16>(q, k, v, dO, lse, delta, dout_absmax, dk, dv, dk_part,
+                    dv_part, B, H, S, T, D, splits, q_tiles_per_split,
+                    strides, scale, stream);
 }

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in, bf16 out, fp32 lse.
+// Flash-attention forward for Hopper (sm_90a), bf16 or fp16 in, the same
+// type out, fp32 lse.
 //
 // Replaces the Pallas kernel `_fwd_kernel` of
 // sdxl_training_improvements_tpu/ops/flash_attention.py (driven by `_fwd`).
@@ -27,20 +28,20 @@
 //   only K) and an empty barrier the consumers release;
 // * S = Q K^T is an SS wgmma, both operands K-major; the online softmax runs
 //   on the accumulator layout in log2 units (scale folded into one FFMA
-//   before ex2), a quad of threads shares each row; P is rounded to bf16 in
-//   registers, as the Pallas kernel casts p to v's dtype, and O += P V is an
-//   RS wgmma that reads V MN-major from its TMA buffer (trans-b): nothing is
-//   transposed in shared memory;
+//   before ex2), a quad of threads shares each row; P is rounded to the
+//   input type in registers, as the Pallas kernel casts p to v's dtype,
+//   and O += P V is an RS wgmma that reads V MN-major from its TMA buffer
+//   (trans-b): nothing is transposed in shared memory;
 // * overlap inside a warpgroup: tile j's Q K^T and tile j-1's P V are
 //   issued together, tile j's softmax runs while P V does, and the output
 //   is rescaled once P V has landed;
 // * overlap across warpgroups (ping-pong): the two consumers take turns on
 //   the tensor cores through two named barriers, so one warpgroup's
 //   softmax runs while the other's products do;
-// * the epilogue writes out = O / l as bf16 over the warpgroup's own q rows
-//   in shared memory, swizzled as TMA reads them, and one thread stores
-//   them by TMA; lse = (m * scale_log2 + log2 l) * ln 2 goes out from
-//   registers.
+// * the epilogue writes out = O / l in the input type over the
+//   warpgroup's own q rows in shared memory, swizzled as TMA reads them,
+//   and one thread stores them by TMA; lse = (m * scale_log2 + log2 l)
+//   * ln 2 goes out from registers.
 //
 // Masking from S and T, with no padded copies: TMA fills rows >= S and
 // >= T with zeros and clips the store at S; columns >= T get a score of
@@ -54,7 +55,10 @@
 // Inputs are read through (batch, seq, head) strides with a unit head-dim
 // stride, so the projections' [B, S, H*D] outputs are read in place.
 //
-// C interface for ctypes; the launcher returns the cudaError_t of the launch
+// The kernel is a template on the element type (hopper.cuh: Bf16, F16);
+// flash_fwd_bf16 and flash_fwd_f16 launch its two instantiations.
+//
+// C interface for ctypes; each launcher returns the cudaError_t of the launch
 // (or hopper::kEncodeError + the CUresult of a tensor map it cannot build).
 
 #include "hopper.cuh"
@@ -78,7 +82,7 @@ struct Cfg {
   static constexpr int kChunks = D / kCW;
   static constexpr int kRow = 2 * kCW;          // bytes per chunk row
   // rows of a K/V tile: the consumers hold a 64 x kStream score tile, its
-  // bf16 copy and the 64 x D output in registers
+  // 16-bit copy and the 64 x D output in registers
   static constexpr int kStream = D <= 64 ? 128 : 64;
   static constexpr int kQBytes = kOwn * D * 2;
   static constexpr int kTileBytes = kStream * D * 2;
@@ -166,7 +170,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, uint32_t bar,
 
 // s[64 x kStream] = Q K^T over the head dim: Q the consumer's 64 rows of the
 // q tile, K a streamed tile, both K-major.
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void scores(float (&s)[Cfg<D>::kStream / 2],
                                        uint32_t q, uint32_t k) {
   using C = Cfg<D>;
@@ -174,7 +178,7 @@ __device__ __forceinline__ void scores(float (&s)[Cfg<D>::kStream / 2],
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk / (C::kCW / 16);
     const int off = (kk % (C::kCW / 16)) * 32;
-    wgmma_ss<C::kStream>(s, desc_k<C::kCW>(q + c * kOwn * C::kRow + off),
+    wgmma_ss<E, C::kStream>(s, desc_k<C::kCW>(q + c * kOwn * C::kRow + off),
                          desc_k<C::kCW>(k + c * C::kStream * C::kRow + off),
                          kk > 0);
   }
@@ -182,7 +186,7 @@ __device__ __forceinline__ void scores(float (&s)[Cfg<D>::kStream / 2],
 
 // o[64 x D] += P V over the kStream rows of a V tile read MN-major, P as
 // A fragments.
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void accumulate(
     float (&o)[Cfg<D>::kChunks][Cfg<D>::kCW / 2],
     const uint32_t (&p)[Cfg<D>::kStream / 16][4], uint32_t v) {
@@ -191,7 +195,7 @@ __device__ __forceinline__ void accumulate(
   for (int kk = 0; kk < C::kStream / 16; ++kk) {
 #pragma unroll
     for (int c = 0; c < C::kChunks; ++c) {
-      wgmma_rs<C::kCW>(o[c], p[kk],
+      wgmma_rs<E, C::kCW>(o[c], p[kk],
                        desc_mn<C::kCW>(v + c * C::kStream * C::kRow +
                                        kk * 16 * C::kRow));
     }
@@ -289,7 +293,7 @@ struct Turn {
   }
 };
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
@@ -349,7 +353,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(sm.full_k(0), 0);
     turn.begin();
     wgmma_fence();
-    scores<D>(s, q_wg, sm.k(0));
+    scores<E, D>(s, q_wg, sm.k(0));
     wgmma_commit();
     turn.end();
     wgmma_wait<0>();
@@ -359,7 +363,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     } else {
       soft.template step<false>(s, 2 * t, T, alpha);
     }
-    acc_to_a<kStream>(s, p);
+    acc_to_a<E, kStream>(s, p);
     for (int j = 1; j < n_tiles; ++j) {
       const int st = j % kStages;
       const int prev = (j - 1) % kStages;
@@ -367,9 +371,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       mbar_wait(sm.full_v(prev), ((j - 1) / kStages) & 1);
       turn.begin();
       wgmma_fence();
-      scores<D>(s, q_wg, sm.k(st));
+      scores<E, D>(s, q_wg, sm.k(st));
       wgmma_commit();
-      accumulate<D>(acc, p, sm.v(prev));
+      accumulate<E, D>(acc, p, sm.v(prev));
       wgmma_commit();
       turn.end();
       wgmma_wait<1>();  // the scores; P V may still run
@@ -385,13 +389,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_operands(p);
       mbar_arrive(sm.empty(prev));
       rescale<D>(acc, alpha);
-      acc_to_a<kStream>(s, p);
+      acc_to_a<E, kStream>(s, p);
     }
     const int last = (n_tiles - 1) % kStages;
     mbar_wait(sm.full_v(last), ((n_tiles - 1) / kStages) & 1);
     turn.begin();
     wgmma_fence();
-    accumulate<D>(acc, p, sm.v(last));
+    accumulate<E, D>(acc, p, sm.v(last));
     wgmma_commit();
     turn.end();
     wgmma_wait<0>();
@@ -401,7 +405,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_arrive(sm.empty(last));
     turn.finish();
 
-    // out = acc / l as bf16, lse = (m * scale_log2 + log2 l) * ln 2
+    // out = acc / l as E, lse = (m * scale_log2 + log2 l) * ln 2
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -418,10 +422,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int jj = 0; jj < C::kCW / 8; ++jj) {
         const int byte = 2 * (8 * jj + 2 * t);
         st_shared(chunk + swizzled<C::kCW>(lr, byte),
-                  pack_bf16(acc[c][4 * jj] * inv[0],
+                  E::pack(acc[c][4 * jj] * inv[0],
                             acc[c][4 * jj + 1] * inv[0]));
         st_shared(chunk + swizzled<C::kCW>(lr + 8, byte),
-                  pack_bf16(acc[c][4 * jj + 2] * inv[1],
+                  E::pack(acc[c][4 * jj + 2] * inv[1],
                             acc[c][4 * jj + 3] * inv[1]));
       }
     }
@@ -448,49 +452,66 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D>
+template <typename E, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int H, int S, int T, const int64_t* st, float scale,
            cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap q_map, k_map, v_map, o_map;
-  int rc = make_map<C::kCW>(&q_map, q, B, S, H, D, st[0], st[1], st[2], kOwn);
+  int rc =
+      make_map<E, C::kCW>(&q_map, q, B, S, H, D, st[0], st[1], st[2], kOwn);
   if (rc == 0) {
-    rc = make_map<C::kCW>(&k_map, k, B, T, H, D, st[3], st[4], st[5],
+    rc = make_map<E, C::kCW>(&k_map, k, B, T, H, D, st[3], st[4], st[5],
                           C::kStream);
   }
   if (rc == 0) {
-    rc = make_map<C::kCW>(&v_map, v, B, T, H, D, st[6], st[7], st[8],
+    rc = make_map<E, C::kCW>(&v_map, v, B, T, H, D, st[6], st[7], st[8],
                           C::kStream);
   }
   if (rc == 0) {
-    rc = make_map<C::kCW>(&o_map, o, B, S, H, D, st[9], st[10], st[11], 64);
+    rc = make_map<E, C::kCW>(&o_map, o, B, S, H, D, st[9], st[10], st[11], 64);
   }
   if (rc != 0) return rc;
   static uint64_t smem_allowed = 0;  // devices where the limit is raised
-  cudaError_t e = allow_smem(flash_fwd_kernel<D>, C::kSmem, smem_allowed);
+  cudaError_t e = allow_smem(flash_fwd_kernel<E, D>, C::kSmem, smem_allowed);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((S + kOwn - 1) / kOwn, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
+  flash_fwd_kernel<E, D><<<grid, kThreads, C::kSmem, stream>>>(
       q_map, k_map, v_map, o_map, static_cast<float*>(lse), H, S, T,
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
 // strides: 12 element strides, (batch, seq, head) for q, k, v, o in turn;
 // scale > 0.
+template <typename E>
+int launch_d(const void* q, const void* k, const void* v, void* o, void* lse,
+             int B, int H, int S, int T, int D, const int64_t* strides,
+             float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch<E, 16>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
+    case 32: return launch<E, 32>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
+    case 64: return launch<E, 64>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
+    case 128: return launch<E, 128>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int S, int T,
                               int D, const int64_t* strides, float scale,
                               void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
-    case 32: return launch<32>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
-    case 64: return launch<64>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
-    case 128: return launch<128>(q, k, v, o, lse, B, H, S, T, strides, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_d<Bf16>(q, k, v, o, lse, B, H, S, T, D, strides, scale,
+                        stream);
+}
+
+extern "C" int flash_fwd_f16(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int B, int H, int S, int T,
+                             int D, const int64_t* strides, float scale,
+                             void* stream) {
+  return launch_d<F16>(q, k, v, o, lse, B, H, S, T, D, strides, scale,
+                       stream);
 }

@@ -6,7 +6,13 @@
 // a source that includes it builds in seconds with a plain C interface (no
 // CUTLASS/CuTe templates).
 //
-// Shared-memory tiles.  A bf16 tile of `rows` rows and D columns is held as
+// Element types.  The kernels are templates on a traits struct, Bf16 or
+// F16, that names the stored type, its TMA data type, its wgmma operand
+// type (the specialisations of wgmma_ss / wgmma_rs) and the packing of two
+// fp32 values into one 32-bit register.  Both types are 2 bytes wide, so
+// tiles, swizzles and descriptors are the same for both.
+//
+// Shared-memory tiles.  A 16-bit tile of `rows` rows and D columns is held as
 // D / CW chunks of CW = min(D, 64) columns, each chunk [rows][CW] with its
 // rows of 2 * CW bytes swizzled by TMA (CW = 64, 32, 16: the 128-, 64- and
 // 32-byte swizzle).  wgmma reads the same chunks through descriptors of the
@@ -19,6 +25,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,6 +34,31 @@ namespace hopper {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// ---------------------------------------------------------------- element types
+
+struct Bf16 {
+  using T = __nv_bfloat16;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // fp16's exponent has 5 bits: its range ends at 6e-8 (flash_bwd.cu
+  // scales dS for it); bf16 keeps fp32's
+  static constexpr bool kNarrowRange = false;
+  // (lo, hi) rounded to nearest, lo in the low half
+  __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+struct F16 {
+  using T = __half;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static constexpr bool kNarrowRange = true;
+  __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
 
 // ---------------------------------------------------------------- mbarrier
 
@@ -121,7 +153,7 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Byte offset of (row, byte) in a chunk of CW bf16 columns, as the TMA
+// Byte offset of (row, byte) in a chunk of CW 16-bit columns, as the TMA
 // swizzle of hopper's tiles places it: the 16-byte unit index is XORed with
 // the row's position in the 1024-byte atom.
 template <int CW>
@@ -203,19 +235,20 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
 }
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N], fp32 accumulators in the wgmma
-// register layout, both operands K-major in shared memory.
-template <int N>
+// register layout, both operands of element type E, K-major in shared
+// memory.
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d);
 
 // D[64 x N] += A[64 x 16] B[16 x N] with A in registers (the mma.sync A
 // fragment per warp) and B MN-major in shared memory.
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b);
 
 template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+__device__ __forceinline__ void wgmma_ss<Bf16, 64>(float (&d)[32], uint64_t a,
                                             uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -226,7 +259,7 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+__device__ __forceinline__ void wgmma_ss<Bf16, 128>(float (&d)[64], uint64_t a,
                                             uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -237,7 +270,7 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+__device__ __forceinline__ void wgmma_rs<Bf16, 16>(float (&d)[8],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
   asm volatile(
@@ -249,7 +282,7 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+__device__ __forceinline__ void wgmma_rs<Bf16, 32>(float (&d)[16],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
   asm volatile(
@@ -261,7 +294,7 @@ __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+__device__ __forceinline__ void wgmma_rs<Bf16, 64>(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
   asm volatile(
@@ -272,23 +305,76 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+template <>
+__device__ __forceinline__ void wgmma_ss<F16, 64>(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// The accumulators of a 64 x N wgmma product, rounded to bf16, as the A
+template <>
+__device__ __forceinline__ void wgmma_ss<F16, 128>(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<F16, 16>(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<F16, 32>(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<F16, 64>(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The accumulators of a 64 x N wgmma product, rounded to E, as the A
 // operands of N / 16 k steps of a following product (the accumulator and
 // A-fragment layouts agree thread by thread).
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void acc_to_a(const float (&s)[N / 2],
                                          uint32_t (&a)[N / 16][4]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    a[kk][0] = E::pack(s[8 * kk + 0], s[8 * kk + 1]);
+    a[kk][1] = E::pack(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = E::pack(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = E::pack(s[8 * kk + 6], s[8 * kk + 7]);
   }
 }
 
@@ -340,10 +426,10 @@ inline cudaError_t allow_smem(Kernel kernel, int bytes, uint64_t& done) {
 // driver's CUresult).
 constexpr int kEncodeError = 100000;
 
-// A tensor map over a bf16 [B, N, H, D] tensor with element strides
+// A tensor map over an E [B, N, H, D] tensor with element strides
 // (sb, sn, sh) and a unit D stride, whose box is `rows` sequence rows of
 // one head and CW columns, swizzled as the chunks above.
-template <int CW>
+template <typename E, int CW>
 inline int make_map(CUtensorMap* map, const void* ptr, int B, int N, int H,
                     int D, int64_t sb, int64_t sn, int64_t sh, int rows) {
   EncodeTiledFn fn = encode_tiled();
@@ -361,7 +447,7 @@ inline int make_map(CUtensorMap* map, const void* ptr, int B, int N, int H,
       CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                : CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = fn(map, E::kTma, 4,
                         const_cast<void*>(ptr), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

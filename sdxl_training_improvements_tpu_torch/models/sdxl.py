@@ -3,19 +3,25 @@
 Port of ``sdxl_training_improvements_tpu/models/sdxl.py``: ``create`` with
 seeded weights for all four components, ``unet_apply``, ``encode_prompt``
 (dual CLIP -> prompt_embeds [B, 77, 2048] + pooled [B, 1280]) and
-``decode_latents``, and ``trainable_params`` (the UNet's parameters: the
-training slice trains the UNet only, as JAX does).  Dtypes follow the JAX
-package: UNet and CLIP weights in ``dtype`` (bf16 by default), norms'
-parameters fp32, the VAE fp32.
+``decode_latents``, ``trainable_params`` (the UNet's parameters: the
+training slice trains the UNet only, as JAX does), and ``from_config``,
+which builds the bundle a ``Config`` asks for.  Dtypes follow the JAX
+package: the UNet in the policy's compute dtype (``core/types.py``; a bare
+``dtype``, bf16 by default, otherwise), CLIP-L and CLIP-G in
+``weight_dtypes`` (by default that dtype), norms' parameters fp32, the VAE
+fp32.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from sdxl_training_improvements_tpu_torch.core.types import (
+    DataType, ModelWeightDtypes, Policy)
 from sdxl_training_improvements_tpu_torch.models.clip import (
     CLIPTextConfig, CLIPTextModel, encode_dual)
 from sdxl_training_improvements_tpu_torch.models.layers import (
@@ -71,13 +77,21 @@ class SDXLModel:
 
     @classmethod
     def create(cls, *, tiny: bool = False, dtype=torch.bfloat16,
+               policy: Optional[Policy] = None,
+               weight_dtypes: Optional[ModelWeightDtypes] = None,
                device="cuda", generator: Optional[torch.Generator] = None,
                unet_config: Optional[UNetConfig] = None) -> "SDXLModel":
         """Bundle on ``device`` (the card unless the caller asks for the
         CPU) with weights drawn from ``generator`` (a CPU generator seeded
         with 0 when None).  ``tiny`` builds the CPU-testable miniature;
         otherwise full SDXL-base width.  ``unet_config`` overrides the
-        UNet's (e.g. its remat settings)."""
+        UNet's (e.g. its remat settings).
+
+        ``policy`` (``core.types.Policy``), when given, replaces ``dtype``
+        with its compute dtype; the UNet computes in its weights' dtype, so
+        a policy whose param and compute dtypes differ raises.  CLIP-L and
+        CLIP-G follow ``weight_dtypes`` (by default that dtype); the VAE
+        is fp32 whatever they say."""
         if tiny:
             ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
             lcfg = CLIPTextConfig.tiny()
@@ -87,19 +101,61 @@ class SDXLModel:
             lcfg, gcfg = CLIPTextConfig.clip_l(), CLIPTextConfig.clip_g()
         if unet_config is not None:
             ucfg = unet_config
+        if policy is not None:
+            if policy.param_dtype != policy.compute_dtype:
+                raise ValueError(
+                    f"policy params {policy.param_dtype} with compute "
+                    f"{policy.compute_dtype}: the port's UNet computes in "
+                    "its weights' dtype")
+            dtype = policy.compute_dtype
+        wd = weight_dtypes or ModelWeightDtypes.from_single_dtype(
+            DataType.from_torch(dtype))
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        # fp32 products in full fp32: the VAE runs fp32 for accuracy, and
-        # cuDNN would otherwise put its fp32 convolutions in TF32 (its
-        # default).  The bf16 UNet and CLIP are unaffected.
+        # fp32 products in full fp32: the VAE (and an fp32 UNet and CLIP,
+        # mixed_precision "no") run fp32 for accuracy, and cuDNN would
+        # otherwise put its fp32 convolutions in TF32 (its default).  16-bit
+        # models are unaffected.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         with torch.device("meta"):
             parts = (SDXLUNet(ucfg), AutoencoderKL(vcfg),
                      CLIPTextModel(lcfg), CLIPTextModel(gcfg))
-        dtypes = (dtype, torch.float32, dtype, dtype)
+        dtypes = (dtype, torch.float32, wd.text_encoder.to_torch(),
+                  wd.text_encoder_2.to_torch())
         return cls(*(_materialize(m, dt, device, generator)
                      for m, dt in zip(parts, dtypes)))
+
+    @classmethod
+    def from_config(cls, config, *, device="cuda",
+                    generator: Optional[torch.Generator] = None
+                    ) -> "SDXLModel":
+        """The bundle ``config`` (a root ``Config``) asks for, with seeded
+        weights, as JAX ``training/loop.py``'s ``_load_model`` builds it:
+        ``training.mixed_precision`` through ``Policy.from_mixed_precision``,
+        ``tpu.remat`` / ``tpu.remat_policy`` into the UNet's config, the
+        miniature where ``model.model_type`` is ``sdxl_tiny``.  Checkpoint
+        import is not ported (ROADMAP queue 1), so a local checkpoint
+        directory in ``model.pretrained_model_name`` raises."""
+        key = config.model.model_type.strip().lower().replace("-", "_")
+        types = ("base", "inpainting", "refiner", "sdxl", "sdxl_tiny")
+        if key not in types + ("tiny",):
+            raise ValueError(f"Unknown model type: "
+                             f"{config.model.model_type!r}. Valid: "
+                             f"{list(types)}")
+        if Path(config.model.pretrained_model_name).exists():
+            raise NotImplementedError(
+                f"{config.model.pretrained_model_name}: checkpoint import is "
+                "not ported yet (ROADMAP queue 1); from_config builds "
+                "seeded weights")
+        tiny = key in ("sdxl_tiny", "tiny")
+        ucfg = (UNetConfig.tiny if tiny else UNetConfig.sdxl)(
+            remat=config.tpu.remat, remat_policy=config.tpu.remat_policy)
+        return cls.create(
+            tiny=tiny,
+            policy=Policy.from_mixed_precision(
+                config.training.mixed_precision),
+            device=device, generator=generator, unet_config=ucfg)
 
     @property
     def unet_config(self) -> UNetConfig:

@@ -1,7 +1,12 @@
 """Flash attention: plain versions, the CUDA kernels' wrappers and the
 ``torch.autograd.Function`` that joins them.
 
-Port of ``sdxl_training_improvements_tpu/ops/flash_attention.py``.
+Port of ``sdxl_training_improvements_tpu/ops/flash_attention.py``.  The
+Pallas kernels take any dtype; here each of the UNet's precisions
+(``training.mixed_precision``) has its kernels, picked by the inputs'
+dtype: bf16 and fp16 run the two instantiations of the Hopper kernels
+below, fp32 the exact-fp32 kernels of ``csrc/flash_f32.cu`` (FFMA, no
+tensor cores: wgmma has no fp32 operands).  Any other dtype raises.
 
 * forward: ``csrc/flash_fwd.cu`` replaces the Pallas ``_fwd_kernel``: a
   block per (b*h, 128-row q tile) with a TMA producer warp and two
@@ -17,10 +22,13 @@ Port of ``sdxl_training_improvements_tpu/ops/flash_attention.py``.
 * ``FlashAttention`` saves (q, k, v, out, lse) in the forward, as
   ``_flash_core_fwd`` does, and runs the two backward kernels.
 
+Each launcher (``LAUNCHERS[kind][dtype]``) counts its launches; each
+wrapper counts its own over all dtypes.
+
 Each source note gives its kernel's design.  Layout at this module's
 functions: q [B, S, H, D], k and v [B, T, H, D] (the JAX package's
-layout), out [B, S, H, D], lse [B, H, S] fp32.  The dispatch by device is
-``ops/attention.py::dot_product_attention``.
+layout), out [B, S, H, D] in q's dtype, lse [B, H, S] fp32.  The dispatch
+by device is ``ops/attention.py::dot_product_attention``.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 DKV_KV_ROWS = 128  # rows of the dk/dv kernel's kv tile (flash_bwd.cu kOwn)
 H100_SMS = 132
 
@@ -128,16 +137,53 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout,
     return dq, dk, dv
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    """The C launcher, built and loaded at first use."""
-    from sdxl_training_improvements_tpu_torch.ops import _build
-    fn = _build.load("flash_fwd").flash_fwd_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+class Launcher:
+    """One C launcher of a kernel instantiation, built and loaded at its
+    first call; ``launches`` counts its successful launches."""
+
+    def __init__(self, library: str, symbol: str, n_ptr: int, n_int: int):
+        self.library, self.symbol = library, symbol
+        self.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                         + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float,
+                            ctypes.c_void_p])
+        self.launches = 0
+
+    @functools.cached_property
+    def fn(self):
+        from sdxl_training_improvements_tpu_torch.ops import _build
+        fn = getattr(_build.load(self.library), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def __call__(self, *args) -> None:
+        _raise_on(self.fn(*args), self.symbol)
+        self.launches += 1
+
+
+_SUFFIX = {torch.bfloat16: "bf16", torch.float16: "f16",
+           torch.float32: "f32"}
+
+
+def _launchers(kind: str, args) -> dict:
+    """The launchers of one kernel by dtype, each with its (pointer, int)
+    argument counts in ``args``: the 16-bit instantiations in
+    ``csrc/flash_{fwd,bwd}.cu`` (the fp16 backward with the max|dO|
+    pointer more), the fp32 kernel in ``csrc/flash_f32.cu`` (its dk/dv
+    without the split's scratch and plan arguments)."""
+    lib16 = "flash_fwd" if kind == "fwd" else "flash_bwd"
+    symbol = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
+    return {dt: Launcher("flash_f32" if dt == torch.float32 else lib16,
+                         f"{symbol}_{_SUFFIX[dt]}", *args[dt])
+            for dt in DTYPES}
+
+
+_BF16, _F16, _F32 = DTYPES
+LAUNCHERS = {
+    "fwd": _launchers("fwd", {_BF16: (5, 5), _F16: (5, 5), _F32: (5, 5)}),
+    "dq": _launchers("dq", {_BF16: (7, 5), _F16: (8, 5), _F32: (7, 5)}),
+    "dkv": _launchers("dkv", {_BF16: (10, 7), _F16: (11, 7),
+                              _F32: (8, 5)})}
 
 
 def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
@@ -151,7 +197,7 @@ def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
 
 
 def tma_addressable(x: torch.Tensor) -> bool:
-    """Whether a bf16 [B, N, H, D] tensor meets TMA's conditions: a
+    """Whether a 16-bit [B, N, H, D] tensor meets TMA's conditions: a
     16-byte aligned base, (batch, seq, head) strides that are multiples of
     16 bytes (8 elements) and a unit head-dim stride."""
     sb, sn, sh = _strides(x)
@@ -160,9 +206,12 @@ def tma_addressable(x: torch.Tensor) -> bool:
 
 
 def _addressable(x: torch.Tensor) -> torch.Tensor:
-    """x itself where the kernels' TMA maps can read it in place, else a
-    contiguous copy."""
-    return x if tma_addressable(x) else x.contiguous()
+    """x itself where its kernel can read it in place (the 16-bit kernels'
+    TMA maps; the fp32 kernels' plain loads need a unit head-dim stride),
+    else a contiguous copy."""
+    ok = (x.stride(3) == 1 if x.dtype == torch.float32
+          else tma_addressable(x))
+    return x if ok else x.contiguous()
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -174,8 +223,9 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def _check(q, k, v, *more):
-    """Raise on what the kernels do not take: bf16 [B, S, H, D] q and
-    [B, T, H, D] k, v (and more tensors shaped like q) on one card."""
+    """Raise on what the kernels do not take: [B, S, H, D] q and
+    [B, T, H, D] k, v (and more tensors shaped like q) of one dtype in
+    ``DTYPES`` on one card."""
     b, s, h, d = q.shape
     t = k.shape[1]
     if k.shape != (b, t, h, d) or v.shape != k.shape or any(
@@ -185,8 +235,12 @@ def _check(q, k, v, *more):
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     for x in (q, k, v) + more:
-        if x.dtype != torch.bfloat16 or x.device != q.device:
-            raise TypeError("flash kernel takes bf16 q, k, v on one device")
+        if (x.dtype not in DTYPES or x.dtype != q.dtype
+                or x.device != q.device):
+            raise TypeError(
+                "flash kernels take q, k, v of one dtype (bf16, fp16 or "
+                f"fp32) on one device, got {x.dtype} on {x.device} with "
+                f"q {q.dtype} on {q.device}")
     if t < 1 or s < 1:
         raise ValueError("empty sequence")
     if b * h > 65535:  # grid.y of the launch
@@ -196,8 +250,9 @@ def _check(q, k, v, *more):
 
 
 def flash_attention_fwd_cuda(q, k, v, scale: Optional[float] = None):
-    """Launch the CUDA kernel; raises on what it does not take (the kernel
-    takes the row max of the unscaled scores, so scale must be > 0)."""
+    """Launch the CUDA kernel of q's dtype; raises on what it does not take
+    (the 16-bit kernel takes the row max of the unscaled scores, so scale
+    must be > 0)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if not scale > 0:
         raise ValueError(f"flash forward needs scale > 0, got {scale}")
@@ -205,16 +260,15 @@ def flash_attention_fwd_cuda(q, k, v, scale: Optional[float] = None):
     b, s, h, d = q.shape
     t = k.shape[1]
     q, k, v = _addressable(q), _addressable(k), _addressable(v)
-    out = torch.empty((b, s, h, d), device=q.device, dtype=torch.bfloat16)
+    out = torch.empty((b, s, h, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     strides = (ctypes.c_int64 * 12)(
         *(_strides(q) + _strides(k) + _strides(v) + _strides(out)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _library()(
+        LAUNCHERS["fwd"][q.dtype](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, s, t, d, strides, float(scale), stream)
-    _raise_on(rc, "flash_fwd")
     flash_attention_fwd_cuda.launches += 1
     return out, lse
 
@@ -222,25 +276,10 @@ def flash_attention_fwd_cuda(q, k, v, scale: Optional[float] = None):
 flash_attention_fwd_cuda.launches = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_library():
-    """The two backward launchers, built and loaded at first use."""
-    from sdxl_training_improvements_tpu_torch.ops import _build
-    lib = _build.load("flash_bwd")
-    tail = [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p]
-    lib.flash_bwd_dq_bf16.argtypes = ([ctypes.c_void_p] * 7
-                                      + [ctypes.c_int] * 5 + tail)
-    lib.flash_bwd_dkv_bf16.argtypes = ([ctypes.c_void_p] * 10
-                                       + [ctypes.c_int] * 7 + tail)
-    for fn in (lib.flash_bwd_dq_bf16, lib.flash_bwd_dkv_bf16):
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def _bwd_inputs(q, k, v, dout, lse, delta):
-    """The backward kernels' inputs, checked and laid out for them: bf16
-    q, dO [B, S, H, D] and k, v [B, T, H, D] on one card, lse and delta
-    [B, H, S] fp32; raises on anything else."""
+    """The backward kernels' inputs, checked and laid out for them: q, dO
+    [B, S, H, D] and k, v [B, T, H, D] of one dtype on one card, lse and
+    delta [B, H, S] fp32; raises on anything else."""
     _check(q, k, v, dout)
     b, s, h, _ = q.shape
     for name, x in (("lse", lse), ("delta", delta)):
@@ -252,6 +291,16 @@ def _bwd_inputs(q, k, v, dout, lse, delta):
             delta.contiguous())
 
 
+def dout_absmax(dout: torch.Tensor) -> Optional[torch.Tensor]:
+    """max|dO| as a 0-d fp32 tensor on dO's device (no host
+    synchronisation) for an fp16 dO, else None.  The fp16 backward kernels
+    scale dS by a power of two derived from it, as fp16's range ends at
+    6e-8 (``csrc/flash_bwd.cu``)."""
+    if dout.dtype != torch.float16:
+        return None
+    return torch.linalg.vector_norm(dout, float("inf"), dtype=torch.float32)
+
+
 def _bwd_strides(q, k, v, dout, *outs):
     """The 21 (batch, seq, head) strides of q, k, v, dO, dq, dk, dv (0 for
     an output a launcher does not write)."""
@@ -261,19 +310,21 @@ def _bwd_strides(q, k, v, dout, *outs):
                                     else (0, 0, 0))))
 
 
-def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale: float):
-    """Launch the dq kernel (Pallas ``_bwd_dq_kernel``); raises on what it
-    does not take."""
+def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale: float,
+                      absmax: Optional[torch.Tensor] = None):
+    """Launch the dq kernel of q's dtype (Pallas ``_bwd_dq_kernel``);
+    raises on what it does not take.  ``absmax`` is ``dout_absmax(dout)``
+    (formed here for fp16 when not given)."""
     q, k, v, dout, lse, delta = _bwd_inputs(q, k, v, dout, lse, delta)
     b, s, h, d = q.shape
-    dq = torch.empty(q.shape, device=q.device, dtype=torch.bfloat16)
+    dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     strides = _bwd_strides(q, k, v, dout, dq, None, None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bwd_library().flash_bwd_dq_bf16(
-            *(x.data_ptr() for x in (q, k, v, dout, lse, delta, dq)), b, h,
-            s, k.shape[1], d, strides, float(scale), stream)
-    _raise_on(rc, "flash_bwd_dq")
+        LAUNCHERS["dq"][q.dtype](
+            *(x.data_ptr() for x in (q, k, v, dout, lse, delta)),
+            *_absmax_ptr(dout, absmax), dq.data_ptr(), b, h, s, k.shape[1],
+            d, strides, float(scale), stream)
     flash_bwd_dq_cuda.launches += 1
     return dq
 
@@ -281,21 +332,45 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale: float):
 flash_bwd_dq_cuda.launches = 0
 
 
+def _absmax_ptr(dout, absmax) -> Tuple[int, ...]:
+    """The fp16 launchers' max|dO| pointer (none for bf16)."""
+    if dout.dtype != torch.float16:
+        return ()
+    if absmax is None:
+        absmax = dout_absmax(dout)
+    if (absmax.shape != () or absmax.dtype != torch.float32
+            or absmax.device != dout.device):
+        raise ValueError("absmax must be a 0-d fp32 tensor on dO's device")
+    return (absmax.data_ptr(),)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale: float):
-    """Launch the dk/dv kernel (Pallas ``_bwd_dkv_kernel``), with its q
-    loop split as ``plan_dkv_splits`` says and the fp32 partials summed
-    by the reduction kernel of the same source; raises on what it does
-    not take."""
+def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale: float,
+                       absmax: Optional[torch.Tensor] = None):
+    """Launch the dk/dv kernel of q's dtype (Pallas ``_bwd_dkv_kernel``);
+    raises on what it does not take.  The 16-bit kernels split their q
+    loop as ``plan_dkv_splits`` says and sum the fp32 partials by the
+    reduction kernel of the same source; the fp32 kernel does not split.
+    ``absmax`` as for ``flash_bwd_dq_cuda``."""
     q, k, v, dout, lse, delta = _bwd_inputs(q, k, v, dout, lse, delta)
     b, s, h, d = q.shape
     t = k.shape[1]
-    dk = torch.empty(k.shape, device=k.device, dtype=torch.bfloat16)
+    dk = torch.empty(k.shape, device=k.device, dtype=k.dtype)
     dv = torch.empty_like(dk)
+    launch = LAUNCHERS["dkv"][q.dtype]
+    if q.dtype == torch.float32:
+        strides = _bwd_strides(q, k, v, dout, None, dk, dv)
+        with torch.cuda.device(q.device):
+            launch(*(x.data_ptr() for x in (q, k, v, dout, lse, delta, dk,
+                                            dv)),
+                   b, h, s, t, d, strides, float(scale),
+                   torch.cuda.current_stream().cuda_stream)
+        flash_bwd_dkv_cuda.launches += 1
+        return dk, dv
     splits, per = plan_dkv_splits(b, h, s, t, d, _sm_count(q.device))
     # fp32 partial dk and dv of each split, [2, splits, B*H, T, D]
     part = (torch.empty((2, splits, b * h, t, d), device=k.device,
@@ -305,11 +380,10 @@ def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale: float):
     strides = _bwd_strides(q, k, v, dout, None, dk, dv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bwd_library().flash_bwd_dkv_bf16(
-            *(x.data_ptr() for x in (q, k, v, dout, lse, delta, dk, dv)),
-            *part_ptrs, b, h, s, t, d, splits, per, strides, float(scale),
-            stream)
-    _raise_on(rc, "flash_bwd_dkv")
+        launch(*(x.data_ptr() for x in (q, k, v, dout, lse, delta)),
+               *_absmax_ptr(dout, absmax), dk.data_ptr(), dv.data_ptr(),
+               *part_ptrs, b, h, s, t, d, splits, per, strides, float(scale),
+               stream)
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv
 
@@ -319,13 +393,14 @@ flash_bwd_dkv_cuda.launches = 0
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                              scale: Optional[float] = None):
-    """(dq, dk, dv) in bf16 through the two backward kernels; raises on
-    what they do not take."""
+    """(dq, dk, dv) in q's dtype through the two backward kernels; raises
+    on what they do not take."""
     _check(q, k, v, out, dout)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     delta = flash_attention_bwd_delta(out, dout)
-    dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale)
-    dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale)
+    absmax = dout_absmax(dout)
+    dq = flash_bwd_dq_cuda(q, k, v, dout, lse, delta, scale, absmax)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale, absmax)
     return dq, dk, dv
 
 

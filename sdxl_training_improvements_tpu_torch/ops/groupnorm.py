@@ -28,6 +28,9 @@ S-block, C-block) that merges its image's chunk statistics into mean and
 rstd, normalizes, applies the affine and the SiLU and stores in the input
 dtype.  Two launches and no host-side combine: at the UNet's sizes a call
 is a few microseconds of device time, so launch count matters.
+The kernels take fp32 (the VAE, an fp32 UNet), bf16 and fp16 (the UNet
+under each ``training.mixed_precision``): they load any of them, compute
+in fp32 and store in the input's dtype.
 Both kernels are bound by HBM bytes (one read of x for the statistics, one
 read and one write for the apply: ~3 passes over the activation).  The
 stats grid is sized to keep ~1k programs in flight so a [2, 1024, 2560]
@@ -45,6 +48,7 @@ Pallas kernel's does (it ignores the JAX remat-gated bf16 interior).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import functools
@@ -205,8 +209,9 @@ def _check_cuda_input(x3, scale, bias, num_groups):
         raise ValueError(f"GN+SiLU kernel needs a CUDA tensor, got {x3.device}")
     if x3.dim() != 3 or not x3.is_contiguous():
         raise ValueError("GN+SiLU kernel wants a contiguous [B, S, C] tensor")
-    if x3.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"GN+SiLU kernel takes fp32 or bf16, got {x3.dtype}")
+    if x3.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"GN+SiLU kernel takes fp32, bf16 or fp16, got "
+                        f"{x3.dtype}")
     c = x3.shape[-1]
     if c % num_groups:
         raise ValueError(f"C={c} is not a multiple of {num_groups} groups")
@@ -235,10 +240,13 @@ def gn_silu_stats_cuda(x3: torch.Tensor, num_groups: int):
         x3, mean, m2, s, c, cg, num_groups, chunk_s, n_chunks,
         BLOCK_S=block_s, BLOCK_CG=block_cg, num_warps=4)
     gn_silu_stats_cuda.launches += 1
+    gn_silu_stats_cuda.launches_by_dtype[x3.dtype] += 1
     return mean, m2, chunk_s * cg, (s - chunk_s * (n_chunks - 1)) * cg
 
 
+# launches in all, and of each dtype's specialisation
 gn_silu_stats_cuda.launches = 0
+gn_silu_stats_cuda.launches_by_dtype = collections.Counter()
 
 
 def combine_chunk_stats(mean, m2, chunk_n: int, last_n: int, eps: float):
@@ -269,10 +277,12 @@ def gn_silu_apply_cuda(x3, mean, m2, chunk_n: int, last_n: int, scale, bias,
                        float(last_n), float(eps), BLOCK_S=block_s,
                        BLOCK_C=block_c, num_warps=4)
     gn_silu_apply_cuda.launches += 1
+    gn_silu_apply_cuda.launches_by_dtype[x3.dtype] += 1
     return y
 
 
 gn_silu_apply_cuda.launches = 0
+gn_silu_apply_cuda.launches_by_dtype = collections.Counter()
 
 
 def groupnorm_silu_cuda(x3, scale, bias, num_groups: int = 32,

@@ -59,12 +59,18 @@ class AdamWBF16:
         self.weight_decay = weight_decay
         self.seed = seed
 
-    # ------------------------------------------------------------ state
-    def init(self, params: Mapping[str, torch.Tensor]) -> AdamWBF16State:
+    @staticmethod
+    def _validate(params: Mapping[str, torch.Tensor]) -> None:
+        """JAX's ``_validate``: bf16 leaves, or fp32 norms, only (an fp16
+        UNet takes plain ``adamw``)."""
         for name, p in params.items():
             if p.dtype not in (torch.bfloat16, torch.float32):
                 raise ValueError("adamw_bf16 requires bfloat16 (or float32 "
                                  f"norm) params, got {p.dtype} for {name}")
+
+    # ------------------------------------------------------------ state
+    def init(self, params: Mapping[str, torch.Tensor]) -> AdamWBF16State:
+        self._validate(params)
         gen = torch.Generator().manual_seed(self.seed)
         phases = torch.rand(len(params), generator=gen) * DECAY_THRESHOLD
 
@@ -93,7 +99,9 @@ class AdamWBF16:
                ) -> Tuple[Dict[str, torch.Tensor], AdamWBF16State]:
         """One step.  Two uint32 seeds are drawn per leaf, in ``params``'
         order (fp32 leaves ignore theirs, as in JAX); ``seeds`` ([n_leaves,
-        2]) replaces the draw, so a test can hand in JAX's."""
+        2]) replaces the draw, so a test can hand in JAX's.  A leaf that is
+        neither bf16 nor fp32 raises before any leaf is updated."""
+        self._validate(params)
         step = state.step + 1
         lr_eff = self.lr_eff(step)
         if seeds is None:

@@ -7,10 +7,14 @@ run on a machine without JAX:
 
 On the CPU the wrappers take the plain versions and launch nothing; the
 ``cuda`` tests skip.  On the card each kernel is held against its plain
-version: GN+SiLU fp32 max abs 1e-4 and bf16 2e-2 against the fp32-interior
-plain version; flash forward bf16 out 2e-2 and lse 1e-3 against the plain
-fp32-softmax version; the tiny UNet through the kernels against the plain
-path at relative L2 3e-2.
+version: GN+SiLU fp32 max abs 1e-4, bf16 2e-2 and fp16 4e-3 (about half
+an output ulp at |y| < 8) against the fp32-interior plain version; flash
+forward out and lse against the plain fp32-softmax version, bf16 2e-2 and
+1e-3, fp16 4e-3 and 1e-3 (the kernel rounds P to fp16 before its product,
+the plain version after normalising), fp32 2e-5 and 2e-5 (the Pallas
+kernels' own fp32 bar, ``tests/test_flash_attention.py``); the tiny UNet
+through the kernels against the plain path at relative L2 3e-2 (bf16),
+1e-2 (fp16) and 1e-4 (fp32, the kernels' and cuDNN's summation order).
 """
 import inspect
 from contextlib import ExitStack
@@ -32,6 +36,11 @@ from sdxl_training_improvements_tpu_torch.pipelines import SDXLPipeline
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; runs on the H100 (README)")
+
+
+# flash forward (out, lse) bars by dtype
+FWD_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float16: (4e-3, 1e-3),
+           torch.float32: (2e-5, 2e-5)}
 
 
 def _launches():
@@ -213,7 +222,7 @@ def test_flash_kernel_reads_strided_projections(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d,err", [(torch.float32, 64, TypeError),
+@pytest.mark.parametrize("dtype,d,err", [(torch.float64, 64, TypeError),
                                          (torch.bfloat16, 48, ValueError)])
 def test_flash_kernel_rejects_what_it_does_not_take(cuda, dtype, d, err):
     q = torch.zeros((1, 8, 1, d), device="cuda", dtype=dtype)
@@ -252,3 +261,98 @@ def test_tiny_pipeline_on_card(cuda):
                                             num_inference_steps=3)
     assert images[0].shape == (64, 64, 3) and images[0].dtype == np.uint8
     assert all(a > b for a, b in zip(_launches(), before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1024, 320), (2, 4096, 640),
+                                   (2, 100, 64)])
+def test_gn_kernels_match_plain_fp16(cuda, shape):
+    """The Triton kernels load fp16, compute in fp32 and store fp16."""
+    x, scale, bias = _gn_inputs(shape, seed=6, device="cuda",
+                                dtype=torch.float16)
+    before = _launches()
+    out = TG.groupnorm_silu(x, scale, bias, 32, 1e-5)
+    ref = TG.groupnorm_silu_reference(x.float(), scale, bias, 32, 1e-5)
+    torch.cuda.synchronize()
+    assert _launches()[:2] == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.float16
+    assert (out.float() - ref).abs().max().item() <= 4e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("b,s,t,h,d", [(1, 100, 77, 3, 16),
+                                       (1, 129, 129, 2, 16),
+                                       (1, 130, 200, 2, 32),
+                                       (1, 127, 77, 2, 64),
+                                       (2, 300, 129, 3, 64),
+                                       (1, 129, 77, 2, 128),
+                                       (1, 300, 300, 2, 128),
+                                       (2, 4096, 4096, 10, 64)])
+def test_flash_kernel_fp16_fp32_match_plain(cuda, dtype, b, s, t, h, d):
+    """The fp16 instantiation of the Hopper forward and the fp32 kernel:
+    every head dim, q and kv lengths on both sides of the kernels' tiles
+    (128 rows for the 16-bit kernel, 64 for the fp32 one), the 77-token
+    edge and the B2 H10 S=T=4096 site; one launch of that dtype's kernel
+    per call, out in the input's dtype, a second launch bit-equal."""
+    q, k, v = _qkv(b, s, t, h, d, seed=10, device="cuda", dtype=dtype)
+    launcher = TF.LAUNCHERS["fwd"][dtype]
+    before = launcher.launches
+    out, lse = TF.flash_attention_fwd_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert launcher.launches == before + 1 and out.dtype == dtype
+    out2, lse2 = TF.flash_attention_fwd_cuda(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v)
+    out_tol, lse_tol = FWD_TOL[dtype]
+    assert (out.float() - ref.float()).abs().max().item() <= out_tol
+    assert (lse - ref_lse).abs().max().item() <= lse_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_flash_kernel_fp16_fp32_read_strided_projections(cuda, dtype):
+    """q/k/v as views of [B, S, H*D] projections, in each dtype."""
+    g = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn(2, 300, 4 * 64, device="cuda", generator=g).to(dtype)
+    q = x.view(2, 300, 4, 64)
+    kv = torch.randn(2, 77, 2 * 4 * 64, device="cuda", generator=g).to(dtype)
+    k, v = kv.view(2, 77, 2, 4, 64).unbind(2)
+    out, lse = TF.flash_attention_fwd_cuda(q, k, v)
+    ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v)
+    out_tol, lse_tol = FWD_TOL[dtype]
+    assert (out.float() - ref.float()).abs().max().item() <= out_tol
+    assert (lse - ref_lse).abs().max().item() <= lse_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float16, 1e-2)])
+def test_tiny_unet_fp32_fp16_on_card(cuda, dtype, tol):
+    """A UNet that is not bf16 runs on the card: the tiny fp32 and fp16
+    UNets give a finite prediction through the flash and GN+SiLU kernels
+    of their dtype, within ``tol`` relative L2 of the plain path."""
+    model = SDXLModel.create(tiny=True, dtype=dtype, device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(0))
+    assert model.unet.conv_in.weight.dtype == dtype
+    g = torch.Generator("cuda").manual_seed(1)
+    cfg = model.unet_config
+    args = (torch.randn(2, 4, 32, 32, device="cuda", generator=g),
+            torch.tensor([10, 900], device="cuda"),
+            torch.randn(2, 77, cfg.cross_attention_dim, device="cuda",
+                        generator=g).to(dtype),
+            torch.randn(2, cfg.pooled_embed_dim, device="cuda",
+                        generator=g).to(dtype),
+            torch.tensor([[64.0, 64, 0, 0, 64, 64]] * 2, device="cuda"))
+    before = _launches()
+    flash_before = TF.LAUNCHERS["fwd"][dtype].launches
+    with torch.inference_mode():
+        out = model.unet_apply(*args)
+        launched = [a - b for a, b in zip(_launches(), before)]
+        with _plain_ops():
+            ref = model.unet_apply(*args)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert all(n > 0 for n in launched), launched
+    assert TF.LAUNCHERS["fwd"][dtype].launches > flash_before
+    out, ref = out.float(), ref.float()
+    assert ((out - ref).norm() / ref.norm()).item() <= tol

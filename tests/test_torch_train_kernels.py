@@ -13,7 +13,13 @@ which also gives bit-equal gradients run to run; the fused AdamW kernel
 ``torch.equal`` to
 the plain chain in all four outputs; the probe kernel equal to
 ``x * 2 + 1``; and the bf16 tiny model's train step through the kernels
-against the same step through the plain versions.
+against the same step through the plain versions.  The other precisions:
+the fp16 instantiation of the backward kernels within 5e-3 (P and dS
+rounded to fp16, 8 times finer than bf16), the exact-fp32 kernels at the
+Pallas kernels' fp32 gradient bars (atol 5e-5, rtol 5e-4,
+``tests/test_flash_attention.py``), each bit-equal over two runs; and the
+fp32 tiny model's step at the settings of ``configs/ddpm_512_smoke.yaml``
+(plain ``adamw``) through the kernels against the plain versions.
 """
 import pytest
 import torch
@@ -23,6 +29,7 @@ from sdxl_training_improvements_tpu_torch.ops import fused_adamw as TO
 from sdxl_training_improvements_tpu_torch.ops import probe as TP
 
 FLASH_BWD_TOL = 2e-2
+FLASH_BWD_TOL_F16 = 5e-3
 
 
 @pytest.fixture
@@ -31,11 +38,11 @@ def cuda():
         pytest.skip("needs a CUDA card; runs on the H100 (README)")
 
 
-def _flash_inputs(b, s, t, h, d, seed):
+def _flash_inputs(b, s, t, h, d, seed, dtype=torch.bfloat16):
     g = torch.Generator("cuda").manual_seed(seed)
     q, k, v = (torch.randn((b, n, h, d), generator=g, device="cuda"
-                           ).bfloat16() for n in (s, t, t))
-    dout = torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16()
+                           ).to(dtype) for n in (s, t, t))
+    dout = torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
     out, lse = TF.flash_attention_fwd_cuda(q, k, v)
     return q, k, v, out, lse, dout
 
@@ -184,10 +191,12 @@ def test_probe_kernel(cuda):
     assert result["gbps"] > 0 and result["plain_gbps"] > 0
 
 
-def _tiny_train_step(plain: bool):
-    """One default-config step (batch 2, lr 1e-3) of the bf16 tiny model
-    with remat, from seeded weights and batch; ``plain`` puts the plain
-    versions in every kernel's place, as ``chip_smoke.py`` does."""
+def _tiny_train_step(plain: bool, mixed_precision: str = "bf16"):
+    """One step (batch 2, lr 1e-3) of the tiny model with remat, from
+    seeded weights and batch: the default config for bf16, the settings of
+    ``configs/ddpm_512_smoke.yaml`` (ddpm, epsilon, plain ``adamw``) for
+    "no"; ``plain`` puts the plain versions in every kernel's place, as
+    ``chip_smoke.py`` does."""
     from contextlib import ExitStack
     from unittest import mock
 
@@ -203,12 +212,21 @@ def _tiny_train_step(plain: bool):
         NoiseSchedule)
     from sdxl_training_improvements_tpu_torch.training.trainer import (
         create_train_state, make_train_step)
-    cfg = Config()
+    if mixed_precision == "bf16":
+        cfg = Config()
+    else:
+        cfg = Config.from_dict({
+            "model": {"prediction_type": "epsilon", "use_ztsnr": False,
+                      "sigma_max": 80.0, "min_snr_gamma": None},
+            "optimizer": {"optimizer_type": "adamw"},
+            "training": {"method": "ddpm", "prediction_type": "epsilon",
+                         "mixed_precision": mixed_precision}})
     cfg.training.batch_size = 2
     cfg.optimizer.learning_rate = 1e-3
     model = SDXLModel.create(
-        tiny=True, dtype=torch.bfloat16, device="cuda",
-        generator=torch.Generator("cuda").manual_seed(0),
+        tiny=True, dtype={"bf16": torch.bfloat16,
+                          "no": torch.float32}[mixed_precision],
+        device="cuda", generator=torch.Generator("cuda").manual_seed(0),
         unet_config=UNetConfig.tiny(remat=True))
     ucfg = model.unet_config
     g = torch.Generator("cuda").manual_seed(1)
@@ -265,3 +283,111 @@ def test_tiny_train_step_kernels_match_plain(cuda):
               for n in updates)
     den = sum(u.square().sum() for u in plain_updates.values())
     assert den > 0 and (num / den).sqrt().item() <= 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("b,s,t,h,d", [(2, 1024, 1024, 4, 64),
+                                       (1, 100, 77, 3, 16),
+                                       (1, 130, 200, 2, 16),
+                                       (1, 130, 200, 2, 32),
+                                       (1, 130, 200, 2, 64),
+                                       (1, 130, 200, 2, 128),
+                                       (1, 1000, 77, 2, 64),
+                                       (2, 2048, 2048, 8, 64)])
+def test_flash_bwd_fp16_fp32_match_plain_and_repeat(cuda, dtype, b, s, t,
+                                                    h, d):
+    """dq and dk/dv of the fp16 instantiation (the split dk/dv path at
+    T = 77) and of the fp32 kernels: every head dim, ragged S and T; the
+    gradients in the input's dtype, from that dtype's launchers, and
+    bit-equal over two runs."""
+    q, k, v, out, lse, dout = _flash_inputs(b, s, t, h, d, seed=7,
+                                            dtype=dtype)
+    before = [TF.LAUNCHERS[kind][dtype].launches for kind in ("dq", "dkv")]
+    got = TF.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    again = TF.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    ref = TF.flash_attention_bwd_reference(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert [TF.LAUNCHERS[kind][dtype].launches
+            for kind in ("dq", "dkv")] == [n + 2 for n in before]
+    for a, a2, r in zip(got, again, ref):
+        assert a.dtype == dtype and torch.equal(a, a2)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, atol=5e-5, rtol=5e-4)
+        else:
+            err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+            assert err.item() <= FLASH_BWD_TOL_F16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_flash_bwd_fp16_fp32_read_strided_projections(cuda, dtype):
+    """q/k/v as views of [B, S, H*D] projections, in each dtype."""
+    g = torch.Generator("cuda").manual_seed(8)
+    x = torch.randn(2, 300, 4 * 64, device="cuda", generator=g).to(dtype)
+    kv = torch.randn(2, 77, 2 * 4 * 64, device="cuda", generator=g).to(dtype)
+    q = x.view(2, 300, 4, 64)
+    k, v = kv.view(2, 77, 2, 4, 64).unbind(2)
+    out, lse = TF.flash_attention_fwd_cuda(q, k, v)
+    dout = torch.randn(2, 300, 4, 64, device="cuda", generator=g).to(dtype)
+    got = TF.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    ref = TF.flash_attention_bwd_reference(q, k, v, out, lse, dout)
+    for a, r in zip(got, ref):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, atol=5e-5, rtol=5e-4)
+        else:
+            err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+            assert err.item() <= FLASH_BWD_TOL_F16
+
+
+@pytest.mark.cuda
+def test_tiny_fp32_train_step_kernels_match_plain(cuda):
+    """The fp32 tiny model's step through the fp32 flash kernels and the
+    GN+SiLU kernels against the plain versions: both are fp32 throughout
+    and differ in summation order only, so the loss agrees to 1e-5, the
+    grad norm to 1e-4 and the parameter updates to 1e-2 relative L2 (plain
+    AdamW's first step is sign-like, so an element whose gradient is at
+    the rounding level may step the other way)."""
+    launchers = [TF.LAUNCHERS[kind][torch.float32]
+                 for kind in ("fwd", "dq", "dkv")]
+    before = [x.launches for x in launchers]
+    metrics, updates = _tiny_train_step(plain=False, mixed_precision="no")
+    assert all(x.launches > b for x, b in zip(launchers, before))
+    plain_metrics, plain_updates = _tiny_train_step(plain=True,
+                                                    mixed_precision="no")
+    loss, plain_loss = metrics["loss"].item(), plain_metrics["loss"].item()
+    assert abs(loss - plain_loss) <= 1e-5 * abs(plain_loss)
+    gn, plain_gn = (m["grad_norm"].item() for m in (metrics, plain_metrics))
+    assert abs(gn - plain_gn) <= 1e-4 * plain_gn
+    num = sum((updates[n] - plain_updates[n]).square().sum()
+              for n in updates)
+    den = sum(u.square().sum() for u in plain_updates.values())
+    assert den > 0 and (num / den).sqrt().item() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_bwd_fp16_small_dout_matches_plain(cuda):
+    """With no loss scale the gradient reaching attention is small: at
+    dO ~ 1e-4, dS = P (dP - Delta) * scale falls under fp16's least
+    subnormal (6e-8), where the Pallas kernel keeps dS in fp32.  The fp16
+    kernels scale dS by a power of two from max|dO| and unscale their fp32
+    accumulators before the store, so the gradients keep the fp16 bar of
+    the plain fp32 backward.  With q scaled by 16 the softmax is peaked
+    and a few keys take most queries' weight: their dk sums over all the
+    queries, which a scaled fp16 output would overflow."""
+    q, k, v, out, lse, dout = _flash_inputs(2, 1024, 1024, 4, 64, seed=9,
+                                            dtype=torch.float16)
+    dout = (dout.float() * 1e-4).half()
+    for q_scale in (1.0, 16.0):
+        qs = (q.float() * q_scale).half()
+        out, lse = TF.flash_attention_fwd_cuda(qs, k, v)
+        _check_small_dout(qs, k, v, out, lse, dout)
+
+
+def _check_small_dout(q, k, v, out, lse, dout):
+    got = TF.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    ref = TF.flash_attention_bwd_reference(q, k, v, out, lse, dout)
+    for a, r in zip(got, ref):
+        assert a.dtype == torch.float16 and torch.isfinite(a).all()
+        err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+        assert err.item() <= FLASH_BWD_TOL_F16
