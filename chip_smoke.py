@@ -6,11 +6,15 @@ Phases, each printing what it found:
 
 1. environment: the card's name and power limit, torch/CUDA/Triton/nvcc;
    fails at once when no CUDA device is present;
-2. build: compiles the four CUDA sources (one ``nvcc`` each, all started
-   together) and the Triton kernels;
+2. build: compiles the five CUDA sources (one ``nvcc`` each, all started
+   together) and the Triton probe;
 3. every kernel against its plain PyTorch version at the main paths'
    shapes, with max errors, median CUDA-event times and device times of
-   both, and the rate: GN+SiLU (bf16, fp16, fp32), the flash forward (a
+   both, and the rate: the GN+SiLU forward (bf16, fp16, fp32; its
+   statistics too) and backward (at the b4 training step's sites, fp16
+   and fp32), each one launch a call and bit-equal on a second launch,
+   beside ATen's ``F.group_norm`` + ``F.silu`` (two library calls), the
+   flash forward (a
    second launch bit-equal to the first; each serving attention site
    reported in the kernel line's ``sites``), the flash backward (dq and
    dk/dv, bit-equal on a second launch), the fused bf16-SR AdamW
@@ -117,9 +121,22 @@ ADAMW_SHAPES = (  # (leaf shape, channels_last, gradient dtype, decay fires)
     ((1000003,), False, torch.float32, True),  # not a multiple of a block
     ((1280,), False, torch.bfloat16, True),  # a bias, bf16 accumulator
 )
+GN_BWD_SHAPES = (  # (shape, dtype): the b4 training step's sites in
+    # bf16 (C/G = 10, 30, 20, 80), then fp16 and fp32
+    ((4, 16384, 320), torch.bfloat16),
+    ((4, 16384, 960), torch.bfloat16),
+    ((4, 4096, 640), torch.bfloat16),
+    ((4, 1024, 2560), torch.bfloat16),
+    ((1, 4096, 640), torch.float16),
+    ((1, 4096, 320), torch.float32),
+)
 # max abs error against the fp32-interior plain version: about half an
 # output ulp at |y| < 8 for the 16-bit types
 GN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+# backward: max abs error over max |plain| of dx, dscale, dbias; fp32 sums
+# in another order only, the 16-bit dx rounded once to its type
+GN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2,
+              torch.float16: 5e-3}
 # flash forward out and lse: the 16-bit kernels round P to their type
 # before the P V product, the plain version after normalising; fp32 is the
 # Pallas kernels' own bar (tests/test_flash_attention.py)
@@ -173,10 +190,11 @@ for _dt, _sfx in SUFFIX.items():
     _fwd, _bwd = (("flash_f32.cu",) * 2 if _dt == torch.float32
                   else ("flash_fwd.cu", "flash_bwd.cu"))
     KERNELS.update({
-        "gn_silu_stats" + _sfx: ("triton", SRC + "ops/groupnorm.py",
-                                 TPU + "groupnorm.py:148"),
-        "gn_silu_apply" + _sfx: ("triton", SRC + "ops/groupnorm.py",
-                                 TPU + "groupnorm.py:161"),
+        "gn_silu_fwd" + _sfx: ("cuda", SRC + "csrc/groupnorm.cu",
+                               TPU + "groupnorm.py:110"),
+        "gn_silu_bwd" + _sfx: ("cuda", SRC + "csrc/groupnorm.cu",
+                               "none: JAX runs the plain VJP, " + TPU
+                               + "groupnorm.py:251"),
         "flash_fwd" + _sfx: ("cuda", SRC + "csrc/" + _fwd,
                              TPU + "flash_attention.py:49"),
         "flash_bwd_dq" + _sfx: ("cuda", SRC + "csrc/" + _bwd,
@@ -188,17 +206,14 @@ KERNELS.update({
                     TPU + "fused_adamw.py:53"),
     "probe": ("triton", SRC + "ops/probe.py", TPU + "probe.py:106")})
 # the kernels each main path launches (the VAE's GroupNorm is fp32)
-SERVING_KERNELS = ("gn_silu_stats", "gn_silu_apply", "gn_silu_stats_f32",
-                   "gn_silu_apply_f32", "flash_fwd")
-TRAIN_KERNELS = ("gn_silu_stats", "gn_silu_apply", "flash_fwd",
-                 "flash_bwd_dq", "flash_bwd_dkv", "fused_adamw")
-F16_SERVING_KERNELS = ("gn_silu_stats_f16", "gn_silu_apply_f16",
-                       "gn_silu_stats_f32", "gn_silu_apply_f32",
-                       "flash_fwd_f16")
-F16_TRAIN_KERNELS = ("gn_silu_stats_f16", "gn_silu_apply_f16",
-                     "flash_fwd_f16", "flash_bwd_dq_f16", "flash_bwd_dkv_f16")
-F32_TRAIN_KERNELS = ("gn_silu_stats_f32", "gn_silu_apply_f32",
-                     "flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+SERVING_KERNELS = ("gn_silu_fwd", "gn_silu_fwd_f32", "flash_fwd")
+TRAIN_KERNELS = ("gn_silu_fwd", "gn_silu_bwd", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv", "fused_adamw")
+F16_SERVING_KERNELS = ("gn_silu_fwd_f16", "gn_silu_fwd_f32", "flash_fwd_f16")
+F16_TRAIN_KERNELS = ("gn_silu_fwd_f16", "gn_silu_bwd_f16", "flash_fwd_f16",
+                     "flash_bwd_dq_f16", "flash_bwd_dkv_f16")
+F32_TRAIN_KERNELS = ("gn_silu_fwd_f32", "gn_silu_bwd_f32", "flash_fwd_f32",
+                     "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 # the card's peaks (H100 SXM data sheet, dense): bf16 and fp16 tensor
 # cores, fp32 outside them, device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -245,18 +260,23 @@ def time_ms(fn, warmup: int = 3, iters: int = 10, repeats: int = 5
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 10):
+def device_ms(fn, iters: int = 10, tries: int = 3):
     """Device time per call: the kernels' own time summed by
-    ``torch.profiler`` (None when the profiler records no device time)."""
+    ``torch.profiler``.  A window in which the profiler records no device
+    time (it happens now and then) is profiled again, up to ``tries``
+    times; None if none records any."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / iters / 1e3 if total_us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / iters / 1e3
+    return None
 
 
 def fmt_ms(ms) -> str:
@@ -285,7 +305,7 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from sdxl_training_improvements_tpu_torch.ops import _build
     from sdxl_training_improvements_tpu_torch.ops.groupnorm import (
-        groupnorm_silu_cuda)
+        gn_silu_fwd_cuda)
     from sdxl_training_improvements_tpu_torch.ops.probe import probe_cuda
     t0 = time.perf_counter()
     _build.build_all(_build.KERNELS)
@@ -293,67 +313,139 @@ def phase_build() -> None:
         _build.load(name)
     t1 = time.perf_counter()
     x = torch.randn(1, 64, 64, device="cuda")
-    groupnorm_silu_cuda(x, torch.ones(64, device="cuda"),
-                        torch.zeros(64, device="cuda"), 32)
+    gn_silu_fwd_cuda(x, torch.ones(64, device="cuda"),
+                     torch.zeros(64, device="cuda"), 32)
     probe_cuda(x)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     log(f"build: nvcc {', '.join(_build.KERNELS)} in parallel "
-        f"{t1 - t0:.2f} s, first Triton GN + probe launches {t2 - t1:.2f} s")
+        f"{t1 - t0:.2f} s, first GN + Triton probe launches {t2 - t1:.2f} s")
 
 
-def _gn_case(shape, dtype, eps, gen):
-    from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
-    b, s, c = shape
+def _gn_inputs(shape, dtype, gen):
+    c = shape[-1]
     x = (torch.randn(shape, generator=gen, device=DEVICE) * 1.5 + 1.0
          ).to(dtype)
     scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=DEVICE)
     bias = 0.1 * torch.randn(c, generator=gen, device=DEVICE)
-    # stats kernel against plain per-group statistics
-    var, mean = torch.var_mean(x.reshape(b, s, 32, c // 32).float(),
-                               dim=(1, 3), correction=0)
-    stats = G.gn_silu_stats_cuda(x, 32)
-    k_mean, k_rstd = G.combine_chunk_stats(*stats, eps)
-    rstd = torch.rsqrt(var + eps)
+    return x, scale, bias
+
+
+def _gn_library(x, scale, bias, eps, dy=None):
+    """(ms, device ms) of ATen's F.group_norm then F.silu (two library
+    calls, a yardstick the port never calls) on x's values laid out
+    [B, C, S], parameters in x's dtype: the forward, or with ``dy`` the
+    backward (``torch.autograd.grad`` of one output)."""
+    f = torch.nn.functional
+    xn = x.transpose(1, 2).contiguous()
+    sc, bi = scale.to(x.dtype), bias.to(x.dtype)
+    if dy is None:
+        def call():
+            with torch.no_grad():
+                return f.silu(f.group_norm(xn, 32, sc, bi, eps))
+    else:
+        leaves = [t.detach().requires_grad_() for t in (xn, sc, bi)]
+        xl, sl, bl = leaves
+        call = functools.partial(
+            torch.autograd.grad, f.silu(f.group_norm(xl, 32, sl, bl, eps)),
+            leaves, dy.transpose(1, 2).contiguous(), retain_graph=True)
+    return time_ms(call), device_ms(call)
+
+
+def _gn_case(shape, dtype, eps, gen):
+    """The forward kernel against the plain version: y, and its mean and
+    rstd against the two-pass statistics; one launch a call, a second
+    launch bit-equal."""
+    from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
+    x, scale, bias = _gn_inputs(shape, dtype, gen)
+    before = G.gn_silu_fwd_cuda.launches
+    got = G.gn_silu_fwd_cuda(x, scale, bias, 32, eps)
+    launches = G.gn_silu_fwd_cuda.launches - before
+    again = G.gn_silu_fwd_cuda(x, scale, bias, 32, eps)
+    rerun_equal = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    out, k_mean, k_rstd = got
+    del again, got
+    mean, rstd = G.group_stats_reference(x, 32, eps)
     stats_err = max((k_mean - mean).abs().max().item(),
                     (k_rstd - rstd).abs().max().item())
-    # the whole op against the fp32-interior plain version on the same
-    # values (for bf16: the rounding of the output is the error)
-    out = G.groupnorm_silu_cuda(x, scale, bias, 32, eps)
+    # against the fp32-interior plain version on the same values (for
+    # bf16: the rounding of the output is the error)
     ref = G.groupnorm_silu_reference(x.float(), scale, bias, 32, eps)
     err = (out.float() - ref).abs().max().item()
+    del out, ref
 
-    def plain_stats():
-        return torch.var_mean(x.reshape(b, s, 32, c // 32).float(),
-                              dim=(1, 3), correction=0)
+    def kernel():
+        return G.gn_silu_fwd_cuda(x, scale, bias, 32, eps)
 
-    def plain_apply():
-        y = ((x.reshape(b, s, 32, c // 32).float() - mean[:, None, :, None])
-             * rstd[:, None, :, None]).reshape(b, s, c) * scale + bias
-        return (y * torch.sigmoid(y)).to(dtype)
+    def plain():
+        return G.groupnorm_silu_reference(x, scale, bias, 32, eps)
 
-    res = dict(
-        shape=shape, dtype=dtype, err=err, stats_err=stats_err,
-        stats_ms=time_ms(lambda: G.gn_silu_stats_cuda(x, 32)),
-        apply_ms=time_ms(lambda: G.gn_silu_apply_cuda(
-            x, *stats, scale, bias, 32, eps)),
-        plain_stats_ms=time_ms(plain_stats),
-        plain_apply_ms=time_ms(plain_apply),
-        ms=time_ms(lambda: G.groupnorm_silu_cuda(x, scale, bias, 32, eps)),
-        plain_ms=time_ms(lambda: G.groupnorm_silu_reference(
-            x, scale, bias, 32, eps)),
-        dev_ms=device_ms(lambda: G.groupnorm_silu_cuda(x, scale, bias, 32,
-                                                       eps)),
-        plain_dev_ms=device_ms(lambda: G.groupnorm_silu_reference(
-            x, scale, bias, 32, eps)))
-    log(f"gn_silu {list(shape)} {str(dtype)[6:]} eps={eps:g}: "
+    res = dict(shape=shape, dtype=dtype, err=err, stats_err=stats_err,
+               ms=time_ms(kernel), plain_ms=time_ms(plain),
+               dev_ms=device_ms(kernel), plain_dev_ms=device_ms(plain))
+    res["library_ms"], res["library_dev"] = _gn_library(x, scale, bias, eps)
+    log(f"gn_silu_fwd {list(shape)} {str(dtype)[6:]} eps={eps:g}: "
         f"max_abs_err {err:.3e} (tol {GN_TOL[dtype]:g}), stats (mean, "
-        f"rstd) max_abs_err {stats_err:.3e}; per call kernel {res['ms']:.4f} ms (stats "
-        f"{res['stats_ms']:.4f}, apply {res['apply_ms']:.4f}) vs plain "
-        f"{res['plain_ms']:.4f} ms; device time kernel "
-        f"{fmt_ms(res['dev_ms'])} vs plain {fmt_ms(res['plain_dev_ms'])}")
-    check(err <= GN_TOL[dtype], f"gn_silu {shape} {dtype}: {err}")
+        f"rstd) max_abs_err {stats_err:.3e}, launches {launches}, rerun "
+        f"bit-equal {rerun_equal}; per call kernel {res['ms']:.4f} ms vs "
+        f"plain {res['plain_ms']:.4f} ms; device time kernel "
+        f"{fmt_ms(res['dev_ms'])} vs plain {fmt_ms(res['plain_dev_ms'])}; "
+        f"F.group_norm + F.silu {fmt_ms(res['library_ms'])} (device "
+        f"{fmt_ms(res['library_dev'])})")
+    check(err <= GN_TOL[dtype], f"gn_silu_fwd {shape} {dtype}: {err}")
     check(stats_err <= 1e-4, f"gn_silu stats {shape} {dtype}: {stats_err}")
+    check(launches == 1, f"gn_silu_fwd {shape}: {launches} launches")
+    check(rerun_equal, f"gn_silu_fwd {shape} {dtype}: a second launch "
+          "differs from the first")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _gn_bwd_case(shape, dtype, gen):
+    """The backward kernel against the closed-form plain backward on the
+    forward kernel's statistics: dx, dscale, dbias; one launch a call, a
+    second launch bit-equal."""
+    from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
+    x, scale, bias = _gn_inputs(shape, dtype, gen)
+    dy = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    _, mean, rstd = G.gn_silu_fwd_cuda(x, scale, bias, 32, 1e-5)
+    args = (dy, x, scale, bias, mean, rstd, 32)
+    before = G.gn_silu_bwd_cuda.launches
+    got = G.gn_silu_bwd_cuda(*args)
+    launches = G.gn_silu_bwd_cuda.launches - before
+    again = G.gn_silu_bwd_cuda(*args)
+    rerun_equal = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    del again
+    ref = G.groupnorm_silu_backward_reference(*args)
+    err, rel = {}, {}
+    for name, a, r in zip(("dx", "dscale", "dbias"), got, ref):
+        err[name] = (a.float() - r.float()).abs().max().item()
+        rel[name] = err[name] / r.float().abs().max().item()
+    del got, ref
+    res = dict(shape=shape, dtype=dtype, err=err, rel=rel,
+               ms=time_ms(lambda: G.gn_silu_bwd_cuda(*args)),
+               dev_ms=device_ms(lambda: G.gn_silu_bwd_cuda(*args)),
+               plain_ms=time_ms(lambda: G.groupnorm_silu_backward_reference(
+                   *args), warmup=1, iters=3, repeats=3),
+               plain_dev_ms=device_ms(
+                   lambda: G.groupnorm_silu_backward_reference(*args),
+                   iters=3))
+    res["library_ms"], res["library_dev"] = _gn_library(x, scale, bias,
+                                                        1e-5, dy)
+    tol = GN_BWD_TOL[dtype]
+    what = f"gn_silu_bwd {list(shape)} {str(dtype)[6:]}"
+    log(f"{what}: max_abs_err dx {err['dx']:.3e} dscale "
+        f"{err['dscale']:.3e} dbias {err['dbias']:.3e}, over max |plain| "
+        f"{max(rel.values()):.3e} (tol {tol:g}), launches {launches}, "
+        f"rerun bit-equal {rerun_equal}; per call kernel {res['ms']:.4f} ms "
+        f"vs plain {res['plain_ms']:.4f} ms; device time kernel "
+        f"{fmt_ms(res['dev_ms'])} vs plain {fmt_ms(res['plain_dev_ms'])}; "
+        f"F.group_norm + F.silu backward {fmt_ms(res['library_ms'])} "
+        f"(device {fmt_ms(res['library_dev'])})")
+    check(max(rel.values()) <= tol, f"{what}: {rel}")
+    check(launches == 1, f"{what}: {launches} launches")
+    check(rerun_equal, f"{what}: a second launch differs from the first")
+    torch.cuda.empty_cache()
     return res
 
 
@@ -581,6 +673,7 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     res = dict(
         gn=[_gn_case(shape, dt, eps, gen) for shape, dt, eps in GN_SHAPES],
+        gn_bwd=[_gn_bwd_case(shape, dt, gen) for shape, dt in GN_BWD_SHAPES],
         flash=[_flash_case(*shape, gen) for shape in FLASH_SHAPES],
         flash_bwd=[_flash_bwd_case(*shape, gen)
                    for shape in FLASH_BWD_SHAPES],
@@ -661,8 +754,7 @@ def _kernel_group(name: str) -> str:
                                                    "flash_f32_dq",
                                                    "flash_f32_dkv")),
                         ("fused_adamw (hand CUDA)", ("fused_adamw",)),
-                        ("gn_silu (hand Triton)", ("stats_kernel",
-                                                   "apply_kernel")),
+                        ("gn_silu (hand CUDA)", ("gn_silu",)),
                         ("convolution", ("conv", "fprop", "implicit",
                                          "nhwc", "dgrad", "wgrad")),
                         ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
@@ -740,10 +832,10 @@ def _counters() -> dict:
                 "probe": lambda: P.probe_cuda.launches}
     for dt, sfx in SUFFIX.items():
         counters.update({
-            "gn_silu_stats" + sfx: functools.partial(
-                G.gn_silu_stats_cuda.launches_by_dtype.__getitem__, dt),
-            "gn_silu_apply" + sfx: functools.partial(
-                G.gn_silu_apply_cuda.launches_by_dtype.__getitem__, dt),
+            "gn_silu_fwd" + sfx: functools.partial(
+                G.gn_silu_fwd_cuda.launches_by_dtype.__getitem__, dt),
+            "gn_silu_bwd" + sfx: functools.partial(
+                G.gn_silu_bwd_cuda.launches_by_dtype.__getitem__, dt),
             **{name + sfx: functools.partial(
                 getattr, F.LAUNCHERS[kind][dt], "launches")
                for name, kind in (("flash_fwd", "fwd"),
@@ -760,10 +852,11 @@ def _zero_launches() -> None:
     from sdxl_training_improvements_tpu_torch.ops import probe as P
     for w in (F.flash_attention_fwd_cuda, F.flash_bwd_dq_cuda,
               F.flash_bwd_dkv_cuda, O.fused_adamw_cuda, P.probe_cuda,
-              G.gn_silu_stats_cuda, G.gn_silu_apply_cuda):
+              G.gn_silu_fwd_cuda, G.gn_silu_bwd_cuda):
         w.launches = 0
-    for w in (G.gn_silu_stats_cuda, G.gn_silu_apply_cuda):
+    for w in (G.gn_silu_fwd_cuda, G.gn_silu_bwd_cuda):
         w.launches_by_dtype.clear()
+    G.gn_silu_bwd_cuda.dy_copies = 0
     for by_dtype in F.LAUNCHERS.values():
         for launcher in by_dtype.values():
             launcher.launches = 0
@@ -975,7 +1068,10 @@ def phase_train(model, cfg, kernels=TRAIN_KERNELS, size: int = SIZE) -> dict:
     check(setup_launches["probe"] > 0, "the startup probe did not launch")
     launches = {k: setup_launches[k] + sum(r["launches"][k] for r in steps)
                 for k in names}
-    log(f"train kernel launches (setup + {TRAIN_STEPS} steps): {launches}")
+    from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
+    log(f"train kernel launches (setup + {TRAIN_STEPS} steps): {launches}; "
+        f"copies of a non-contiguous dy before the GN backward: "
+        f"{G.gn_silu_bwd_cuda.dy_copies}")
     del state, watched, step, optimizer
     torch.cuda.empty_cache()
     return dict(steps=steps, peak_gb=peak_gb, launches=launches)
@@ -1003,8 +1099,7 @@ def phase_train_parity(model, cfg, size: int = SIZE,
 
     def loss_and_grads():
         """(loss, gradients, ms of the second of two calls): the first
-        call at a new batch size pays allocator growth and Triton's
-        re-specialisation."""
+        call at a new batch size pays allocator growth."""
         for _ in range(2):
             grads = None
             torch.cuda.synchronize()
@@ -1137,11 +1232,33 @@ def phase_fp32_training() -> dict:
 
 
 # operations per element of the elementwise kernels, on the fp32 units
-# (not the tensor cores): GN statistics (sum, square, add), GN apply
-# (normalise, affine, SiLU), AdamW (moments, bias corrections, sqrt,
-# divide, decay, stochastic rounding), the probe (x * 2 + 1)
-OPS_PER_ELEMENT = {"gn_silu_stats": 3, "gn_silu_apply": 10,
-                   "fused_adamw": 40, "probe": 2}
+# (not the tensor cores): the GN forward (Welford statistics; normalise,
+# affine, SiLU), the GN backward (xhat, z, sigmoid, dz and two sums; then
+# dx), AdamW (moments, bias corrections, sqrt, divide, decay, stochastic
+# rounding), the probe (x * 2 + 1)
+OPS_PER_ELEMENT = {"gn_silu_fwd": 12, "gn_silu_bwd": 30, "fused_adamw": 40,
+                   "probe": 2}
+# elements each GN kernel must read or write once: x and y; x, dy and dx
+GN_PASSES = {"gn_silu_fwd": 2, "gn_silu_bwd": 3}
+
+
+def gn_bound(kind: str, shape, dtype):
+    """(least ms, what bounds it) of one GN+SiLU call at ``shape``."""
+    n = shape[0] * shape[1] * shape[2]
+    size = torch.empty((), dtype=dtype).element_size()
+    return bound(OPS_PER_ELEMENT[kind] * n, GN_PASSES[kind] * size * n,
+                 PEAK_FP32)
+
+
+def _gn_sites(kind: str, rows) -> list:
+    """Every phase-3 case of one GN kernel and dtype, for its entry."""
+    return [{"at": str(list(r["shape"])), "ms": r["ms"],
+             "device_ms": r["dev_ms"], "plain_ms": r["plain_ms"],
+             "plain_device_ms": r["plain_dev_ms"],
+             "bound_ms": gn_bound(kind, r["shape"], r["dtype"])[0],
+             "two_library_calls_ms": r["library_ms"],
+             "two_library_calls_device_ms": r["library_dev"]}
+            for r in rows]
 
 
 def _site(shape) -> str:
@@ -1153,23 +1270,29 @@ def kernel_report(k: dict, launches: dict) -> dict:
     shapes of its dtype; times, bound and library time at the shape named
     in ``at``; launches on the main path that runs it."""
     measured, device, library_device, extra = {}, {}, {}, {}
-    gn_n = 2 * 4096 * 640
+    no_library = (None, "none: GroupNorm then SiLU is two library calls "
+                  "(two_library_calls)")
     for dt, sfx in SUFFIX.items():
-        gn = next(r for r in k["gn"] if r["shape"] == (2, 4096, 640)
-                  and r["dtype"] == dt)
-        size = torch.empty((), dtype=dt).element_size()
-        errs = [r for r in k["gn"] if r["dtype"] == dt]
-        at = f"[2, 4096, 640] {str(dt)[6:]}"
-        measured["gn_silu_stats" + sfx] = (
-            max(r["stats_err"] for r in errs), gn["stats_ms"],
-            gn["plain_stats_ms"], at,
-            bound(OPS_PER_ELEMENT["gn_silu_stats"] * gn_n, size * gn_n,
-                  PEAK_FP32), (None, None))
-        measured["gn_silu_apply" + sfx] = (
-            max(r["err"] for r in errs), gn["apply_ms"],
-            gn["plain_apply_ms"], at,
-            bound(OPS_PER_ELEMENT["gn_silu_apply"] * gn_n, 2 * size * gn_n,
-                  PEAK_FP32), (None, None))
+        fwd_rows = [r for r in k["gn"] if r["dtype"] == dt]
+        bwd_rows = [r for r in k["gn_bwd"] if r["dtype"] == dt]
+        gn = next(r for r in fwd_rows if r["shape"] == (2, 4096, 640))
+        gb = next(r for r in bwd_rows if r["shape"][1] == 4096)
+        for kind, row, rows, err in (
+                ("gn_silu_fwd", gn, fwd_rows,
+                 max(max(r["err"], r["stats_err"]) for r in fwd_rows)),
+                ("gn_silu_bwd", gb, bwd_rows,
+                 max(max(r["err"].values()) for r in bwd_rows))):
+            measured[kind + sfx] = (
+                err, row["ms"], row["plain_ms"],
+                f"{list(row['shape'])} {str(dt)[6:]}",
+                gn_bound(kind, row["shape"], dt), no_library)
+            device[kind + sfx] = row["dev_ms"]
+            extra[kind + sfx] = {
+                "two_library_calls": {"ms": row["library_ms"],
+                                      "device_ms": row["library_dev"]},
+                "sites": _gn_sites(kind, rows)}
+        extra["gn_silu_bwd" + sfx]["max_rel_err"] = max(
+            max(r["rel"].values()) for r in bwd_rows)
         fwd_rows, bwd_rows = k["flash" + sfx], k["flash_bwd" + sfx]
         fl = next(r for r in fwd_rows if r["shape"] == FLASH_SITES[0])
         bwd = next(r for r in bwd_rows

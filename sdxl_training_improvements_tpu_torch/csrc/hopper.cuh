@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels (the
-// flash-attention forward and backward, flash_fwd.cu and flash_bwd.cu):
-// mbarriers, named barriers, TMA tile loads through 4-D tensor maps,
-// warpgroup MMA (wgmma) with shared-memory matrix descriptors, and register
-// reallocation (setmaxnreg).  Inline PTX only, so
+// flash-attention forward and backward, flash_fwd.cu and flash_bwd.cu) and
+// of the GroupNorm kernels' shared-memory ring (groupnorm.cu): mbarriers,
+// named barriers, TMA tile loads through 4-D tensor maps and 1-D bulk
+// copies, warpgroup MMA (wgmma) with shared-memory matrix descriptors, and
+// register reallocation (setmaxnreg).  Inline PTX only, so
 // a source that includes it builds in seconds with a plain C interface (no
 // CUTLASS/CuTe templates).
 //
@@ -124,6 +125,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copy `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global memory at `src` to shared memory at `dst`;
+// completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -93,7 +93,7 @@ class GroupNorm(nn.Module):
 
 
 class GroupNormSiLU(GroupNorm):
-    """GroupNorm fused with SiLU: the Triton kernels on the card
+    """GroupNorm fused with SiLU: the CUDA kernels on the card
     (``ops/groupnorm.py``).  Parameter names match plain GroupNorm."""
 
     def forward(self, x):

@@ -64,9 +64,16 @@ def test_flash_function_gradients_match_plain_autograd(monkeypatch, s, t):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
 
 
+def _gn_plain_kernels(monkeypatch):
+    """The GN+SiLU Function's two kernels replaced by their plain
+    versions, looked up at call time as on the card."""
+    monkeypatch.setattr(TG, "gn_silu_fwd_cuda", TG.gn_silu_fwd_reference)
+    monkeypatch.setattr(TG, "gn_silu_bwd_cuda",
+                        TG.groupnorm_silu_backward_reference)
+
+
 def test_gn_silu_function_gradients_match_plain_autograd(monkeypatch):
-    monkeypatch.setattr(TG, "groupnorm_silu_cuda",
-                        TG.groupnorm_silu_reference)
+    _gn_plain_kernels(monkeypatch)
     x, scale, bias = _leaves((2, 48, 64), (64,), (64,), seed=2)
     cot = torch.randn(2, 48, 64, generator=torch.Generator().manual_seed(3))
     got = _grads(lambda *a: TG.GroupNormSiLU.apply(*a, 32, 1e-5),
@@ -77,6 +84,32 @@ def test_gn_silu_function_gradients_match_plain_autograd(monkeypatch):
         torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("shape,dtype", [((2, 100, 128), torch.float32),
+                                         ((1, 64, 960), torch.float32),
+                                         ((2, 16, 320), torch.bfloat16)])
+def test_gn_silu_function_through_both_plain_versions(monkeypatch, shape,
+                                                      dtype):
+    """The Function with the forward's plain (y, mean, rstd) and the
+    closed-form backward in the kernels' places gives autograd's
+    gradients of the fp32 plain version (a bf16 x: dx rounded to bf16,
+    within 2e-2 of max |dx|)."""
+    _gn_plain_kernels(monkeypatch)
+    c = shape[-1]
+    x, scale, bias = _leaves(shape, (c,), (c,), seed=6)
+    cot = torch.randn(shape, generator=torch.Generator().manual_seed(7))
+    xd = x.detach().to(dtype).requires_grad_()
+    got = _grads(lambda *a: TG.GroupNormSiLU.apply(*a, 32, 1e-5).float(),
+                 [xd, scale, bias], cot)
+    ref = _grads(lambda *a: TG.groupnorm_silu_reference(*a, 32, 1e-5),
+                 [xd.detach().float().requires_grad_(), scale, bias], cot)
+    assert got[0].dtype == dtype
+    for a, r in zip(got, ref):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+        else:
+            assert (a.float() - r).abs().max() <= 2e-2 * r.abs().max()
+
+
 def _through_functions(monkeypatch):
     """Route the UNet's kernel sites through the autograd Functions, as a
     CUDA tensor is, with the plain versions in the kernels' places."""
@@ -84,8 +117,7 @@ def _through_functions(monkeypatch):
                         TF.flash_attention_fwd_reference)
     monkeypatch.setattr(TF, "flash_attention_bwd_cuda",
                         TF.flash_attention_bwd_reference)
-    monkeypatch.setattr(TG, "groupnorm_silu_cuda",
-                        TG.groupnorm_silu_reference)
+    _gn_plain_kernels(monkeypatch)
     monkeypatch.setattr(TL, "dot_product_attention", TF.flash_attention)
 
     def gn_silu(x, scale, bias, groups, eps):

@@ -7,8 +7,10 @@ run on a machine without JAX:
 
 On the CPU the wrappers take the plain versions and launch nothing; the
 ``cuda`` tests skip.  On the card each kernel is held against its plain
-version: GN+SiLU fp32 max abs 1e-4, bf16 2e-2 and fp16 4e-3 (about half
-an output ulp at |y| < 8) against the fp32-interior plain version; flash
+version: the GN+SiLU forward fp32 max abs 1e-4, bf16 2e-2 and fp16 4e-3
+(about half an output ulp at |y| < 8) against the fp32-interior plain
+version, its mean and rstd within 1e-4 of the two-pass statistics (the
+backward kernel: ``test_torch_train_kernels.py``); flash
 forward out and lse against the plain fp32-softmax version, bf16 2e-2 and
 1e-3, fp16 4e-3 and 1e-3 (the kernel rounds P to fp16 before its product,
 the plain version after normalising), fp32 2e-5 and 2e-5 (the Pallas
@@ -43,8 +45,29 @@ FWD_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float16: (4e-3, 1e-3),
            torch.float32: (2e-5, 2e-5)}
 
 
+# GN+SiLU max abs error against the fp32-interior plain version, by dtype
+GN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+_BF16, _F16, _F32 = torch.bfloat16, torch.float16, torch.float32
+# (shape, dtype, eps): chip_smoke.py's GN_SHAPES, its backward sites
+# (GN_BWD_SHAPES), a ragged S at C = 64, C = 960 (not a multiple of 128),
+# the VAE's C = 128 (C/G = 4, a vector over two groups) and the tiny
+# VAE's C = 16 in 8 groups (C/G = 2)
+GN_CASES = [
+    ((2, 16384, 320), _BF16, 1e-5), ((2, 4096, 640), _BF16, 1e-5),
+    ((2, 1024, 2560), _BF16, 1e-5), ((2, 4096, 640), _F16, 1e-5),
+    ((2, 4096, 640), _F32, 1e-5), ((1, 65536, 512), _F32, 1e-6),
+    ((1, 1048576, 128), _F32, 1e-6),
+    ((4, 16384, 320), _BF16, 1e-5), ((4, 16384, 960), _BF16, 1e-5),
+    ((4, 4096, 640), _BF16, 1e-5), ((4, 1024, 2560), _BF16, 1e-5),
+    ((1, 4096, 640), _F16, 1e-5), ((1, 4096, 320), _F32, 1e-5),
+    ((2, 100, 64), _BF16, 1e-5), ((2, 300, 960), _BF16, 1e-5),
+    ((2, 300, 960), _F32, 1e-5), ((1, 4096, 128), _BF16, 1e-6),
+    ((2, 77, 16), _F32, 1e-6),
+]
+
+
 def _launches():
-    return (TG.gn_silu_stats_cuda.launches, TG.gn_silu_apply_cuda.launches,
+    return (TG.gn_silu_fwd_cuda.launches, TG.gn_silu_bwd_cuda.launches,
             TF.flash_attention_fwd_cuda.launches)
 
 
@@ -99,9 +122,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         TF.flash_attention_fwd_cuda(x, x, x)
+    x = torch.zeros(1, 8, 64)
     with pytest.raises(ValueError, match="CUDA"):
-        TG.groupnorm_silu_cuda(torch.zeros(1, 8, 64), torch.ones(64),
-                               torch.zeros(64))
+        TG.gn_silu_fwd_cuda(x, torch.ones(64), torch.zeros(64))
+    with pytest.raises(ValueError, match="CUDA"):
+        TG.gn_silu_bwd_cuda(x, x, torch.ones(64), torch.zeros(64),
+                            torch.zeros(1, 32), torch.ones(1, 32))
 
 
 def test_bf16_model_dtypes_and_cpu_run():
@@ -157,23 +183,55 @@ def test_create_turns_tf32_off():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,eps,tol", [
-    ((2, 1024, 320), torch.bfloat16, 1e-5, 2e-2),
-    ((2, 256, 2560), torch.bfloat16, 1e-5, 2e-2),
-    ((2, 100, 64), torch.bfloat16, 1e-5, 2e-2),
-    ((1, 65536, 128), torch.float32, 1e-6, 1e-4),
-    ((2, 77, 16), torch.float32, 1e-6, 1e-4),
-])
-def test_gn_kernels_match_plain(cuda, shape, dtype, eps, tol):
+@pytest.mark.parametrize("shape,dtype,eps", GN_CASES)
+def test_gn_kernels_match_plain(cuda, shape, dtype, eps):
+    """The forward kernel: y within ``GN_TOL`` of the fp32-interior plain
+    version, its mean and rstd within 1e-4 of the two-pass statistics; one
+    launch a call, a second launch bit-equal."""
     x, scale, bias = _gn_inputs(shape, seed=5, device="cuda", dtype=dtype)
     groups = 8 if shape[-1] == 16 else 32
     before = _launches()
-    out = TG.groupnorm_silu(x, scale, bias, groups, eps)
-    ref = TG.groupnorm_silu_reference(x.float(), scale, bias, groups, eps)
+    got = TG.gn_silu_fwd_cuda(x, scale, bias, groups, eps)
     torch.cuda.synchronize()
-    assert _launches()[:2] == (before[0] + 1, before[1] + 1)
-    assert out.dtype == dtype
-    assert (out.float() - ref).abs().max().item() <= tol
+    assert _launches()[:2] == (before[0] + 1, before[1])
+    again = TG.gn_silu_fwd_cuda(x, scale, bias, groups, eps)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    y, mean, rstd = got
+    ref = TG.groupnorm_silu_reference(x.float(), scale, bias, groups, eps)
+    ref_mean, ref_rstd = TG.group_stats_reference(x, groups, eps)
+    assert y.dtype == dtype and y.shape == x.shape
+    assert (y.float() - ref).abs().max().item() <= GN_TOL[dtype]
+    assert (mean - ref_mean).abs().max().item() <= 1e-4
+    assert (rstd - ref_rstd).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_gn_kernels_refuse_what_they_do_not_take(cuda):
+    """A non-contiguous x, C not a multiple of 32 groups, float64 and a dy
+    of another shape raise before any launch."""
+    one, zero = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    stats = (torch.zeros(1, 32, device="cuda"),
+             torch.ones(1, 32, device="cuda"))
+    x = torch.randn(1, 8, 64, device="cuda")
+    before = _launches()
+    strided = torch.randn(1, 64, 8, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        TG.gn_silu_fwd_cuda(strided, one, zero)
+    with pytest.raises(ValueError, match="contiguous"):
+        TG.gn_silu_bwd_cuda(x, strided, one, zero, *stats)
+    x48 = torch.randn(1, 8, 48, device="cuda")
+    one48, zero48 = one[:48], zero[:48]
+    with pytest.raises(ValueError, match="multiple"):
+        TG.gn_silu_fwd_cuda(x48, one48, zero48)
+    with pytest.raises(ValueError, match="multiple"):
+        TG.gn_silu_bwd_cuda(x48, x48, one48, zero48, *stats)
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        TG.gn_silu_fwd_cuda(x.double(), one, zero)
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        TG.gn_silu_bwd_cuda(x.double(), x.double(), one, zero, *stats)
+    with pytest.raises(ValueError, match="dy must match"):
+        TG.gn_silu_bwd_cuda(x[:, :4], x, one, zero, *stats)
+    assert _launches() == before
 
 
 @pytest.mark.cuda
@@ -248,7 +306,7 @@ def test_tiny_unet_kernel_path_matches_plain(cuda):
         launched = [a - b for a, b in zip(_launches(), before)]
         with _plain_ops():
             ref = model.unet_apply(*args).float()
-    assert all(n > 0 for n in launched), launched
+    assert launched[0] > 0 and launched[2] > 0, launched  # no backward
     assert ((out - ref).norm() / ref.norm()).item() <= 3e-2
 
 
@@ -260,21 +318,23 @@ def test_tiny_pipeline_on_card(cuda):
     images = SDXLPipeline.from_model(model)(["a cat"], height=64, width=64,
                                             num_inference_steps=3)
     assert images[0].shape == (64, 64, 3) and images[0].dtype == np.uint8
-    assert all(a > b for a, b in zip(_launches(), before))
+    now = _launches()
+    assert now[0] > before[0] and now[2] > before[2]  # GN forward, flash
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 1024, 320), (2, 4096, 640),
                                    (2, 100, 64)])
 def test_gn_kernels_match_plain_fp16(cuda, shape):
-    """The Triton kernels load fp16, compute in fp32 and store fp16."""
+    """The forward kernel loads fp16, computes in fp32 and stores fp16,
+    through the dispatcher: one launch, no backward."""
     x, scale, bias = _gn_inputs(shape, seed=6, device="cuda",
                                 dtype=torch.float16)
     before = _launches()
     out = TG.groupnorm_silu(x, scale, bias, 32, 1e-5)
     ref = TG.groupnorm_silu_reference(x.float(), scale, bias, 32, 1e-5)
     torch.cuda.synchronize()
-    assert _launches()[:2] == (before[0] + 1, before[1] + 1)
+    assert _launches()[:2] == (before[0] + 1, before[1])
     assert out.dtype == torch.float16
     assert (out.float() - ref).abs().max().item() <= 4e-3
 
@@ -352,7 +412,7 @@ def test_tiny_unet_fp32_fp16_on_card(cuda, dtype, tol):
         with _plain_ops():
             ref = model.unet_apply(*args)
     assert out.dtype == dtype and torch.isfinite(out).all()
-    assert all(n > 0 for n in launched), launched
+    assert launched[0] > 0 and launched[2] > 0, launched  # no backward
     assert TF.LAUNCHERS["fwd"][dtype].launches > flash_before
     out, ref = out.float(), ref.float()
     assert ((out - ref).norm() / ref.norm()).item() <= tol

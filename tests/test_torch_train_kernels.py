@@ -12,7 +12,11 @@ head dim, ragged S and T, strided projections and the split dk/dv path,
 which also gives bit-equal gradients run to run; the fused AdamW kernel
 ``torch.equal`` to
 the plain chain in all four outputs; the probe kernel equal to
-``x * 2 + 1``; and the bf16 tiny model's train step through the kernels
+``x * 2 + 1``; the GN+SiLU backward kernel against the closed-form plain
+backward on the forward kernel's statistics (max abs error over max
+|plain| of dx, dscale, dbias: fp32 1e-4, summation order only; fp16 5e-3
+and bf16 2e-2, dx rounded once to its type), one launch a call and
+bit-equal on a second; and the bf16 tiny model's train step through the kernels
 against the same step through the plain versions.  The other precisions:
 the fp16 instantiation of the backward kernels within 5e-3 (P and dS
 rounded to fp16, 8 times finer than bf16), the exact-fp32 kernels at the
@@ -26,6 +30,7 @@ import torch
 
 from sdxl_training_improvements_tpu_torch.ops import flash_attention as TF
 from sdxl_training_improvements_tpu_torch.ops import fused_adamw as TO
+from sdxl_training_improvements_tpu_torch.ops import groupnorm as TG
 from sdxl_training_improvements_tpu_torch.ops import probe as TP
 
 FLASH_BWD_TOL = 2e-2
@@ -189,6 +194,90 @@ def test_probe_kernel(cuda):
     assert TP.probe_cuda.launches > before
     assert result["max_abs_err"] == 0.0
     assert result["gbps"] > 0 and result["plain_gbps"] > 0
+
+
+# GN+SiLU backward bars (max abs error over max |plain|) by dtype
+GN_BWD_TOL = {torch.float32: 1e-4, torch.float16: 5e-3,
+              torch.bfloat16: 2e-2}
+_BF16, _F16, _F32 = torch.bfloat16, torch.float16, torch.float32
+# (shape, dtype, eps): chip_smoke.py's backward sites (GN_BWD_SHAPES),
+# its forward GN_SHAPES, a ragged S at C = 64, C = 960 (not a multiple of
+# 128), the VAE's C = 128 and the tiny VAE's C = 16 in 8 groups
+GN_BWD_CASES = [
+    ((4, 16384, 320), _BF16, 1e-5), ((4, 16384, 960), _BF16, 1e-5),
+    ((4, 4096, 640), _BF16, 1e-5), ((4, 1024, 2560), _BF16, 1e-5),
+    ((1, 4096, 640), _F16, 1e-5), ((1, 4096, 320), _F32, 1e-5),
+    ((2, 16384, 320), _BF16, 1e-5), ((2, 4096, 640), _BF16, 1e-5),
+    ((2, 1024, 2560), _BF16, 1e-5), ((2, 4096, 640), _F16, 1e-5),
+    ((2, 4096, 640), _F32, 1e-5), ((1, 65536, 512), _F32, 1e-6),
+    ((1, 1048576, 128), _F32, 1e-6),
+    ((2, 100, 64), _BF16, 1e-5), ((2, 300, 960), _BF16, 1e-5),
+    ((2, 300, 960), _F16, 1e-5), ((1, 4096, 128), _F32, 1e-6),
+    ((2, 77, 16), _F32, 1e-6),
+]
+
+
+def _gn_bwd_inputs(shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g) * 1.5 + 1.0
+    dy = torch.randn(shape, generator=g)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=g)
+    bias = 0.1 * torch.randn(c, generator=g)
+    return (x.to("cuda", dtype), dy.to("cuda", dtype), scale.cuda(),
+            bias.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,eps", GN_BWD_CASES)
+def test_gn_backward_kernel_matches_plain(cuda, shape, dtype, eps):
+    """dx, dscale and dbias of the backward kernel against the closed-form
+    plain backward, both on the forward kernel's mean and rstd; one launch
+    a call, a second launch bit-equal."""
+    x, dy, scale, bias = _gn_bwd_inputs(shape, dtype, seed=11)
+    groups = 8 if shape[-1] == 16 else 32
+    _, mean, rstd = TG.gn_silu_fwd_cuda(x, scale, bias, groups, eps)
+    args = (dy, x, scale, bias, mean, rstd, groups)
+    before = TG.gn_silu_bwd_cuda.launches
+    got = TG.gn_silu_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert TG.gn_silu_bwd_cuda.launches == before + 1
+    again = TG.gn_silu_bwd_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = TG.groupnorm_silu_backward_reference(*args)
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= GN_BWD_TOL[dtype] * r.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [_BF16, _F32])
+def test_gn_function_grads_match_plain_autograd(cuda, dtype):
+    """``groupnorm_silu`` on a channels-last activation, as the resblocks
+    call it, backward through both kernels: one forward and one backward
+    launch, and the gradients of autograd through the fp32 plain version
+    (bars as above, dx in x's dtype)."""
+    g = torch.Generator().manual_seed(12)
+    x = (torch.randn(2, 640, 32, 32, generator=g) * 1.5 + 1.0).to(
+        "cuda", dtype).contiguous(memory_format=torch.channels_last)
+    cot = torch.randn(2, 32, 32, 640, generator=g).cuda()
+    scale = (1.0 + 0.1 * torch.randn(640, generator=g)).cuda()
+    bias = (0.1 * torch.randn(640, generator=g)).cuda()
+    nhwc = x.permute(0, 2, 3, 1)
+    leaves = [t.detach().requires_grad_() for t in (nhwc, scale, bias)]
+    fwd, bwd = TG.gn_silu_fwd_cuda.launches, TG.gn_silu_bwd_cuda.launches
+    got = torch.autograd.grad(
+        (TG.groupnorm_silu(*leaves, 32, 1e-5).float() * cot).sum(), leaves)
+    torch.cuda.synchronize()
+    assert TG.gn_silu_fwd_cuda.launches == fwd + 1
+    assert TG.gn_silu_bwd_cuda.launches == bwd + 1
+    plain = [t.detach().float().requires_grad_() for t in leaves]
+    ref = torch.autograd.grad(
+        (TG.groupnorm_silu_reference(*plain, 32, 1e-5) * cot).sum(), plain)
+    for a, r in zip(got, ref):
+        err = (a.float() - r).abs().max().item()
+        assert err <= GN_BWD_TOL[dtype] * r.abs().max().item()
 
 
 def _tiny_train_step(plain: bool, mixed_precision: str = "bf16"):
