@@ -6,7 +6,7 @@ Phases, each printing what it found:
 
 1. environment: the card's name and power limit, torch/CUDA/Triton/nvcc;
    fails at once when no CUDA device is present;
-2. build: compiles the five CUDA sources (one ``nvcc`` each, all started
+2. build: compiles the six CUDA sources (one ``nvcc`` each, all started
    together) and the Triton probe;
 3. every kernel against its plain PyTorch version at the main paths'
    shapes, with max errors, median CUDA-event times and device times of
@@ -20,8 +20,10 @@ Phases, each printing what it found:
    dk/dv, bit-equal on a second launch), the fused bf16-SR AdamW
    (``torch.equal`` to plain) and the startup probe; the flash kernels of
    the other precisions, fp16 (the Hopper kernels' second instantiation)
-   and fp32 (``csrc/flash_f32.cu``), at the four serving sites and, for
-   the backward, at B4 S=T=4096 too; beside each, its bound
+   and fp32 (``csrc/flash_f32.cu`` forward, ``csrc/flash_bwd_f32.cu``
+   backward), at the four serving sites and, for the backward, at B4
+   S=T=4096 too, and for fp32 at B4 S=4096 T=77 and at phase 9's four
+   sites (b1); beside each, its bound
    (``bound_ms``: the larger of its flops over the card's peak for its
    type and its bytes over 3.35 TB/s) and, as a yardstick the port never
    calls, one PyTorch call computing the same function where there is one
@@ -50,7 +52,9 @@ Phases, each printing what it found:
    backward kernels' path);
 9. fp32 training: the settings of ``configs/ddpm_512_smoke.yaml``
    (``DDPM_512_SMOKE``) at full SDXL-base width, ``mixed_precision "no"``,
-   plain ``adamw``, batch 1 at 512^2: phases 6 and 7 on that model.
+   plain ``adamw``, batch 1 at 512^2: phases 6 and 7 on that model, with
+   PyTorch's TF32 switches logged (PyTorch's default puts cuDNN's fp32
+   convolutions in TF32; ``SDXLModel.create`` turns both switches off).
 
 The line before the last is a JSON object with one entry per kernel and
 dtype; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -105,6 +109,11 @@ FLASH_SITES = ((2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64),
 # b4 training step's S=T=4096 site too
 FLASH_DTYPES = (torch.float16, torch.float32)
 FLASH_BWD_SITES = FLASH_SITES + ((4, 4096, 4096, 10, 64),)
+# fp32 also at the b4 T = 77 site and at phase 9's (b1 512^2: 10 blocks at
+# 32^2 latents, 60 at 16^2, each a self- and a cross-attention)
+F32_BWD_SITES = FLASH_BWD_SITES + (
+    (4, 4096, 77, 10, 64), (1, 1024, 1024, 10, 64), (1, 256, 256, 20, 64),
+    (1, 1024, 77, 10, 64), (1, 256, 77, 20, 64))
 FLASH_BWD_SHAPES = (  # (B, S, T, heads, D): the b4 training step's sites
     (4, 4096, 4096, 10, 64),
     (4, 1024, 1024, 20, 64),
@@ -146,7 +155,8 @@ FLASH_LSE_TOL = {torch.bfloat16: 1e-3, torch.float16: 1e-3,
                  torch.float32: 2e-5}
 # max abs error over the plain gradient's max magnitude: the 16-bit
 # kernels round P and dS to their type for their products, the plain
-# backward keeps fp32; the fp32 kernels differ in summation order only
+# backward keeps fp32; the fp32 kernels multiply split TF32 operands
+# (products to ~2^-21) where the plain version multiplies in fp32
 FLASH_BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3,
                  torch.float32: 1e-4}
 UNET_REL_L2_TOL = 3e-2
@@ -187,7 +197,8 @@ TPU = "sdxl_training_improvements_tpu/ops/"
 SUFFIX = {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}
 KERNELS = {}
 for _dt, _sfx in SUFFIX.items():
-    _fwd, _bwd = (("flash_f32.cu",) * 2 if _dt == torch.float32
+    _fwd, _bwd = (("flash_f32.cu", "flash_bwd_f32.cu")
+                  if _dt == torch.float32
                   else ("flash_fwd.cu", "flash_bwd.cu"))
     KERNELS.update({
         "gn_silu_fwd" + _sfx: ("cuda", SRC + "csrc/groupnorm.cu",
@@ -215,10 +226,14 @@ F16_TRAIN_KERNELS = ("gn_silu_fwd_f16", "gn_silu_bwd_f16", "flash_fwd_f16",
 F32_TRAIN_KERNELS = ("gn_silu_fwd_f32", "gn_silu_bwd_f32", "flash_fwd_f32",
                      "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 # the card's peaks (H100 SXM data sheet, dense): bf16 and fp16 tensor
-# cores, fp32 outside them, device memory
+# cores, fp32 outside them (the elementwise kernels' units), device memory
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# fp32-accurate products on the tensor cores: each operand split into two
+# TF32 parts, three TF32 products (hi*hi, hi*lo, lo*hi) per fp32 one, at
+# the 495 TFLOP/s dense TF32 rate: the least time of the fp32 flash rows
+PEAK_TF32_SPLIT = 495e12 / 3
 PEAK = {torch.bfloat16: PEAK_BF16, torch.float16: PEAK_BF16,
-        torch.float32: PEAK_FP32}
+        torch.float32: PEAK_TF32_SPLIT}
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
@@ -684,7 +699,8 @@ def phase_kernels() -> dict:
                                      for shape in FLASH_SITES]
         res["flash_bwd" + SUFFIX[dt]] = [
             _flash_bwd_case(*shape, gen, dtype=dt)
-            for shape in FLASH_BWD_SITES]
+            for shape in (F32_BWD_SITES if dt == torch.float32
+                          else FLASH_BWD_SITES)]
     torch.cuda.empty_cache()
     return res
 
@@ -1222,6 +1238,10 @@ def phase_fp32_training() -> dict:
     cfg, model = _model_from_config(DDPM_512_SMOKE)
     check(model.unet.conv_in.weight.dtype == torch.float32,
           "mixed_precision 'no' did not give an fp32 UNet")
+    log(f"fp32 TF32 switches: torch.backends.cudnn.allow_tf32 "
+        f"{torch.backends.cudnn.allow_tf32} (convolutions), "
+        f"torch.backends.cuda.matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32} (matmuls)")
     train = phase_train(model, cfg, F32_TRAIN_KERNELS, F32_SIZE)
     parity = phase_train_parity(model, cfg, F32_SIZE,
                                 (F32_LOSS_REL_TOL, F32_GRAD_REL_L2_TOL),

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels (the
-// flash-attention forward and backward, flash_fwd.cu and flash_bwd.cu) and
+// flash-attention forward and backward, flash_fwd.cu, flash_bwd.cu and
+// flash_bwd_f32.cu) and
 // of the GroupNorm kernels' shared-memory ring (groupnorm.cu): mbarriers,
 // named barriers, TMA tile loads through 4-D tensor maps and 1-D bulk
 // copies, warpgroup MMA (wgmma) with shared-memory matrix descriptors, and
@@ -11,7 +12,11 @@
 // F16, that names the stored type, its TMA data type, its wgmma operand
 // type (the specialisations of wgmma_ss / wgmma_rs) and the packing of two
 // fp32 values into one 32-bit register.  Both types are 2 bytes wide, so
-// tiles, swizzles and descriptors are the same for both.
+// tiles, swizzles and descriptors are the same for both.  Tf32 is fp32
+// data on the tensor cores' TF32 path (flash_bwd_f32.cu): a k step of
+// TF32 wgmma (k8) spans 32 bytes of a row, as a 16-bit one (k16) does, so
+// the same swizzles and descriptors serve it when a chunk's width CW is
+// counted in 2-byte columns (a chunk of c fp32 columns is CW = 2c).
 //
 // Shared-memory tiles.  A 16-bit tile of `rows` rows and D columns is held as
 // D / CW chunks of CW = min(D, 64) columns, each chunk [rows][CW] with its
@@ -58,6 +63,28 @@ struct F16 {
   __device__ static __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+// fp32 through TF32 products that keep fp32's accuracy: x enters as two
+// TF32 parts, hi = rna(x) and lo = rna(x - hi), and a product a b as
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, the small ones first; what is lost
+// (lo_a lo_b and lo's rounding) is about 2^-21 of the product.  Rounded to
+// nearest (ties away) by cvt.rna: wgmma itself only drops the low 13 bits,
+// and that truncation would bias the split.  The low 13 bits are cleared,
+// so hi + lo is the split exactly and wgmma's truncation changes nothing.
+struct Tf32 {
+  using T = float;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  __device__ static __forceinline__ uint32_t round(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+    return r & 0xffffe000u;
+  }
+  __device__ static __forceinline__ void split(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+    hi = round(x);
+    lo = round(x - __uint_as_float(hi));
   }
 };
 
@@ -255,7 +282,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d);
 
 // D[64 x N] += A[64 x 16] B[16 x N] with A in registers (the mma.sync A
-// fragment per warp) and B MN-major in shared memory.
+// fragment per warp) and B MN-major in shared memory (for Tf32: k8 and B
+// K-major, below).
 template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b);
@@ -376,6 +404,46 @@ __device__ __forceinline__ void wgmma_rs<F16, 64>(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// TF32: D[64 x N] += A[64 x 8] B[8 x N], A in registers (four TF32 values,
+// rows g and g + 8, columns t and t + 4 of each warp's 16 rows: g = lane / 4,
+// t = lane % 4) and B K-major in shared memory: TF32 wgmma has no
+// transposed (MN-major) operands.
+template <>
+__device__ __forceinline__ void wgmma_rs<Tf32, 16>(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<Tf32, 32>(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<Tf32, 64>(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // The accumulators of a 64 x N wgmma product, rounded to E, as the A
 // operands of N / 16 k steps of a following product (the accumulator and
 // A-fragment layouts agree thread by thread).
@@ -441,25 +509,29 @@ constexpr int kEncodeError = 100000;
 
 // A tensor map over an E [B, N, H, D] tensor with element strides
 // (sb, sn, sh) and a unit D stride, whose box is `rows` sequence rows of
-// one head and CW columns, swizzled as the chunks above.
+// one head and CW elements, swizzled as the chunks above (by the box row's
+// bytes: 128, 64 or 32).
 template <typename E, int CW>
 inline int make_map(CUtensorMap* map, const void* ptr, int B, int N, int H,
                     int D, int64_t sb, int64_t sn, int64_t sh, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kEncodeError;
+  constexpr int kBytes = sizeof(typename E::T);
+  constexpr int kRow = CW * kBytes;
+  static_assert(kRow == 128 || kRow == 64 || kRow == 32, "box row bytes");
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sn) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * kBytes,
+                                 static_cast<cuuint64_t>(sn) * kBytes,
+                                 static_cast<cuuint64_t>(sb) * kBytes};
   const cuuint32_t box[4] = {CW, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle =
-      CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-               : CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                          : CU_TENSOR_MAP_SWIZZLE_32B;
+      kRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                  : kRow == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = fn(map, E::kTma, 4,
                         const_cast<void*>(ptr), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,

@@ -24,8 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # per-source flags: the optimizer must not contract a*b+c into an FMA
 EXTRA_FLAGS = {"fused_adamw": ("--fmad=false",)}
-KERNELS = ("flash_fwd", "flash_bwd", "flash_f32", "fused_adamw",
-           "groupnorm")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_f32", "flash_bwd_f32",
+           "fused_adamw", "groupnorm")
 
 
 def nvcc_path() -> str:

@@ -5,8 +5,10 @@ Port of ``sdxl_training_improvements_tpu/ops/flash_attention.py``.  The
 Pallas kernels take any dtype; here each of the UNet's precisions
 (``training.mixed_precision``) has its kernels, picked by the inputs'
 dtype: bf16 and fp16 run the two instantiations of the Hopper kernels
-below, fp32 the exact-fp32 kernels of ``csrc/flash_f32.cu`` (FFMA, no
-tensor cores: wgmma has no fp32 operands).  Any other dtype raises.
+below; fp32 the forward of ``csrc/flash_f32.cu`` (FFMA) and the backward
+of ``csrc/flash_bwd_f32.cu`` (the same split and warp-specialised shape on
+TF32 wgmma, each operand split into two TF32 parts so that the products
+keep fp32's accuracy).  Any other dtype raises.
 
 * forward: ``csrc/flash_fwd.cu`` replaces the Pallas ``_fwd_kernel``: a
   block per (b*h, 128-row q tile) with a TMA producer warp and two
@@ -40,13 +42,16 @@ import torch
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-DKV_KV_ROWS = 128  # rows of the dk/dv kernel's kv tile (flash_bwd.cu kOwn)
+DKV_KV_ROWS = 128  # rows of the dk/dv kernels' kv tile (kOwn)
 H100_SMS = 132
 
 
-def dkv_q_rows(d: int) -> int:
-    """Rows of the q tiles the dk/dv kernel streams at head dim ``d``
-    (``csrc/flash_bwd.cu``: ``Cfg<D>::kStream``)."""
+def dkv_q_rows(d: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Rows of the q tiles the dk/dv kernel of ``dtype`` streams at head
+    dim ``d`` (``Cfg<D>::kStream`` of ``csrc/flash_bwd.cu`` for bf16 and
+    fp16, of ``csrc/flash_bwd_f32.cu`` for fp32)."""
+    if dtype == torch.float32:
+        return 32 if d <= 64 else 16
     return 128 if d <= 64 else 64
 
 
@@ -99,12 +104,14 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, scale: float):
 
 
 def plan_dkv_splits(b: int, h: int, s: int, t: int, d: int,
-                    sms: int = H100_SMS) -> Tuple[int, int]:
-    """(splits, q tiles per split) of the dk/dv kernel's q loop: enough
-    splits that the grid of (kv tiles, batch * heads, splits) blocks covers
-    ``sms`` SMs, none of them empty, and 1 when the kv tiles alone do."""
+                    sms: int = H100_SMS,
+                    dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """(splits, q tiles per split) of the q loop of ``dtype``'s dk/dv
+    kernel: enough splits that the grid of (kv tiles, batch * heads,
+    splits) blocks covers ``sms`` SMs, none of them empty, and 1 when the
+    kv tiles alone do."""
     kv_tiles = -(-t // DKV_KV_ROWS)
-    q_tiles = -(-s // dkv_q_rows(d))
+    q_tiles = -(-s // dkv_q_rows(d, dtype))
     want = min(q_tiles, -(-sms // (b * h * kv_tiles)))
     per = -(-q_tiles // want)
     return -(-q_tiles // per), per
@@ -113,8 +120,9 @@ def plan_dkv_splits(b: int, h: int, s: int, t: int, d: int,
 def flash_bwd_dkv_split_reference(q, k, v, dout, lse, delta, scale: float,
                                   splits: int, per: int):
     """Plain version of the split dk/dv path: fp32 partials over q chunks
-    of ``per`` q tiles, summed in split order, then cast to k's dtype."""
-    rows = per * dkv_q_rows(q.shape[-1])
+    of ``per`` q tiles of q's dtype's kernel, summed in split order, then
+    cast to k's dtype."""
+    rows = per * dkv_q_rows(q.shape[-1], q.dtype)
     dk = dv = 0.0
     for i in range(splits):
         sl = slice(i * rows, (i + 1) * rows)
@@ -169,11 +177,12 @@ def _launchers(kind: str, args) -> dict:
     """The launchers of one kernel by dtype, each with its (pointer, int)
     argument counts in ``args``: the 16-bit instantiations in
     ``csrc/flash_{fwd,bwd}.cu`` (the fp16 backward with the max|dO|
-    pointer more), the fp32 kernel in ``csrc/flash_f32.cu`` (its dk/dv
-    without the split's scratch and plan arguments)."""
-    lib16 = "flash_fwd" if kind == "fwd" else "flash_bwd"
+    pointer more), the fp32 kernels in ``csrc/flash_f32.cu`` (forward)
+    and ``csrc/flash_bwd_f32.cu`` (dq, dk/dv)."""
+    lib16, lib32 = (("flash_fwd", "flash_f32") if kind == "fwd"
+                    else ("flash_bwd", "flash_bwd_f32"))
     symbol = "flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}"
-    return {dt: Launcher("flash_f32" if dt == torch.float32 else lib16,
+    return {dt: Launcher(lib32 if dt == torch.float32 else lib16,
                          f"{symbol}_{_SUFFIX[dt]}", *args[dt])
             for dt in DTYPES}
 
@@ -183,7 +192,7 @@ LAUNCHERS = {
     "fwd": _launchers("fwd", {_BF16: (5, 5), _F16: (5, 5), _F32: (5, 5)}),
     "dq": _launchers("dq", {_BF16: (7, 5), _F16: (8, 5), _F32: (7, 5)}),
     "dkv": _launchers("dkv", {_BF16: (10, 7), _F16: (11, 7),
-                              _F32: (8, 5)})}
+                              _F32: (10, 7)})}
 
 
 def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
@@ -197,21 +206,19 @@ def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
 
 
 def tma_addressable(x: torch.Tensor) -> bool:
-    """Whether a 16-bit [B, N, H, D] tensor meets TMA's conditions: a
-    16-byte aligned base, (batch, seq, head) strides that are multiples of
-    16 bytes (8 elements) and a unit head-dim stride."""
+    """Whether a [B, N, H, D] tensor meets TMA's conditions: a 16-byte
+    aligned base, (batch, seq, head) strides that are multiples of 16 bytes
+    and a unit head-dim stride."""
+    per = 16 // x.element_size()  # elements in 16 bytes
     sb, sn, sh = _strides(x)
-    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0 and sb % 8 == 0
-            and sn % 8 == 0 and sh % 8 == 0)
+    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0 and sb % per == 0
+            and sn % per == 0 and sh % per == 0)
 
 
 def _addressable(x: torch.Tensor) -> torch.Tensor:
-    """x itself where its kernel can read it in place (the 16-bit kernels'
-    TMA maps; the fp32 kernels' plain loads need a unit head-dim stride),
+    """x itself where the kernels can read it in place (their TMA maps),
     else a contiguous copy."""
-    ok = (x.stride(3) == 1 if x.dtype == torch.float32
-          else tma_addressable(x))
-    return x if ok else x.contiguous()
+    return x if tma_addressable(x) else x.contiguous()
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -352,26 +359,18 @@ def _sm_count(device: torch.device) -> int:
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale: float,
                        absmax: Optional[torch.Tensor] = None):
     """Launch the dk/dv kernel of q's dtype (Pallas ``_bwd_dkv_kernel``);
-    raises on what it does not take.  The 16-bit kernels split their q
-    loop as ``plan_dkv_splits`` says and sum the fp32 partials by the
-    reduction kernel of the same source; the fp32 kernel does not split.
-    ``absmax`` as for ``flash_bwd_dq_cuda``."""
+    raises on what it does not take.  The kernels split their q loop as
+    ``plan_dkv_splits`` says for their own q tiles and sum the fp32
+    partials by the reduction kernel of the same source.  ``absmax`` as
+    for ``flash_bwd_dq_cuda``."""
     q, k, v, dout, lse, delta = _bwd_inputs(q, k, v, dout, lse, delta)
     b, s, h, d = q.shape
     t = k.shape[1]
     dk = torch.empty(k.shape, device=k.device, dtype=k.dtype)
     dv = torch.empty_like(dk)
     launch = LAUNCHERS["dkv"][q.dtype]
-    if q.dtype == torch.float32:
-        strides = _bwd_strides(q, k, v, dout, None, dk, dv)
-        with torch.cuda.device(q.device):
-            launch(*(x.data_ptr() for x in (q, k, v, dout, lse, delta, dk,
-                                            dv)),
-                   b, h, s, t, d, strides, float(scale),
-                   torch.cuda.current_stream().cuda_stream)
-        flash_bwd_dkv_cuda.launches += 1
-        return dk, dv
-    splits, per = plan_dkv_splits(b, h, s, t, d, _sm_count(q.device))
+    splits, per = plan_dkv_splits(b, h, s, t, d, _sm_count(q.device),
+                                  q.dtype)
     # fp32 partial dk and dv of each split, [2, splits, B*H, T, D]
     part = (torch.empty((2, splits, b * h, t, d), device=k.device,
                         dtype=torch.float32) if splits > 1 else None)

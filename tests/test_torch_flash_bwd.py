@@ -18,6 +18,15 @@ gradients, and the plain path's dk at twice the bar.
 In fp16 the plain backward (fp32 inside, gradients rounded to fp16) meets
 the Pallas one within two fp16 ulps at |gradient| < 2: atol and rtol 2e-3
 (measured one ulp, up to 9.8e-4).
+
+The fp32 kernels (``csrc/flash_bwd_f32.cu``) multiply on the tensor cores'
+TF32 path with every operand split into two TF32 parts.  That contract is
+emulated here (``_split_tf32_bwd``: rounding to nearest TF32 by integer
+ops on the fp32 bits, the three products in the kernels' order) and held
+against the Pallas backward at the card's fp32 bars: atol 5e-5 / rtol
+5e-4, and 1e-4 of max |gradient| (``chip_smoke.FLASH_BWD_TOL``); with q
+scaled by 50 the contract misses the first, measured, and is held to the
+second.
 """
 import jax
 import jax.numpy as jnp
@@ -32,6 +41,7 @@ from sdxl_training_improvements_tpu.ops.flash_attention import flash_attention
 from sdxl_training_improvements_tpu_torch.ops import flash_attention as TF
 
 ATOL, RTOL = 5e-5, 5e-4
+MAX_REL = 1e-4  # chip_smoke.FLASH_BWD_TOL[fp32]
 
 
 def _inputs(s, t, seed, q_scale=1.0):
@@ -97,19 +107,26 @@ def test_bwd_delta_is_rowsum_of_dout_times_out():
     torch.testing.assert_close(delta, (out * dout).sum(-1).transpose(1, 2))
 
 
-@pytest.mark.parametrize("b,h,s,t,d,splits", [(4, 10, 4096, 4096, 64, 1),
-                                               (4, 20, 1024, 1024, 64, 1),
-                                               (4, 10, 4096, 77, 64, 4),
-                                               (4, 20, 1024, 77, 64, 2),
-                                               (1, 2, 1000, 77, 64, 8),
-                                               (1, 2, 1000, 77, 128, 16)])
-def test_dkv_split_planner(b, h, s, t, d, splits):
+_BF16, _F32 = torch.bfloat16, torch.float32
+_PLANS = [(4, 10, 4096, 4096, 64, 1, 1), (4, 20, 1024, 1024, 64, 1, 1),
+          (4, 10, 4096, 77, 64, 4, 4), (4, 20, 1024, 77, 64, 2, 2),
+          (1, 2, 1000, 77, 64, 8, 32), (1, 2, 1000, 77, 128, 16, 63)]
+
+
+@pytest.mark.parametrize("b,h,s,t,d,splits,dtype", [
+    *(pytest.param(*c[:6], _BF16, id="-".join(map(str, c[:6])))
+      for c in _PLANS),
+    *(pytest.param(*c[:5], c[6], _F32, id="fp32-" + "-".join(
+        map(str, c[:5] + c[6:]))) for c in _PLANS)])
+def test_dkv_split_planner(b, h, s, t, d, splits, dtype):
     """The SDXL training sites (b4): no split where the kv tiles fill the
     H100's 132 SMs (T = 4096, 1024), a split of the q loop where they do
     not (the T = 77 cross-attention), with a grid that then covers every
-    SM (or gives every q tile its own block) and no split left empty."""
-    got, per = TF.plan_dkv_splits(b, h, s, t, d)
-    q_tiles = -(-s // TF.dkv_q_rows(d))
+    SM (or gives every q tile its own block) and no split left empty; for
+    the 16-bit kernels' q tiles (128 rows, 64 at D = 128) and the fp32
+    kernel's (32, 16 at D = 128)."""
+    got, per = TF.plan_dkv_splits(b, h, s, t, d, dtype=dtype)
+    q_tiles = -(-s // TF.dkv_q_rows(d, dtype))
     kv_tiles = -(-t // TF.DKV_KV_ROWS)
     assert got == splits
     assert (got - 1) * per < q_tiles <= got * per
@@ -117,12 +134,17 @@ def test_dkv_split_planner(b, h, s, t, d, splits):
         assert b * h * kv_tiles * got >= TF.H100_SMS or per == 1
 
 
-@pytest.mark.parametrize("s,t", [(512, 77), (300, 130)])
-def test_dkv_split_reference_matches_unsplit_and_jax(s, t):
-    """The split path's plain version (fp32 partials over q chunks, summed
-    in order) against the unsplit plain dk/dv (fp32 sums in another
-    order: atol 1e-5, rtol 1e-5) and the JAX Pallas backward in interpret
-    mode (the file's bar, atol 5e-5 / rtol 5e-4)."""
+@pytest.mark.parametrize("s,t,dtype", [
+    pytest.param(512, 77, _BF16, id="512-77"),
+    pytest.param(300, 130, _BF16, id="300-130"),
+    pytest.param(512, 77, _F32, id="fp32-512-77"),
+    pytest.param(300, 130, _F32, id="fp32-300-130")])
+def test_dkv_split_reference_matches_unsplit_and_jax(s, t, dtype):
+    """The split path's plain version (fp32 partials over q chunks of the
+    q tiles of ``dtype``'s kernel, summed in order) against the unsplit
+    plain dk/dv (fp32 sums in another order: atol 1e-5, rtol 1e-5) and the
+    JAX Pallas backward in interpret mode (the file's bar, atol 5e-5 /
+    rtol 5e-4)."""
     q, k, v, cot = _inputs(s, t, seed=s * t)
     with pltpu.force_tpu_interpret_mode():
         pallas = _jax_grads(lambda *a: flash_attention(
@@ -131,9 +153,11 @@ def test_dkv_split_reference_matches_unsplit_and_jax(s, t):
     out, lse = TF.flash_attention_fwd_reference(tq, tk, tv)
     delta = TF.flash_attention_bwd_delta(out, tcot)
     args = (tq, tk, tv, tcot, lse, delta, 64 ** -0.5)
-    splits, per = TF.plan_dkv_splits(1, 2, s, t, 64)
+    splits, per = TF.plan_dkv_splits(1, 2, s, t, 64, dtype=dtype)
     assert splits > 1
-    split = TF.flash_bwd_dkv_split_reference(*args, splits, per)
+    # the reference counts q tiles of its inputs' dtype, fp32 here
+    per_f32 = per * TF.dkv_q_rows(64, dtype) // TF.dkv_q_rows(64, _F32)
+    split = TF.flash_bwd_dkv_split_reference(*args, splits, per_f32)
     whole = TF.flash_bwd_dkv_reference(*args)
     for name, a, w, p in zip(("dk", "dv"), split, whole, pallas[1:]):
         torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
@@ -166,6 +190,24 @@ def test_tma_addressable_views():
     assert TF._strides(ok[3]) == (8 * 64, 64, 64)
 
 
+def test_tma_addressable_fp32_views():
+    """The same conditions for fp32, whose 16 bytes are 4 elements: the
+    fp32 backward kernels read through TMA too, so a view whose strides
+    are not multiples of 4 elements is copied and a fused projection's
+    k, v views are read in place."""
+    proj = torch.zeros(2, 77, 2 * 4 * 64)
+    ok = [proj.view(2, 77, 2, 4, 64)[:, :, 1],
+          torch.zeros(2, 8, 4, 68)[..., :64]]            # 272-byte rows
+    bad = [torch.zeros(2, 8, 4, 66)[..., :64],           # 264-byte rows
+           torch.zeros(2, 8, 4, 68)[..., 2:66]]          # base off by 8 B
+    for x in ok:
+        assert TF.tma_addressable(x) and TF._addressable(x) is x
+    for x in bad:
+        assert not TF.tma_addressable(x)
+        y = TF._addressable(x)
+        assert TF.tma_addressable(y) and torch.equal(y, x)
+
+
 @pytest.mark.parametrize("s,t", [(128, 128), (256, 77)])
 def test_bwd_reference_fp16_matches_pallas(s, t):
     rng = np.random.default_rng(s + t)
@@ -188,3 +230,63 @@ def test_bwd_reference_fp16_matches_pallas(s, t):
                                    atol=2e-3, rtol=2e-3,
                                    err_msg=f"d{name} vs Pallas")
 
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to nearest TF32, ties away from zero (``cvt.rna.tf32``),
+    by integer ops on its fp32 bits: add half of the 13 dropped bits, then
+    clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the fp32 kernels form it: each operand as hi = tf32(x) and
+    lo = tf32(x - hi), the two small products first, then hi @ hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _split_tf32_bwd(q, k, v, dout, lse, delta, scale, mm=_split_mm):
+    """(dq, dk, dv) of the fp32 kernels' arithmetic: every product of the
+    backward through ``mm``; P = exp(S * scale - lse) and dS in fp32."""
+    qh, kh, vh, oh = (x.transpose(1, 2) for x in (q, k, v, dout))
+    p = torch.exp(mm(qh, kh.transpose(-1, -2)) * scale - lse[..., None])
+    dp = mm(oh, vh.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    grads = (mm(ds, kh), mm(ds.transpose(-1, -2), qh),
+             mm(p.transpose(-1, -2), oh))
+    return [g.transpose(1, 2) for g in grads]
+
+
+@pytest.mark.parametrize("s,t,q_scale", [(128, 128, 1.0), (256, 77, 1.0),
+                                         (128, 128, 50.0)])
+def test_split_tf32_backward_matches_pallas(s, t, q_scale):
+    """The fp32 kernels' contract, emulated: products of split TF32
+    operands meet the Pallas backward (interpret mode) at the card's fp32
+    bars, 1e-4 of max |gradient| and atol 5e-5 / rtol 5e-4, including the
+    77-token kv edge; the same arithmetic with one TF32 part per operand
+    misses the first.  With q scaled by 50 (logits to ~214) the second bar
+    is fp32's alone: the split holds each operand to 2^-22 where fp32
+    holds 2^-24, and dk and dv land up to 7.8e-5 beyond atol / rtol of the
+    Pallas backward (7.2e-5 beyond those of a float64 backward, which the
+    plain fp32 backward meets); that case is held to the first bar."""
+    q, k, v, cot = _inputs(s, t, seed=s + t, q_scale=q_scale)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = _jax_grads(lambda *a: flash_attention(
+            *a, block_q=128, block_k=128), q, k, v, cot)
+    tq, tk, tv, tcot = map(torch.from_numpy, (q, k, v, cot))
+    out, lse = TF.flash_attention_fwd_reference(tq, tk, tv)
+    delta = TF.flash_attention_bwd_delta(out, tcot)
+    args = (tq, tk, tv, tcot, lse, delta, 64 ** -0.5)
+    ours = _split_tf32_bwd(*args)
+    one_part = _split_tf32_bwd(*args, mm=lambda a, b: _tf32(a) @ _tf32(b))
+    worst = 0.0
+    for name, a, a1, p in zip("qkv", ours, one_part, pallas):
+        p = np.asarray(p)
+        if q_scale == 1.0:
+            np.testing.assert_allclose(a.numpy(), p, atol=ATOL, rtol=RTOL,
+                                       err_msg=f"d{name} vs Pallas")
+        assert np.abs(a.numpy() - p).max() <= MAX_REL * np.abs(p).max(), name
+        worst = max(worst, np.abs(a1.numpy() - p).max() / np.abs(p).max())
+    assert worst > MAX_REL, worst

@@ -21,7 +21,8 @@ against the same step through the plain versions.  The other precisions:
 the fp16 instantiation of the backward kernels within 5e-3 (P and dS
 rounded to fp16, 8 times finer than bf16), the exact-fp32 kernels at the
 Pallas kernels' fp32 gradient bars (atol 5e-5, rtol 5e-4,
-``tests/test_flash_attention.py``), each bit-equal over two runs; and the
+``tests/test_flash_attention.py``; with logits to ~214, 1e-4 of max
+|plain|), the split dk/dv path of both, each bit-equal over two runs; and the
 fp32 tiny model's step at the settings of ``configs/ddpm_512_smoke.yaml``
 (plain ``adamw``) through the kernels against the plain versions.
 """
@@ -101,15 +102,25 @@ def test_flash_bwd_reads_strided_projections(cuda, t, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,t,h,d", [(4, 1024, 77, 20, 64),
-                                       (2, 1000, 77, 4, 128)])
-def test_flash_dkv_split_matches_plain_and_repeats(cuda, b, s, t, h, d):
+@pytest.mark.parametrize("b,s,t,h,d,dtype", [
+    pytest.param(4, 1024, 77, 20, 64, torch.bfloat16, id="4-1024-77-20-64"),
+    pytest.param(2, 1000, 77, 4, 128, torch.bfloat16, id="2-1000-77-4-128"),
+    pytest.param(4, 1024, 77, 20, 64, torch.float32,
+                 id="fp32-4-1024-77-20-64"),
+    pytest.param(2, 1000, 77, 4, 128, torch.float32,
+                 id="fp32-2-1000-77-4-128"),
+    pytest.param(1, 256, 256, 20, 64, torch.float32,
+                 id="fp32-1-256-256-20-64")])
+def test_flash_dkv_split_matches_plain_and_repeats(cuda, b, s, t, h, d,
+                                                   dtype):
     """The split dk/dv path (fp32 partials summed by the reduction kernel
     in split order, no atomics) against its plain version, and bit-equal
-    over two runs."""
-    splits, per = TF.plan_dkv_splits(b, h, s, t, d)
+    over two runs: bf16 within 2e-2 of max |plain|, fp32 at the Pallas
+    kernels' fp32 bars (atol 5e-5, rtol 5e-4)."""
+    splits, per = TF.plan_dkv_splits(b, h, s, t, d, dtype=dtype)
     assert splits > 1
-    q, k, v, out, lse, dout = _flash_inputs(b, s, t, h, d, seed=6)
+    q, k, v, out, lse, dout = _flash_inputs(b, s, t, h, d, seed=6,
+                                            dtype=dtype)
     scale = d ** -0.5
     delta = TF.flash_attention_bwd_delta(out, dout)
     args = (q, k, v, dout, lse, delta, scale)
@@ -119,6 +130,9 @@ def test_flash_dkv_split_matches_plain_and_repeats(cuda, b, s, t, h, d):
     torch.cuda.synchronize()
     for a, a2, r in zip(first, second, ref):
         assert torch.equal(a, a2)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, atol=5e-5, rtol=5e-4)
+            continue
         err = (a.float() - r.float()).abs().max() / r.float().abs().max()
         assert err.item() <= FLASH_BWD_TOL
 
@@ -374,24 +388,33 @@ def test_tiny_train_step_kernels_match_plain(cuda):
     assert den > 0 and (num / den).sqrt().item() <= 0.25
 
 
+_BWD_SHAPES = [(2, 1024, 1024, 4, 64), (1, 100, 77, 3, 16),
+               (1, 130, 200, 2, 16), (1, 130, 200, 2, 32),
+               (1, 130, 200, 2, 64), (1, 130, 200, 2, 128),
+               (1, 1000, 77, 2, 64), (2, 2048, 2048, 8, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
-@pytest.mark.parametrize("b,s,t,h,d", [(2, 1024, 1024, 4, 64),
-                                       (1, 100, 77, 3, 16),
-                                       (1, 130, 200, 2, 16),
-                                       (1, 130, 200, 2, 32),
-                                       (1, 130, 200, 2, 64),
-                                       (1, 130, 200, 2, 128),
-                                       (1, 1000, 77, 2, 64),
-                                       (2, 2048, 2048, 8, 64)])
+@pytest.mark.parametrize("dtype,b,s,t,h,d,q_scale", [
+    *((dt, *shape, 1.0) for dt in (torch.float16, torch.float32)
+      for shape in _BWD_SHAPES),
+    (torch.float32, 1, 256, 256, 2, 64, 50.0),
+    (torch.float32, 1, 1000, 77, 2, 64, 50.0)])
 def test_flash_bwd_fp16_fp32_match_plain_and_repeat(cuda, dtype, b, s, t,
-                                                    h, d):
+                                                    h, d, q_scale):
     """dq and dk/dv of the fp16 instantiation (the split dk/dv path at
     T = 77) and of the fp32 kernels: every head dim, ragged S and T; the
     gradients in the input's dtype, from that dtype's launchers, and
-    bit-equal over two runs."""
+    bit-equal over two runs.  The fp32 kernels multiply split TF32
+    operands (2^-22 an operand against fp32's 2^-24): with q scaled by 50
+    (logits to ~214) that contract misses atol / rtol on dk and dv, as its
+    CPU emulation shows (``tests/test_torch_flash_bwd.py``), so those cases
+    are held to ``chip_smoke.FLASH_BWD_TOL[fp32]``, 1e-4 of max |plain|."""
     q, k, v, out, lse, dout = _flash_inputs(b, s, t, h, d, seed=7,
                                             dtype=dtype)
+    if q_scale != 1.0:
+        q = q * q_scale
+        out, lse = TF.flash_attention_fwd_cuda(q, k, v)
     before = [TF.LAUNCHERS[kind][dtype].launches for kind in ("dq", "dkv")]
     got = TF.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
     again = TF.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
@@ -401,7 +424,9 @@ def test_flash_bwd_fp16_fp32_match_plain_and_repeat(cuda, dtype, b, s, t,
             for kind in ("dq", "dkv")] == [n + 2 for n in before]
     for a, a2, r in zip(got, again, ref):
         assert a.dtype == dtype and torch.equal(a, a2)
-        if dtype == torch.float32:
+        if q_scale != 1.0:
+            assert (a - r).abs().max() <= 1e-4 * r.abs().max()
+        elif dtype == torch.float32:
             torch.testing.assert_close(a, r, atol=5e-5, rtol=5e-4)
         else:
             err = (a.float() - r.float()).abs().max() / r.float().abs().max()
