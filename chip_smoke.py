@@ -21,9 +21,9 @@ Phases, each printing what it found:
    (``torch.equal`` to plain) and the startup probe; the flash kernels of
    the other precisions, fp16 (the Hopper kernels' second instantiation)
    and fp32 (``csrc/flash_f32.cu`` forward, ``csrc/flash_bwd_f32.cu``
-   backward), at the four serving sites and, for the backward, at B4
-   S=T=4096 too, and for fp32 at B4 S=4096 T=77 and at phase 9's four
-   sites (b1); beside each, its bound
+   backward, both split-TF32 wgmma), at the four serving sites and, for
+   the backward, at B4 S=T=4096 too, and for fp32 at phase 9's four sites
+   (b1; the backward also at B4 S=4096 T=77); beside each, its bound
    (``bound_ms``: the larger of its flops over the card's peak for its
    type and its bytes over 3.35 TB/s) and, as a yardstick the port never
    calls, one PyTorch call computing the same function where there is one
@@ -109,11 +109,13 @@ FLASH_SITES = ((2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64),
 # b4 training step's S=T=4096 site too
 FLASH_DTYPES = (torch.float16, torch.float32)
 FLASH_BWD_SITES = FLASH_SITES + ((4, 4096, 4096, 10, 64),)
-# fp32 also at the b4 T = 77 site and at phase 9's (b1 512^2: 10 blocks at
-# 32^2 latents, 60 at 16^2, each a self- and a cross-attention)
-F32_BWD_SITES = FLASH_BWD_SITES + (
-    (4, 4096, 77, 10, 64), (1, 1024, 1024, 10, 64), (1, 256, 256, 20, 64),
-    (1, 1024, 77, 10, 64), (1, 256, 77, 20, 64))
+# phase 9's sites (b1 512^2: 10 blocks at 32^2 latents, 60 at 16^2, each a
+# self- and a cross-attention), where the fp32 kernels run on the main path
+PHASE9_SITES = ((1, 1024, 1024, 10, 64), (1, 256, 256, 20, 64),
+                (1, 1024, 77, 10, 64), (1, 256, 77, 20, 64))
+F32_FWD_SITES = FLASH_SITES + PHASE9_SITES
+# the fp32 backward also at the b4 T = 77 site
+F32_BWD_SITES = FLASH_BWD_SITES + ((4, 4096, 77, 10, 64),) + PHASE9_SITES
 FLASH_BWD_SHAPES = (  # (B, S, T, heads, D): the b4 training step's sites
     (4, 4096, 4096, 10, 64),
     (4, 1024, 1024, 20, 64),
@@ -695,8 +697,10 @@ def phase_kernels() -> dict:
         adamw=[_adamw_case(*case, gen) for case in ADAMW_SHAPES],
         probe=_probe_case())
     for dt in FLASH_DTYPES:
-        res["flash" + SUFFIX[dt]] = [_flash_case(*shape, gen, dtype=dt)
-                                     for shape in FLASH_SITES]
+        res["flash" + SUFFIX[dt]] = [
+            _flash_case(*shape, gen, dtype=dt)
+            for shape in (F32_FWD_SITES if dt == torch.float32
+                          else FLASH_SITES)]
         res["flash_bwd" + SUFFIX[dt]] = [
             _flash_bwd_case(*shape, gen, dtype=dt)
             for shape in (F32_BWD_SITES if dt == torch.float32
@@ -1338,12 +1342,14 @@ def kernel_report(k: dict, launches: dict) -> dict:
                                "flash_bwd_dq" + sfx: bwd["library_dev"],
                                "flash_bwd_dkv" + sfx: bwd["library_dev"]})
         # every site measured, for the forward at the serving step's sites
+        # (fp32: and phase 9's)
+        sites = F32_FWD_SITES if dt == torch.float32 else FLASH_SITES
         extra["flash_fwd" + sfx] = {"sites": [
             {"at": _site(r["shape"]), "ms": r["ms"], "device_ms": r["dev"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
              "library_device_ms": r["library_dev"]}
-            for r in fwd_rows if r["shape"] in FLASH_SITES]}
+            for r in fwd_rows if r["shape"] in sites]}
         if dt != torch.bfloat16:
             for name in ("dq", "dkv"):
                 extra[f"flash_bwd_{name}{sfx}"] = {"sites": [

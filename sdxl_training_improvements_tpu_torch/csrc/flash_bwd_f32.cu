@@ -28,7 +28,8 @@
 // 495 / 3 = 165 TFLOP/s of fp32-accurate products (1.56 and 2.08 ms at B4
 // S=T=4096 H10 D64); the O((S + T) * D) bytes are far below that.
 //
-// Design, the warp-specialised shape of flash_bwd.cu:
+// Design, the warp-specialised shape of flash_bwd.cu (the pieces shared
+// with the fp32 forward are in flash_f32_common.cuh):
 //
 // * three warpgroups a block: two consumers of 64 own rows each (q rows for
 //   dq, kv rows for dk/dv) that keep their fp32 gradient sums in registers,
@@ -81,247 +82,62 @@
 // launches (or hopper::kEncodeError + the CUresult of a tensor map it cannot
 // build).
 
-#include "hopper.cuh"
+#include "flash_f32_common.cuh"
 
 namespace {
 
-using namespace hopper;
+using namespace flash_f32;
 
-constexpr int kOwn = 128;       // own rows a block, 64 per consumer
-constexpr int kThreads = 384;   // 2 consumer warpgroups + the producer's
-constexpr int kSplitters = 96;  // the producer's warps 1-3
-constexpr int kSmemLimit = 232448;
+// dq (kDkv false) and dk/dv: kStream streamed rows (32, 16 at D = 128);
+// per stage A, B raw then hi | A lo, B lo | A^T hi, A^T lo (| B^T hi,
+// B^T lo for dk/dv); A = k, B = v for dq, A = q, B = dO for dk/dv; the
+// dk/dv kernel's lse and Delta of the streamed q rows; the gradient
+// products kN columns wide (32 at D = 128, where the consumers hold
+// 2 x 128 gradient sums, keeps their registers unspilled).
+constexpr int stream_rows(int d) { return d <= 64 ? 32 : 16; }
 
 template <int D, bool kDkv>
-struct Cfg {
-  // natural tiles ([rows][D] as TMA lands them): chunks of kNat columns,
-  // each row of a chunk 4 * kNat bytes (128, or 64 at D = 16), swizzled
-  static constexpr int kNat = D < 32 ? D : 32;
-  static constexpr int kNatRow = 4 * kNat;
-  static constexpr int kChunks = D / kNat;
-  // streamed rows: the score products' N and the gradient products' K
-  static constexpr int kStream = D <= 64 ? 32 : 16;
-  // transposed tiles [D][kStream]: one chunk of 4 * kStream-byte rows
-  static constexpr int kTRow = 4 * kStream;
-  // columns of one gradient product (its wgmma N; 32 at D = 128, where the
-  // consumers hold 2 x 128 gradient sums, keeps their registers unspilled)
-  static constexpr int kN = D <= 64 ? D : 32;
-  static constexpr int kOwnBytes = kOwn * D * 4;
-  static constexpr int kTile = kStream * D * 4;
-  // per stage: A, B raw then hi | A lo, B lo | A^T hi, A^T lo (| B^T hi,
-  // B^T lo for dk/dv); A = k, B = v for dq, A = q, B = dO for dk/dv
-  static constexpr int kTiles = kDkv ? 8 : 6;
-  static constexpr int kStageBytes = kTiles * kTile;
-  // lse and Delta of the streamed q rows (dk/dv), per stage
-  static constexpr int kRowsBytes = kDkv ? 2 * kStream * 4 : 0;
-  static constexpr int kFixed = 2 * kOwnBytes + 8 * (1 + 3 * 3) + 1024;
-  static constexpr int kFit =
-      (kSmemLimit - kFixed) / (kStageBytes + kRowsBytes);
-  static constexpr int kStages = kFit < 3 ? kFit : 3;
-  static_assert(kStages >= 1, "one stage of tiles exceeds shared memory");
-  static constexpr int kRowsOffset = 2 * kOwnBytes + kStages * kStageBytes;
-  static constexpr int kBarOffset = kRowsOffset + kStages * kRowsBytes;
-  static constexpr int kSmem = kBarOffset + 8 * (1 + 3 * kStages) + 1024;
-  static_assert(kSmem <= kSmemLimit, "tiles exceed shared memory");
-  static_assert(kTile % 1024 == 0 && kOwnBytes % 1024 == 0,
-                "tiles must start on the swizzle atom");
+struct Cfg : Geometry<D, stream_rows(D), 2, kDkv ? 8 : 6,
+                      kDkv ? 2 * stream_rows(D) * 4 : 0, D <= 64 ? D : 32,
+                      1> {
+  __host__ __device__ static constexpr bool natural(int) { return true; }
+  __host__ __device__ static constexpr int lo_slot(int x) { return 2 + x; }
+  __host__ __device__ static constexpr bool transposed(int x) {
+    return x == 0 || kDkv;
+  }
+  __host__ __device__ static constexpr int t_slot(int x) { return 4 + 2 * x; }
 };
 
 struct Strides {  // (batch, seq, head) element strides
   int64_t q[3], k[3], v[3], dO[3], dq[3], dk[3], dv[3];
 };
 
-// One block's shared memory, aligned to the 1024-byte swizzle atom, and its
-// barriers initialised.
-template <int D, bool kDkv>
-struct Smem {
-  using C = Cfg<D, kDkv>;
-  unsigned char* generic;  // the aligned base as a generic pointer
-  uint32_t base;
-
-  __device__ __forceinline__ Smem(unsigned char* raw) {
-    const uint32_t r = smem_u32(raw);
-    base = (r + 1023) & ~1023u;
-    generic = raw + (base - r);
-    if (threadIdx.x == 0) {
-      mbar_init(own_full(), 1);
-      for (int i = 0; i < C::kStages; ++i) {
-        mbar_init(raw_full(i), 1);
-        mbar_init(split_full(i), kSplitters);
-        mbar_init(empty(i), 2 * 128);
-      }
-      fence_barrier_init();
-    }
-    __syncthreads();
-  }
-  __device__ __forceinline__ uint32_t own(int i) const {
-    return base + i * C::kOwnBytes;
-  }
-  __device__ __forceinline__ uint32_t tile(int st, int i) const {
-    return base + 2 * C::kOwnBytes + st * C::kStageBytes + i * C::kTile;
-  }
-  template <typename T>
-  __device__ __forceinline__ T* at(uint32_t addr) const {
-    return reinterpret_cast<T*>(generic + (addr - base));
-  }
-  __device__ __forceinline__ float* lse(int st) const {
-    return reinterpret_cast<float*>(generic + C::kRowsOffset +
-                                    st * C::kRowsBytes);
-  }
-  __device__ __forceinline__ float* delta(int st) const {
-    return lse(st) + C::kStream;
-  }
-  __device__ __forceinline__ uint32_t own_full() const {
-    return base + C::kBarOffset;
-  }
-  __device__ __forceinline__ uint32_t raw_full(int st) const {
-    return own_full() + 8 * (1 + st);
-  }
-  __device__ __forceinline__ uint32_t split_full(int st) const {
-    return own_full() + 8 * (1 + C::kStages + st);
-  }
-  __device__ __forceinline__ uint32_t empty(int st) const {
-    return own_full() + 8 * (1 + 2 * C::kStages + st);
-  }
-};
-
-// Byte offset of element (r, d) in a natural tile of `rows` rows.
-template <int D, bool kDkv, int ROWS>
-__device__ __forceinline__ uint32_t nat_offset(int r, int d) {
-  using C = Cfg<D, kDkv>;
-  return (d / C::kNat) * ROWS * C::kNatRow +
-         swizzled<C::kNatRow / 2>(r, (d % C::kNat) * 4);
-}
-
-// Load the block's own rows [r0, r0 + 128) of two tensors.
-template <int D, bool kDkv>
-__device__ __forceinline__ void load_own(const Smem<D, kDkv>& sm,
-                                         const CUtensorMap* a,
-                                         const CUtensorMap* b, int h, int r0,
-                                         int bb) {
-  using C = Cfg<D, kDkv>;
-  mbar_arrive_expect_tx(sm.own_full(), 2 * C::kOwnBytes);
-#pragma unroll
-  for (int c = 0; c < C::kChunks; ++c) {
-    tma_load_4d(sm.own(0) + c * kOwn * C::kNatRow, a, sm.own_full(),
-                c * C::kNat, h, r0, bb);
-    tma_load_4d(sm.own(1) + c * kOwn * C::kNatRow, b, sm.own_full(),
-                c * C::kNat, h, r0, bb);
-  }
-}
-
-// Load the streamed rows [r0, r0 + kStream) of two tensors into stage st.
-template <int D, bool kDkv>
-__device__ __forceinline__ void load_stream(const Smem<D, kDkv>& sm, int st,
-                                            const CUtensorMap* a,
-                                            const CUtensorMap* b, int h,
-                                            int r0, int bb) {
-  using C = Cfg<D, kDkv>;
-  mbar_arrive_expect_tx(sm.raw_full(st), 2 * C::kTile);
-#pragma unroll
-  for (int c = 0; c < C::kChunks; ++c) {
-    tma_load_4d(sm.tile(st, 0) + c * C::kStream * C::kNatRow, a,
-                sm.raw_full(st), c * C::kNat, h, r0, bb);
-    tma_load_4d(sm.tile(st, 1) + c * C::kStream * C::kNatRow, b,
-                sm.raw_full(st), c * C::kNat, h, r0, bb);
-  }
-}
-
-// The splitting pass over stage st, by the 96 threads u of warps 1-3: each
-// raw tile (A, B) in place to its hi part, its lo part beside it, and A
-// (and for dk/dv B) transposed, hi and lo, in the order of the A fragments
-// (the note at the top).  A warp takes 4 columns of kStream rows at a time:
-// 16-byte loads and stores of the natural tiles, one transposed row a
-// store, both free of bank conflicts.
-template <int D, bool kDkv>
-__device__ __forceinline__ void split_stage(const Smem<D, kDkv>& sm, int st,
-                                            int u) {
-  using C = Cfg<D, kDkv>;
-  constexpr int kUnits = C::kStream * D / 4;  // float4s in a tile
-  for (int i = u; i < 2 * kUnits; i += kSplitters) {
-    const int x = i / kUnits;  // 0: A, 1: B
-    const int unit = i - x * kUnits;
-    const int r = unit % C::kStream;
-    const int d = (unit / C::kStream) * 4;
-    const uint32_t off = nat_offset<D, kDkv, C::kStream>(r, d);
-    float4* hi_p = sm.template at<float4>(sm.tile(st, x) + off);
-    const float4 raw = *hi_p;
-    const float vals[4] = {raw.x, raw.y, raw.z, raw.w};
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Tf32::split(vals[j], hi[j], lo[j]);
-    *reinterpret_cast<uint4*>(hi_p) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *sm.template at<uint4>(sm.tile(st, 2 + x) + off) =
-        make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    if (x == 0 || kDkv) {
-      // column of streamed row r in the transposed tiles
-      const int p = (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t t_off = swizzled<C::kTRow / 2>(d + j, p * 4);
-        *sm.template at<uint32_t>(sm.tile(st, 4 + 2 * x) + t_off) = hi[j];
-        *sm.template at<uint32_t>(sm.tile(st, 5 + 2 * x) + t_off) = lo[j];
-      }
-    }
-  }
-}
-
-// The split A fragment of k step kk of the consumer's rows (row, row + 8)
-// in an own tile: columns 8 kk + t and 8 kk + t + 4.
-template <int D, bool kDkv>
-__device__ __forceinline__ void own_fragment(const Smem<D, kDkv>& sm,
-                                             uint32_t tile, int row, int kk,
-                                             int t, uint32_t (&hi)[4],
-                                             uint32_t (&lo)[4]) {
-  const int col = 8 * kk + t;
-  const float* p = sm.template at<float>(tile);
-  const float a[4] = {
-      p[nat_offset<D, kDkv, kOwn>(row, col) / 4],
-      p[nat_offset<D, kDkv, kOwn>(row + 8, col) / 4],
-      p[nat_offset<D, kDkv, kOwn>(row, col + 4) / 4],
-      p[nat_offset<D, kDkv, kOwn>(row + 8, col + 4) / 4]};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) Tf32::split(a[j], hi[j], lo[j]);
-}
-
-// Descriptor of k step kk of a natural streamed tile (the B operand of a
-// score product: kStream rows, K = D).
-template <int D, bool kDkv>
-__device__ __forceinline__ uint64_t nat_desc(uint32_t tile, int kk) {
-  using C = Cfg<D, kDkv>;
-  constexpr int kSteps = C::kNat / 8;  // k steps in a chunk row
-  return desc_k<C::kNatRow / 2>(tile + (kk / kSteps) * C::kStream *
-                                           C::kNatRow +
-                                (kk % kSteps) * 32);
-}
-
 // S = A B^T and P = A' B'^T over D (64 x kStream each): A, A' the
 // consumer's own rows (split fragments from an own tile), B, B' natural
 // streamed tiles as their hi and lo parts; each k step's small products
 // before its hi * hi, one k step's fragments loaded while the last one's
 // products run.  Returns with the products complete.
-template <int D, bool kDkv>
+template <class C>
 __device__ __forceinline__ void scores2(
-    const Smem<D, kDkv>& sm, int row, int t,
-    float (&s)[Cfg<D, kDkv>::kStream / 2], uint32_t own_s, uint32_t s_hi,
-    uint32_t s_lo, float (&p)[Cfg<D, kDkv>::kStream / 2], uint32_t own_p,
-    uint32_t p_hi, uint32_t p_lo) {
-  constexpr int kStream = Cfg<D, kDkv>::kStream;
+    const Smem<C>& sm, int row, int t, float (&s)[C::kStream / 2],
+    uint32_t own_s, uint32_t s_hi, uint32_t s_lo, float (&p)[C::kStream / 2],
+    uint32_t own_p, uint32_t p_hi, uint32_t p_lo) {
+  constexpr int kStream = C::kStream;
 #pragma unroll
   for (int i = 0; i < kStream / 2; ++i) s[i] = p[i] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
+  for (int kk = 0; kk < C::D / 8; ++kk) {
     uint32_t sh[4], sl[4], ph[4], pl[4];
-    own_fragment<D, kDkv>(sm, own_s, row, kk, t, sh, sl);
-    own_fragment<D, kDkv>(sm, own_p, row, kk, t, ph, pl);
-    const uint64_t bsh = nat_desc<D, kDkv>(s_hi, kk);
-    const uint64_t bph = nat_desc<D, kDkv>(p_hi, kk);
+    own_fragment<C>(sm, own_s, row, kk, t, sh, sl);
+    own_fragment<C>(sm, own_p, row, kk, t, ph, pl);
+    const uint64_t bsh = nat_desc<C>(s_hi, kk);
+    const uint64_t bph = nat_desc<C>(p_hi, kk);
     wgmma_fence();
     wgmma_rs<Tf32, kStream>(s, sl, bsh);
-    wgmma_rs<Tf32, kStream>(s, sh, nat_desc<D, kDkv>(s_lo, kk));
+    wgmma_rs<Tf32, kStream>(s, sh, nat_desc<C>(s_lo, kk));
     wgmma_rs<Tf32, kStream>(s, sh, bsh);
     wgmma_rs<Tf32, kStream>(p, pl, bph);
-    wgmma_rs<Tf32, kStream>(p, ph, nat_desc<D, kDkv>(p_lo, kk));
+    wgmma_rs<Tf32, kStream>(p, ph, nat_desc<C>(p_lo, kk));
     wgmma_rs<Tf32, kStream>(p, ph, bph);
     wgmma_commit();
     wgmma_wait<1>();
@@ -331,84 +147,23 @@ __device__ __forceinline__ void scores2(
   fence_operands(p);
 }
 
-// A fragments (hi, lo) of k steps of the values v on the accumulator layout:
-// k step n takes accumulator columns 8n + 2t, 8n + 2t + 1 as its columns t,
-// t + 4, the order of the transposed tiles' rows.
-template <int N>
-__device__ __forceinline__ void acc_fragments(const float (&v)[N / 2],
-                                              uint32_t (&hi)[N / 8][4],
-                                              uint32_t (&lo)[N / 8][4]) {
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n) {
-    Tf32::split(v[4 * n + 0], hi[n][0], lo[n][0]);
-    Tf32::split(v[4 * n + 2], hi[n][1], lo[n][1]);
-    Tf32::split(v[4 * n + 1], hi[n][2], lo[n][2]);
-    Tf32::split(v[4 * n + 3], hi[n][3], lo[n][3]);
-  }
-}
-
-// acc[64 x kN] += X B over the streamed rows: X as split A fragments, B
-// columns [c kN, c kN + kN) of a transposed tile (hi and lo).  The products
-// go into a fresh accumulator, the small ones of every k step first, which
-// is added to acc by FADD.
-template <int D, bool kDkv>
+// acc[64 x kN] += X B over the streamed rows (issue_over_stream), through
+// a fresh accumulator added by FADD.
+template <class C>
 __device__ __forceinline__ void gradient(
-    float (&acc)[Cfg<D, kDkv>::kN / 2],
-    const uint32_t (&xh)[Cfg<D, kDkv>::kStream / 8][4],
-    const uint32_t (&xl)[Cfg<D, kDkv>::kStream / 8][4], uint32_t t_hi,
-    uint32_t t_lo, int c) {
-  using C = Cfg<D, kDkv>;
+    float (&acc)[C::kN / 2], const uint32_t (&xh)[C::kStream / 8][4],
+    const uint32_t (&xl)[C::kStream / 8][4], uint32_t t_hi, uint32_t t_lo,
+    int c) {
   float part[C::kN / 2];
-#pragma unroll
-  for (int i = 0; i < C::kN / 2; ++i) part[i] = 0.f;
-  const uint32_t rows = c * C::kN * C::kTRow;
-  wgmma_fence();
-#pragma unroll
-  for (int n = 0; n < C::kStream / 8; ++n) {
-    wgmma_rs<Tf32, C::kN>(part, xl[n],
-                          desc_k<C::kTRow / 2>(t_hi + rows + n * 32));
-    wgmma_rs<Tf32, C::kN>(part, xh[n],
-                          desc_k<C::kTRow / 2>(t_lo + rows + n * 32));
-  }
-#pragma unroll
-  for (int n = 0; n < C::kStream / 8; ++n) {
-    wgmma_rs<Tf32, C::kN>(part, xh[n],
-                          desc_k<C::kTRow / 2>(t_hi + rows + n * 32));
-  }
-  wgmma_commit();
+  issue_over_stream<C>(part, xh, xl, t_hi, t_lo, c);
   wgmma_wait<0>();
   fence_operands(part);
 #pragma unroll
   for (int i = 0; i < C::kN / 2; ++i) acc[i] += part[i];
 }
 
-// Store rows r0 and r0 + 8 (< n) of the accumulators [64 x D] at `base`
-// (row stride `row_stride` floats).
-template <int D, bool kDkv>
-__device__ __forceinline__ void store_rows(
-    float* base, int64_t row_stride,
-    const float (&acc)[D / Cfg<D, kDkv>::kN][Cfg<D, kDkv>::kN / 2], int r0,
-    int n, int t) {
-  constexpr int kN = Cfg<D, kDkv>::kN;
-#pragma unroll
-  for (int c = 0; c < D / kN; ++c) {
-#pragma unroll
-    for (int j = 0; j < kN / 8; ++j) {
-      const int col = c * kN + 8 * j + 2 * t;
-      if (r0 < n) {
-        *reinterpret_cast<float2*>(base + r0 * row_stride + col) =
-            make_float2(acc[c][4 * j], acc[c][4 * j + 1]);
-      }
-      if (r0 + 8 < n) {
-        *reinterpret_cast<float2*>(base + (r0 + 8) * row_stride + col) =
-            make_float2(acc[c][4 * j + 2], acc[c][4 * j + 3]);
-      }
-    }
-  }
-}
-
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<D, false>::kThreads, 1)
 flash_f32_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap do_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -420,7 +175,7 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap q_map,
   using C = Cfg<D, false>;
   constexpr int kStream = C::kStream;
   extern __shared__ unsigned char smem_raw[];
-  const Smem<D, false> sm(smem_raw);
+  const Smem<C> sm(smem_raw);
   const int m0 = blockIdx.x * kOwn;
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -432,17 +187,17 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     setmaxnreg_dec<40>();
     const int u = threadIdx.x - 256;
     if (u == 0) {
-      load_own<D, false>(sm, &q_map, &do_map, h, m0, b);
+      load_own<C>(sm, &q_map, &do_map, h, m0, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % C::kStages;
         mbar_wait(sm.empty(st), ((j / C::kStages) & 1) ^ 1);
-        load_stream<D, false>(sm, st, &k_map, &v_map, h, j * kStream, b);
+        load_stream<C>(sm, st, &k_map, &v_map, h, j * kStream, b);
       }
     } else if (u >= 32) {
       for (int j = 0; j < n_tiles; ++j) {
         const int st = j % C::kStages;
         mbar_wait(sm.raw_full(st), (j / C::kStages) & 1);
-        split_stage<D, false>(sm, st, u - 32);
+        split_stage<C>(sm, st, u - 32);
         fence_proxy_async();
         mbar_arrive(sm.split_full(st));
       }
@@ -476,7 +231,7 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       const int st = j % C::kStages;
       mbar_wait(sm.split_full(st), (j / C::kStages) & 1);
       // S = q k^T, dP = dO v^T
-      scores2<D, false>(sm, row, t, s, sm.own(0), sm.tile(st, 0),
+      scores2<C>(sm, row, t, s, sm.own(0), sm.tile(st, 0),
                         sm.tile(st, 2), dp, sm.own(1), sm.tile(st, 1),
                         sm.tile(st, 3));
       // s[4 n + e]: row r0 (e < 2) or r1, kv column n0 + 8 n + 2 t + e % 2
@@ -497,17 +252,17 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_operands(dsl);
 #pragma unroll
       for (int c = 0; c < D / C::kN; ++c) {  // dq += dS k
-        gradient<D, false>(acc[c], dsh, dsl, sm.tile(st, 4), sm.tile(st, 5),
+        gradient<C>(acc[c], dsh, dsl, sm.tile(st, 4), sm.tile(st, 5),
                            c);
       }
       mbar_arrive(sm.empty(st));
     }
-    store_rows<D, false>(dq + b * dq_sb + h * dq_sh, dq_ss, acc, r0, S, t);
+    store_rows<C>(dq + b * dq_sb + h * dq_sh, dq_ss, acc, r0, S, t);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<D, true>::kThreads, 1)
 flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map,
                      const __grid_constant__ CUtensorMap q_map,
@@ -521,7 +276,7 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
   using C = Cfg<D, true>;
   constexpr int kStream = C::kStream;
   extern __shared__ unsigned char smem_raw[];
-  const Smem<D, true> sm(smem_raw);
+  const Smem<C> sm(smem_raw);
   const int n0 = blockIdx.x * kOwn;
   const int bh = blockIdx.y;
   const int b = bh / H;
@@ -535,11 +290,11 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
     setmaxnreg_dec<40>();
     const int u = threadIdx.x - 256;
     if (u == 0) {
-      load_own<D, true>(sm, &k_map, &v_map, h, n0, b);
+      load_own<C>(sm, &k_map, &v_map, h, n0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % C::kStages;
         mbar_wait(sm.empty(s), ((i / C::kStages) & 1) ^ 1);
-        load_stream<D, true>(sm, s, &q_map, &do_map, h,
+        load_stream<C>(sm, s, &q_map, &do_map, h,
                              (first + i) * kStream, b);
       }
     } else if (u >= 32) {
@@ -548,7 +303,7 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
         const int s = i % C::kStages;
         const int m = (first + i) * kStream;
         mbar_wait(sm.raw_full(s), (i / C::kStages) & 1);
-        split_stage<D, true>(sm, s, u - 32);
+        split_stage<C>(sm, s, u - 32);
         // q rows >= S: lse = +inf, so P = expf(-inf) = 0 there
         if (u - 32 < kStream) {
           const int r = u - 32;
@@ -582,7 +337,7 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
       const int s_ = i % C::kStages;
       mbar_wait(sm.split_full(s_), (i / C::kStages) & 1);
       // S^T = k q^T, dP^T = v dO^T
-      scores2<D, true>(sm, row, t, s, sm.own(0), sm.tile(s_, 0),
+      scores2<C>(sm, row, t, s, sm.own(0), sm.tile(s_, 0),
                        sm.tile(s_, 2), dp, sm.own(1), sm.tile(s_, 1),
                        sm.tile(s_, 3));
       // s[4 n + e]: kv row (e < 2) or row + 8, q column 8 n + 2 t + e % 2
@@ -611,9 +366,9 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
 #pragma unroll
       for (int c = 0; c < D / C::kN; ++c) {
         // dv += P^T dO, dk += dS^T q
-        gradient<D, true>(dv_acc[c], ph, pl, sm.tile(s_, 6), sm.tile(s_, 7),
+        gradient<C>(dv_acc[c], ph, pl, sm.tile(s_, 6), sm.tile(s_, 7),
                           c);
-        gradient<D, true>(dk_acc[c], dsh, dsl, sm.tile(s_, 4),
+        gradient<C>(dk_acc[c], dsh, dsl, sm.tile(s_, 4),
                           sm.tile(s_, 5), c);
       }
       mbar_arrive(sm.empty(s_));
@@ -622,12 +377,12 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
     if (dk_part != nullptr) {
       const int64_t part =
           (static_cast<int64_t>(blockIdx.z) * gridDim.y + bh) * T * D;
-      store_rows<D, true>(dk_part + part, D, dk_acc, r0, T, t);
-      store_rows<D, true>(dv_part + part, D, dv_acc, r0, T, t);
+      store_rows<C>(dk_part + part, D, dk_acc, r0, T, t);
+      store_rows<C>(dv_part + part, D, dv_acc, r0, T, t);
     } else {
-      store_rows<D, true>(dk + b * st.dk[0] + h * st.dk[2], st.dk[1], dk_acc,
+      store_rows<C>(dk + b * st.dk[0] + h * st.dk[2], st.dk[1], dk_acc,
                           r0, T, t);
-      store_rows<D, true>(dv + b * st.dv[0] + h * st.dv[2], st.dv[1], dv_acc,
+      store_rows<C>(dv + b * st.dv[0] + h * st.dv[2], st.dv[1], dv_acc,
                           r0, T, t);
     }
   }
@@ -682,21 +437,10 @@ int make_maps(CUtensorMap* q_map, CUtensorMap* do_map, CUtensorMap* k_map,
               CUtensorMap* v_map, const void* q, const void* k, const void* v,
               const void* dO, int B, int H, int S, int T, const Strides& st,
               int q_rows, int kv_rows) {
-  constexpr int kNat = Cfg<D, false>::kNat;
-  int rc = make_map<Tf32, kNat>(q_map, q, B, S, H, D, st.q[0], st.q[1],
-                                st.q[2], q_rows);
-  if (rc == 0) {
-    rc = make_map<Tf32, kNat>(do_map, dO, B, S, H, D, st.dO[0], st.dO[1],
-                              st.dO[2], q_rows);
-  }
-  if (rc == 0) {
-    rc = make_map<Tf32, kNat>(k_map, k, B, T, H, D, st.k[0], st.k[1],
-                              st.k[2], kv_rows);
-  }
-  if (rc == 0) {
-    rc = make_map<Tf32, kNat>(v_map, v, B, T, H, D, st.v[0], st.v[1],
-                              st.v[2], kv_rows);
-  }
+  int rc = make_f32_map<D>(q_map, q, B, S, H, st.q, q_rows);
+  if (rc == 0) rc = make_f32_map<D>(do_map, dO, B, S, H, st.dO, q_rows);
+  if (rc == 0) rc = make_f32_map<D>(k_map, k, B, T, H, st.k, kv_rows);
+  if (rc == 0) rc = make_f32_map<D>(v_map, v, B, T, H, st.v, kv_rows);
   return rc;
 }
 
@@ -714,7 +458,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dO,
   cudaError_t e = allow_smem(flash_f32_dq_kernel<D>, C::kSmem, smem_allowed);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((S + kOwn - 1) / kOwn, B * H);
-  flash_f32_dq_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
+  flash_f32_dq_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       q_map, do_map, k_map, v_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq), H, S, T,
       st.dq[0], st.dq[1], st.dq[2], scale);
@@ -737,7 +481,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
   if (e != cudaSuccess) return static_cast<int>(e);
   const bool split = splits > 1;
   dim3 grid((T + kOwn - 1) / kOwn, B * H, splits);
-  flash_f32_dkv_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
+  flash_f32_dkv_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       k_map, v_map, q_map, do_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk),
       static_cast<float*>(dv), split ? static_cast<float*>(dk_part) : nullptr,

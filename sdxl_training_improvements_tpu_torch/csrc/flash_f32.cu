@@ -1,293 +1,268 @@
-// Flash-attention forward in exact fp32 for Hopper (sm_90a): the forward of
-// an fp32 UNet (training.mixed_precision = "no").  Its backward, dq and
-// dk/dv, is flash_bwd_f32.cu (TF32 wgmma on split operands).
+// Flash-attention forward in fp32 for Hopper (sm_90a), on the tensor cores:
+// fp32 q, k, v in, fp32 out and lse = m + log l (training.mixed_precision =
+// "no").  Its backward, dq and dk/dv, is flash_bwd_f32.cu; the two share
+// their tiles, splitting pass and products (flash_f32_common.cuh).
 //
 // Replaces the Pallas kernel `_fwd_kernel` of
 // sdxl_training_improvements_tpu/ops/flash_attention.py for fp32 inputs,
 // where it multiplies in fp32 (`preferred_element_type` with fp32
-// operands).  Every product here is an FFMA on the fp32 units.
+// operands): a block per (128-row q tile, batch*head), looping over the kv
+// tiles with an online softmax, as the Pallas kernel loops.
 //
-// Bound: 4*S*T*D flops over the card's 67 TFLOP/s of fp32 outside the
-// tensor cores (1.28 ms at B2 S=T=4096 H10); at the 165 TFLOP/s of
-// split-TF32 products the backward runs at, 0.52 ms.
+// Split TF32.  wgmma has no fp32 operands, and TF32 keeps 10 mantissa bits.
+// Every operand enters as two TF32 parts, hi = rna(x) and lo = rna(x - hi)
+// (hopper.cuh: Tf32), and every product as three TF32 products into one
+// accumulator, the two small ones first: lo_a hi_b, hi_a lo_b, hi_a hi_b,
+// about 2^-21 of relative accuracy against fp32's 2^-24.  S's absolute
+// error becomes P's relative error through exp(S * scale - m).
 //
-// Design, simple and right first:
+// Bound: 4*S*T*D flops at three TF32 products each, 495 / 3 = 165 TFLOP/s
+// of fp32-accurate products (0.52 ms at B2 S=T=4096 H10 D64); at T = 77
+// the bytes of q and out bound it instead.
 //
-// * one block of 256 threads per (64-row q tile, batch*head), a loop over
-//   the 64-row kv tiles, as the Pallas kernel loops;
-// * every tile is staged in shared memory as fp32 rows padded to D + 4
-//   floats, so the 16-byte row reads of a quarter-warp fall in distinct
-//   banks; rows beyond S or T are zeros;
-// * thread (ty, tx) of a 16 x 16 grid computes the 4 x 4 scores of q
-//   rows 4 ty + i and kv rows tx + 16 j, FFMA over the head dim in
-//   order; the 16 threads sharing q rows form a half-warp and reduce a
-//   row by shuffles;
-// * P goes through a shared [64][68] tile to the P V product, where the
-//   thread owns 4 rows and D / 16 adjacent columns of the 64 x D
-//   accumulator, summed over the kv rows in order;
-// * the online softmax uses the accurate expf; lse is [B, H, S] fp32, as
-//   the 16-bit kernel writes it;
-// * no atomics: every sum runs in a fixed order, so two launches give
-//   bit-equal results.
+// Design, the dq kernel of flash_bwd_f32.cu without its dO operand:
+//
+// * four warpgroups a block: two consumers of 64 q rows each and two
+//   producers, whose first warp issues TMA and whose other seven warps split
+//   the streamed tiles; setmaxnreg gives the consumers 216 registers and
+//   the producers 40.  With the backward's one producer (three splitting
+//   warps) the consumers waited for the splitting pass;
+// * q arrives once by TMA, raw; each k step of S = q k^T the consumers load
+//   their A fragments from it and split them in registers (RS wgmma);
+// * k and v arrive by TMA in kStream-row tiles (64, 32 at D = 128) through
+//   a ring of kStages stages.  The splitting warps turn k, in place, into
+//   its hi part with its lo part beside it (S's B operand, K-major as TMA
+//   lands it), and write v transposed, hi and lo, in the order of the A
+//   fragments: O += P v contracts over the kv rows, and TF32 wgmma reads
+//   both operands K-major only;
+// * the online softmax runs on the S accumulators: columns >= T set to
+//   -inf before the row max, the max and the row sum over a quad's four
+//   threads (two shuffles), P = expf(S * scale - m) with the accurate expf;
+// * P is split on the accumulator layout and is the A operand of P v, which
+//   goes into a fresh accumulator each kv tile (the tensor cores add by
+//   truncation, and O's sum runs over all of T); the running O is rescaled
+//   by alpha = expf(m_old - m_new) while that product runs, then the fresh
+//   one is added by FADD;
+// * rows >= S are never stored (TMA fills q rows >= S and k, v rows >= T
+//   with zeros); no atomics, so two launches give bit-equal results.
+//
+// Shared memory per block (a build fact, `Cfg`): q (128 x D fp32) and per
+// stage k raw then hi, v raw, k lo, v^T hi, v^T lo, each kStream x D fp32;
+// at D = 64, 32 KB + 2 x 80 KB.
 //
 // Inputs are read through (batch, seq, head) element strides with a unit
-// head-dim stride; the output is written through its own strides.
-//
-// C interface for ctypes; the launcher returns the cudaError_t of its
-// launch.
+// head-dim stride (the TMA maps); the output is written through its own
+// strides.  C interface for ctypes; the launcher returns the cudaError_t of
+// its launch (or hopper::kEncodeError + the CUresult of a tensor map it
+// cannot build).
 
-#include "hopper.cuh"
+#include "flash_f32_common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // rows of every tile
-// a 16 x 16 grid; two blocks an SM (128 registers, spill-free at every
-// head dim)
-constexpr int kThreads = 256;
-constexpr int kPStride = kRows + 4;  // row stride of the P tile
-constexpr int kSmemLimit = 232448;
+using namespace flash_f32;
+
+constexpr int stream_rows(int d) { return d <= 64 ? 64 : 32; }
+
+// per stage: k raw then hi (0) | v raw (1) | k lo (2) | v^T hi (3), v^T lo
+// (4); P v kN columns at a time (64 at D = 128); two producer warpgroups
+// (224 splitting threads)
+template <int D>
+struct Cfg : Geometry<D, stream_rows(D), 1, 5, 0, D <= 64 ? D : 64, 2> {
+  __host__ __device__ static constexpr bool natural(int x) { return x == 0; }
+  __host__ __device__ static constexpr int lo_slot(int) { return 2; }
+  __host__ __device__ static constexpr bool transposed(int x) {
+    return x == 1;
+  }
+  __host__ __device__ static constexpr int t_slot(int) { return 3; }
+};
+
+struct Strides {  // (batch, seq, head) element strides
+  int64_t q[3], k[3], v[3], o[3];
+};
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 
-struct Strides {  // (batch, seq, head) element strides of q, k, v, o
-  int64_t s[4][3];
-};
-
-// One head of a [B, N, H, D] tensor: its first row and its row stride.
-template <typename T>
-struct Head {
-  T* p;
-  int64_t row;
-  __device__ __forceinline__ Head(T* base, const Strides& st, int i, int b,
-                                  int h)
-      : p(base + b * st.s[i][0] + h * st.s[i][2]), row(st.s[i][1]) {}
-};
-
-template <int D>
-struct Cfg {
-  static constexpr int kStride = D + 4;  // floats per staged row
-  static constexpr int kTile = kRows * kStride;
-  static constexpr int kP = kRows * kPStride;
-  static constexpr int kW = D / 16;  // accumulator columns per thread
-  static constexpr int kFwdSmem = (3 * kTile + kP) * 4;
-  static_assert(kFwdSmem <= kSmemLimit, "tiles exceed shared memory");
-};
-
-// Stage rows [r0, r0 + 64) of one head (rows >= n as zeros) at `dst`.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t row_stride, int r0, int n) {
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i - r * D;
-    dst[r * Cfg<D>::kStride + c] =
-        r0 + r < n ? src[static_cast<int64_t>(r0 + r) * row_stride + c] : 0.f;
+// S = q k^T over D (64 x kStream): q the consumer's own rows (split
+// fragments from the own tile), k a natural streamed tile as its hi and lo
+// parts; each k step's small products before its hi * hi, one k step's
+// fragments loaded while the last one's products run.  Returns with the
+// product complete.
+template <class C>
+__device__ __forceinline__ void scores(const Smem<C>& sm, int row, int t,
+                                       float (&s)[C::kStream / 2],
+                                       uint32_t own, uint32_t k_hi,
+                                       uint32_t k_lo) {
+  constexpr int kStream = C::kStream;
+#pragma unroll
+  for (int i = 0; i < kStream / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < C::D / 8; ++kk) {
+    uint32_t qh[4], ql[4];
+    own_fragment<C>(sm, own, row, kk, t, qh, ql);
+    const uint64_t bh = nat_desc<C>(k_hi, kk);
+    wgmma_fence();
+    wgmma_rs<Tf32, kStream>(s, ql, bh);
+    wgmma_rs<Tf32, kStream>(s, qh, nat_desc<C>(k_lo, kk));
+    wgmma_rs<Tf32, kStream>(s, qh, bh);
+    wgmma_commit();
+    wgmma_wait<1>();
   }
+  wgmma_wait<0>();
+  fence_operands(s);
 }
 
-// s[i][j] = sum_d A[4 ty + i][d] * B[tx + 16 j][d], d in order.
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[4][4], const float* A,
-                                       const float* B, int ty, int tx) {
-  constexpr int P = Cfg<D>::kStride;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  }
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(A + (4 * ty + i) * P + d);
-      b[i] = *reinterpret_cast<const float4*>(B + (tx + 16 * i) * P + d);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-      }
-    }
-  }
+// x over the four threads of a quad (the threads holding one row)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffff, x, 2));
 }
 
-// b = p[0, W), in 16-byte (or 8-byte) loads: p is aligned to W floats.
-template <int W>
-__device__ __forceinline__ void load_row(float (&b)[W], const float* p) {
-  if constexpr (W % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < W; c += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + c);
-      b[c] = t.x;
-      b[c + 1] = t.y;
-      b[c + 2] = t.z;
-      b[c + 3] = t.w;
-    }
-  } else if constexpr (W == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    b[0] = t.x;
-    b[1] = t.y;
-  } else {
-    b[0] = p[0];
-  }
-}
-
-// acc[i][c] += sum_k X[4 ty + i][k] * B[k][tx * W + c] over the 64 rows of
-// a staged tile B, k in order; X a [64][68] tile.
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[4][Cfg<D>::kW],
-                                           const float* X, const float* B,
-                                           int ty, int tx) {
-  constexpr int P = Cfg<D>::kStride;
-  constexpr int W = Cfg<D>::kW;
-#pragma unroll 2
-  for (int k = 0; k < kRows; k += 4) {
-    float4 x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[i] = *reinterpret_cast<const float4*>(X + (4 * ty + i) * kPStride + k);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float b[W];
-      load_row<W>(b, B + (k + kk) * P + tx * W);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float xi = kk == 0 ? x[i].x : kk == 1 ? x[i].y
-                         : kk == 2 ? x[i].z : x[i].w;
-#pragma unroll
-        for (int c = 0; c < W; ++c) acc[i][c] = fmaf(xi, b[c], acc[i][c]);
-      }
-    }
-  }
-}
-
-// Max and sum over the 16 threads of a half-warp (the tx bits of the lane).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffff, x, o));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffff, x, o);
-  return x;
-}
-
-// Store the thread's 4 rows of a 64 x D accumulator (rows >= n skipped),
-// scaled per row by `mul`.
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, int64_t row_stride,
-                                           const float (&acc)[4][Cfg<D>::kW],
-                                           const float (&mul)[4], int r0,
-                                           int n, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + 4 * ty + i;
-    if (r < n) {
-#pragma unroll
-      for (int c = 0; c < Cfg<D>::kW; ++c) {
-        dst[static_cast<int64_t>(r) * row_stride + tx * Cfg<D>::kW + c] =
-            acc[i][c] * mul[i];
-      }
-    }
-  }
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffff, x, 1);
+  return x + __shfl_xor_sync(0xffffffff, x, 2);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int H, int S, int T,
-                     Strides st, float scale) {
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     float* __restrict__ o, float* __restrict__ lse, int H,
+                     int S, int T, int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                     float scale) {
   using C = Cfg<D>;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + C::kTile;
-  float* vs = ks + C::kTile;
-  float* ps = vs + C::kTile;
-  const int m0 = blockIdx.x * kRows;
+  constexpr int kStream = C::kStream;
+  constexpr int kN = C::kN;
+  extern __shared__ unsigned char smem_raw[];
+  const Smem<C> sm(smem_raw);
+  const int m0 = blockIdx.x * kOwn;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const Head<const float> qh(q, st, 0, b, h), kh(k, st, 1, b, h),
-      vh(v, st, 2, b, h);
-  const Head<float> oh(o, st, 3, b, h);
+  const int n_tiles = (T + kStream - 1) / kStream;
 
-  load_tile<D>(qs, qh.p, qh.row, m0, S);
-  float m[4], l[4], acc[4][C::kW];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -inf();
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C::kW; ++c) acc[i][c] = 0.f;
-  }
-  const int n_tiles = (T + kRows - 1) / kRows;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * kRows;
-    __syncthreads();  // the last tile's K, V and P are no longer read
-    load_tile<D>(ks, kh.p, kh.row, n0, T);
-    load_tile<D>(vs, vh.p, vh.row, n0, T);
-    __syncthreads();
-    float s[4][4];
-    scores<D>(s, qs, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        s[i][jj] = n0 + tx + 16 * jj < T ? s[i][jj] * scale : -inf();
-        mx = fmaxf(mx, s[i][jj]);
+  const int wg = threadIdx.x / 128;
+  if (wg >= 2) {  // producers: own q; streamed k, v
+    setmaxnreg_dec<40>();
+    const int u = threadIdx.x - 256;
+    if (u == 0) {
+      load_own<C>(sm, &q_map, nullptr, h, m0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % C::kStages;
+        mbar_wait(sm.empty(st), ((j / C::kStages) & 1) ^ 1);
+        load_stream<C>(sm, st, &k_map, &v_map, h, j * kStream, b);
       }
-      mx = row_max(mx);
-      const float alpha = expf(m[i] - mx);
-      m[i] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float p = expf(s[i][jj] - mx);
-        sum += p;
-        ps[(4 * ty + i) * kPStride + tx + 16 * jj] = p;
+    } else if (u >= 32) {
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % C::kStages;
+        mbar_wait(sm.raw_full(st), (j / C::kStages) & 1);
+        split_stage<C>(sm, st, u - 32);
+        fence_proxy_async();
+        mbar_arrive(sm.split_full(st));
       }
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int c = 0; c < C::kW; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
-    accumulate<D>(acc, ps, vs, ty, tx);
-  }
-  float inv[4];
+  } else {  // consumers: warpgroup wg owns q rows [wg * 64, wg * 64 + 64)
+    setmaxnreg_inc<216>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid & 31;
+    const int t = lane & 3;
+    const int row = wg * 64 + (tid >> 5) * 16 + (lane >> 2);
+    const int r0 = m0 + row;
+
+    float acc[D / kN][kN / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l[i] = row_sum(l[i]);
-    inv[i] = 1.f / l[i];
-  }
-  store_rows<D>(oh.p, oh.row, acc, inv, m0, S, ty, tx);
-  if (tx == 0) {
+    for (int c = 0; c < D / kN; ++c) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = m0 + 4 * ty + i;
-      if (r < S) lse[static_cast<int64_t>(bh) * S + r] = m[i] + logf(l[i]);
+      for (int i = 0; i < kN / 2; ++i) acc[c][i] = 0.f;
+    }
+    // running max and (this thread's part of the) sum of rows r0, r0 + 8
+    float m[2] = {-inf(), -inf()}, l[2] = {0.f, 0.f};
+    float s[kStream / 2];
+    uint32_t ph[kStream / 8][4], pl[kStream / 8][4];
+
+    mbar_wait(sm.own_full(), 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % C::kStages;
+      mbar_wait(sm.split_full(st), (j / C::kStages) & 1);
+      scores<C>(sm, row, t, s, sm.own(0), sm.tile(st, 0), sm.tile(st, 2));
+      // s[4 n + e]: row r0 (e < 2) or r0 + 8, kv column n0 + 8 n + 2 t +
+      // e % 2
+      const int n0 = j * kStream;
+      if (n0 + kStream <= T) {
+#pragma unroll
+        for (int i = 0; i < kStream / 2; ++i) s[i] *= scale;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kStream / 2; ++i) {
+          const int col = n0 + 8 * (i / 4) + 2 * t + (i & 1);
+          s[i] = col < T ? s[i] * scale : -inf();
+        }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kStream / 2; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = quad_max(mx[e]);
+        alpha[e] = expf(m[e] - mx[e]);
+        m[e] = mx[e];
+      }
+#pragma unroll
+      for (int i = 0; i < kStream / 2; ++i) {
+        s[i] = expf(s[i] - mx[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + sum[e];
+      acc_fragments<kStream>(s, ph, pl);
+      fence_operands(ph);
+      fence_operands(pl);
+#pragma unroll
+      for (int c = 0; c < D / kN; ++c) {  // O = alpha O + P v
+        float part[kN / 2];
+        issue_over_stream<C>(part, ph, pl, sm.tile(st, 3), sm.tile(st, 4),
+                             c);
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
+        wgmma_wait<0>();
+        fence_operands(part);
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) acc[c][i] += part[i];
+      }
+      mbar_arrive(sm.empty(st));
+    }
+    float inv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      l[e] = quad_sum(l[e]);
+      inv[e] = 1.f / l[e];
+    }
+#pragma unroll
+    for (int c = 0; c < D / kN; ++c) {
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[c][i] *= inv[(i >> 1) & 1];
+    }
+    store_rows<C>(o + b * o_sb + h * o_sh, o_ss, acc, r0, S, t);
+    if (t == 0) {
+      float* lse_rows = lse + static_cast<int64_t>(bh) * S;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (r0 + 8 * e < S) lse_rows[r0 + 8 * e] = m[e] + logf(l[e]);
+      }
     }
   }
 }
 
 // strides: 4 (batch, seq, head) triples in the order q, k, v, o.
 Strides unpack(const int64_t* s) {
-  Strides st = {};
+  Strides st;
+  int64_t* dst[4] = {st.q, st.k, st.v, st.o};
   for (int i = 0; i < 4; ++i) {
-    for (int j = 0; j < 3; ++j) st.s[i][j] = s[3 * i + j];
+    for (int j = 0; j < 3; ++j) dst[i][j] = s[3 * i + j];
   }
   return st;
 }
@@ -296,15 +271,20 @@ template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int H, int S, int T, const Strides& st,
                float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap q_map, k_map, v_map;
+  int rc = make_f32_map<D>(&q_map, q, B, S, H, st.q, kOwn);
+  if (rc == 0) rc = make_f32_map<D>(&k_map, k, B, T, H, st.k, C::kStream);
+  if (rc == 0) rc = make_f32_map<D>(&v_map, v, B, T, H, st.v, C::kStream);
+  if (rc != 0) return rc;
   static uint64_t smem_allowed = 0;  // devices where the limit is raised
-  cudaError_t e = hopper::allow_smem(flash_f32_fwd_kernel<D>,
-                                     Cfg<D>::kFwdSmem, smem_allowed);
+  cudaError_t e =
+      allow_smem(flash_f32_fwd_kernel<D>, C::kSmem, smem_allowed);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_f32_fwd_kernel<D><<<grid, kThreads, Cfg<D>::kFwdSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), H, S, T, st, scale);
+  dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_f32_fwd_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
+      q_map, k_map, v_map, static_cast<float*>(o), static_cast<float*>(lse),
+      H, S, T, st.o[0], st.o[1], st.o[2], scale);
   return static_cast<int>(cudaGetLastError());
 }
 

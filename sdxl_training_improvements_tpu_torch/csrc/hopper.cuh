@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels (the
-// flash-attention forward and backward, flash_fwd.cu, flash_bwd.cu and
-// flash_bwd_f32.cu) and
+// flash-attention forward and backward, flash_fwd.cu, flash_bwd.cu,
+// flash_f32.cu and flash_bwd_f32.cu) and
 // of the GroupNorm kernels' shared-memory ring (groupnorm.cu): mbarriers,
 // named barriers, TMA tile loads through 4-D tensor maps and 1-D bulk
 // copies, warpgroup MMA (wgmma) with shared-memory matrix descriptors, and
@@ -13,10 +13,10 @@
 // type (the specialisations of wgmma_ss / wgmma_rs) and the packing of two
 // fp32 values into one 32-bit register.  Both types are 2 bytes wide, so
 // tiles, swizzles and descriptors are the same for both.  Tf32 is fp32
-// data on the tensor cores' TF32 path (flash_bwd_f32.cu): a k step of
-// TF32 wgmma (k8) spans 32 bytes of a row, as a 16-bit one (k16) does, so
-// the same swizzles and descriptors serve it when a chunk's width CW is
-// counted in 2-byte columns (a chunk of c fp32 columns is CW = 2c).
+// data on the tensor cores' TF32 path (flash_f32.cu, flash_bwd_f32.cu): a
+// k step of TF32 wgmma (k8) spans 32 bytes of a row, as a 16-bit one (k16)
+// does, so the same swizzles and descriptors serve it when a chunk's width
+// CW is counted in 2-byte columns (a chunk of c fp32 columns is CW = 2c).
 //
 // Shared-memory tiles.  A 16-bit tile of `rows` rows and D columns is held as
 // D / CW chunks of CW = min(D, 64) columns, each chunk [rows][CW] with its
@@ -70,16 +70,17 @@ struct F16 {
 // TF32 parts, hi = rna(x) and lo = rna(x - hi), and a product a b as
 // lo_a hi_b + hi_a lo_b + hi_a hi_b, the small ones first; what is lost
 // (lo_a lo_b and lo's rounding) is about 2^-21 of the product.  Rounded to
-// nearest (ties away) by cvt.rna: wgmma itself only drops the low 13 bits,
-// and that truncation would bias the split.  The low 13 bits are cleared,
-// so hi + lo is the split exactly and wgmma's truncation changes nothing.
+// nearest (ties away) as cvt.rna.tf32.f32 rounds, by two integer
+// operations on the bits (add half of the 13 dropped bits, clear them):
+// the conversion instruction held the fp32 kernels' splitting passes back.
+// wgmma itself only drops the low 13 bits, and that truncation would bias
+// the split; with them cleared, hi + lo is the split exactly and wgmma's
+// truncation changes nothing.
 struct Tf32 {
   using T = float;
   static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   __device__ static __forceinline__ uint32_t round(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-    return r & 0xffffe000u;
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   }
   __device__ static __forceinline__ void split(float x, uint32_t& hi,
                                                uint32_t& lo) {

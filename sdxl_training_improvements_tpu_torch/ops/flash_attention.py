@@ -5,10 +5,11 @@ Port of ``sdxl_training_improvements_tpu/ops/flash_attention.py``.  The
 Pallas kernels take any dtype; here each of the UNet's precisions
 (``training.mixed_precision``) has its kernels, picked by the inputs'
 dtype: bf16 and fp16 run the two instantiations of the Hopper kernels
-below; fp32 the forward of ``csrc/flash_f32.cu`` (FFMA) and the backward
-of ``csrc/flash_bwd_f32.cu`` (the same split and warp-specialised shape on
+below; fp32 the forward of ``csrc/flash_f32.cu`` and the backward of
+``csrc/flash_bwd_f32.cu``, the same split and warp-specialised shape on
 TF32 wgmma, each operand split into two TF32 parts so that the products
-keep fp32's accuracy).  Any other dtype raises.
+keep fp32's accuracy (their shared tiles, splitting pass and products:
+``csrc/flash_f32_common.cuh``).  Any other dtype raises.
 
 * forward: ``csrc/flash_fwd.cu`` replaces the Pallas ``_fwd_kernel``: a
   block per (b*h, 128-row q tile) with a TMA producer warp and two

@@ -14,7 +14,9 @@ backward kernel: ``test_torch_train_kernels.py``); flash
 forward out and lse against the plain fp32-softmax version, bf16 2e-2 and
 1e-3, fp16 4e-3 and 1e-3 (the kernel rounds P to fp16 before its product,
 the plain version after normalising), fp32 2e-5 and 2e-5 (the Pallas
-kernels' own fp32 bar, ``tests/test_flash_attention.py``); the tiny UNet
+kernels' own fp32 bar, ``tests/test_flash_attention.py``; with q scaled by
+50, 1e-4 of max |out| and 4e-6 of max |lse|, as the kernel's split TF32
+holds S to ~2^-21 of |S|); the tiny UNet
 through the kernels against the plain path at relative L2 3e-2 (bf16),
 1e-2 (fp16) and 1e-4 (fp32, the kernels' and cuDNN's summation order).
 """
@@ -348,13 +350,21 @@ def test_gn_kernels_match_plain_fp16(cuda, shape):
                                        (2, 300, 129, 3, 64),
                                        (1, 129, 77, 2, 128),
                                        (1, 300, 300, 2, 128),
-                                       (2, 4096, 4096, 10, 64)])
+                                       (2, 4096, 4096, 10, 64),
+                                       (1, 127, 63, 2, 16),
+                                       (1, 128, 65, 2, 32),
+                                       (1, 129, 64, 3, 64),
+                                       (2, 257, 127, 2, 64),
+                                       (1, 127, 31, 2, 128),
+                                       (1, 129, 33, 2, 128)])
 def test_flash_kernel_fp16_fp32_match_plain(cuda, dtype, b, s, t, h, d):
     """The fp16 instantiation of the Hopper forward and the fp32 kernel:
     every head dim, q and kv lengths on both sides of the kernels' tiles
-    (128 rows for the 16-bit kernel, 64 for the fp32 one), the 77-token
-    edge and the B2 H10 S=T=4096 site; one launch of that dtype's kernel
-    per call, out in the input's dtype, a second launch bit-equal."""
+    (128 q rows for both; kv tiles of 128 rows for the 16-bit kernel, 64
+    at D = 128, and of 64 rows for the fp32 one, 32 at D = 128), the
+    77-token edge and the B2 H10 S=T=4096 site; one launch of that dtype's
+    kernel per call, out in the input's dtype, a second launch
+    bit-equal."""
     q, k, v = _qkv(b, s, t, h, d, seed=10, device="cuda", dtype=dtype)
     launcher = TF.LAUNCHERS["fwd"][dtype]
     before = launcher.launches
@@ -367,6 +377,32 @@ def test_flash_kernel_fp16_fp32_match_plain(cuda, dtype, b, s, t, h, d):
     out_tol, lse_tol = FWD_TOL[dtype]
     assert (out.float() - ref.float()).abs().max().item() <= out_tol
     assert (lse - ref_lse).abs().max().item() <= lse_tol
+
+
+# q scaled by 50 (logits to ~240), fp32: max abs error of out over max
+# |plain out| and of lse over max |plain lse|; the kernel's split TF32
+# holds S to ~2^-21 of |S| (tests/test_torch_flash_fwd.py)
+FWD_LARGE_LOGIT_TOL = (1e-4, 4e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,d", [(1, 256, 256, 2, 64),
+                                       (1, 1000, 77, 2, 64),
+                                       (1, 300, 129, 2, 128)])
+def test_flash_kernel_fp32_large_logits(cuda, b, s, t, h, d):
+    """fp32 forward with q scaled by 50 against the plain forward, at
+    ``FWD_LARGE_LOGIT_TOL``; a second launch bit-equal."""
+    q, k, v = _qkv(b, s, t, h, d, seed=11, device="cuda",
+                   dtype=torch.float32)
+    q = 50 * q
+    out, lse = TF.flash_attention_fwd_cuda(q, k, v)
+    out2, lse2 = TF.flash_attention_fwd_cuda(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref, ref_lse = TF.flash_attention_fwd_reference(q, k, v)
+    out_rel, lse_rel = FWD_LARGE_LOGIT_TOL
+    assert ((out - ref).abs().max() <= out_rel * ref.abs().max()).item()
+    assert ((lse - ref_lse).abs().max()
+            <= lse_rel * ref_lse.abs().max()).item()
 
 
 @pytest.mark.cuda

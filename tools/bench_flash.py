@@ -9,9 +9,11 @@ it (to compare two versions in one call: parent, change, change, parent).
 ``dtype`` is bf16 (the default), fp16 or fp32: the inputs' type, which
 picks the kernels.  For each of the SDXL attention sites of the b2
 serving step and the b4 training step, and for fp32 also those of the b1
-512^2 step of ``configs/ddpm_512_smoke.yaml`` (``chip_smoke.py`` phase 9),
-it prints one JSON line per site (and all of them to ``out.json`` when
-given):
+512^2 step of ``configs/ddpm_512_smoke.yaml`` (``chip_smoke.py`` phase 9,
+forward and backward) and, for the forward, phase 9's S=T=256 H20 site at
+66 heads (``FILL_SHAPES``: 132 blocks of 128 q rows, one a streaming
+multiprocessor, where the site itself launches 40), it prints one JSON
+line per site (and all of them to ``out.json`` when given):
 
 * the forward kernel, the dq kernel, the dk/dv kernel and Delta (the
   plain rowsum the backward needs), each as the median over 5 loops of 10
@@ -61,6 +63,9 @@ BWD_SHAPES = tuple((4,) + s[1:] for s in FWD_SHAPES)  # the b4 train step's
 # 32^2 latents, 60 at 16^2)
 PHASE9_SHAPES = ((1, 1024, 1024, 10, 64), (1, 256, 256, 20, 64),
                  (1, 1024, 77, 10, 64), (1, 256, 77, 20, 64))
+# phase 9's S=T=256 site with a full wave of the fp32 forward's blocks:
+# against the site itself, whether its time is one block's latency
+FILL_SHAPES = ((1, 256, 256, 66, 64),)
 
 
 def _inputs(b, s, t, h, d, seed, dtype):
@@ -78,7 +83,9 @@ def main(label: str, out_path=None, dtype_name: str = "bf16") -> None:
                          text=True, check=True).stdout.strip()
     print(f"{label}: {F.__file__} on {smi}, {dtype_name}", flush=True)
     rows = []
-    for b, s, t, h, d in FWD_SHAPES:
+    fwd_shapes = FWD_SHAPES + (PHASE9_SHAPES + FILL_SHAPES
+                               if dtype == torch.float32 else ())
+    for b, s, t, h, d in fwd_shapes:
         q, k, v, dout = _inputs(b, s, t, h, d, 0, dtype)
         ms = time_ms(lambda: F.flash_attention_fwd_cuda(q, k, v))
         flops = 4 * b * h * s * t * d
