@@ -54,10 +54,26 @@ Phases, each printing what it found:
    (``DDPM_512_SMOKE``) at full SDXL-base width, ``mixed_precision "no"``,
    plain ``adamw``, batch 1 at 512^2: phases 6 and 7 on that model, with
    PyTorch's TF32 switches logged (PyTorch's default puts cuDNN's fp32
-   convolutions in TF32; ``SDXLModel.create`` turns both switches off).
+   convolutions in TF32; ``SDXLModel.create`` turns both switches off);
+10. the rest of serving, run right after phase 5 on its bf16 base model:
+   the checkpoint round trip (``export_diffusers`` with the port's
+   safetensors writer into a temporary directory, ``SDXLPipeline.
+   from_pretrained`` back: every tensor ``torch.equal``, the key audit
+   empty), ``generate.main`` on that directory at 1024^2 (DPM++ 2M,
+   DeepCache 2; its PNG read back, then ``--init`` with it at strength
+   0.35), and each new mode through the kernels against the plain
+   versions (latents within ``SLICE_REL_L2_TOL``): DPM++ 2M, Euler with
+   DeepCache 2 (its first call bit-equal to the uncached one), flow
+   matching, img2img, inpainting on a seeded full-width 9-channel UNet and
+   the base -> refiner handoff on a seeded full-width refiner, each extra
+   model freed before the next.  Phase 3 also holds the GN+SiLU forward at
+   the refiner's widths (bf16) and the fp32 VAE encoder's, and the bf16
+   flash forward at the refiner's attention sites.
 
 The line before the last is a JSON object with one entry per kernel and
-dtype; the last line is ``{"ok": true, "device": {...}}``.  Any failure
+dtype (``launches``: the sum over the main paths, ``launches_by_path``:
+each path's count, read just after it ran with the counts set to 0 just
+before); the last line is ``{"ok": true, "device": {...}}``.  Any failure
 raises and the script exits non-zero without that line.
 """
 from __future__ import annotations
@@ -68,8 +84,10 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import ExitStack
+from pathlib import Path
 from typing import Optional
 from unittest import mock
 
@@ -80,6 +98,7 @@ SEED = 0
 STEPS = 8  # denoising steps of the measured text-to-image call
 DEVICE = "cuda"
 SIZE = 1024  # image side of the training phases; latents are SIZE // 8
+SERVE_SIZE = 1024  # image side of phase 10
 
 GN_SHAPES = (  # (shape, dtype, eps): UNet resnets in each precision,
     # VAE decoder fp32
@@ -91,6 +110,30 @@ GN_SHAPES = (  # (shape, dtype, eps): UNet resnets in each precision,
     ((1, 65536, 512), torch.float32, 1e-6),
     ((1, 1048576, 128), torch.float32, 1e-6),
 )
+# phase 10's new GN+SiLU sites at 1024^2: the refiner's resnets (bf16, b2;
+# C = 384-3072, up to 96 channels a group) and the fp32 VAE encoder's (b1)
+# that the decoder's rows above do not cover
+REFINER_GN_SHAPES = (
+    ((2, 16384, 384), torch.bfloat16, 1e-5),
+    ((2, 16384, 768), torch.bfloat16, 1e-5),
+    ((2, 16384, 1152), torch.bfloat16, 1e-5),
+    ((2, 4096, 1536), torch.bfloat16, 1e-5),
+    ((2, 4096, 2304), torch.bfloat16, 1e-5),
+    ((2, 1024, 3072), torch.bfloat16, 1e-5),
+    ((2, 256, 3072), torch.bfloat16, 1e-5),
+)
+ENCODER_GN_SHAPES = (
+    ((1, 262144, 128), torch.float32, 1e-6),
+    ((1, 262144, 256), torch.float32, 1e-6),
+    ((1, 65536, 256), torch.float32, 1e-6),
+    ((1, 16384, 512), torch.float32, 1e-6),
+)
+# the refiner's attention sites at 1024^2 (b2): H = 12 at 64^2, 24 at 32^2
+# and 16^2 (the mid block), each self- and cross-attention
+REFINER_FLASH_SITES = (
+    (2, 4096, 4096, 12, 64), (2, 4096, 77, 12, 64),
+    (2, 1024, 1024, 24, 64), (2, 1024, 77, 24, 64),
+    (2, 256, 256, 24, 64), (2, 256, 77, 24, 64))
 FLASH_SHAPES = (  # (B, S, T, heads, D)
     (2, 4096, 4096, 10, 64),
     (2, 1024, 1024, 20, 64),
@@ -163,6 +206,9 @@ FLASH_BWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3,
                  torch.float32: 1e-4}
 UNET_REL_L2_TOL = 3e-2
 SLICE_REL_L2_TOL = 1e-1  # 8 CFG-5 steps compound the UNet's bf16 spread
+# phase 10: img2img strength of the kernels-vs-plain case (5 of 8 steps)
+# and of the generate.py --init run; the base -> refiner handoff fraction
+IMG2IMG_STRENGTH, GENERATE_STRENGTH, HANDOFF = 0.6, 0.35, 0.8
 TRAIN_STEPS = 3
 # b1 loss and all gradients, kernels against plain: measured 9.4e-4 and
 # 4.0e-3 on an H100 (the kernels' bf16 rounding of P and dS, the GN
@@ -689,9 +735,11 @@ def _probe_case():
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     res = dict(
-        gn=[_gn_case(shape, dt, eps, gen) for shape, dt, eps in GN_SHAPES],
+        gn=[_gn_case(shape, dt, eps, gen) for shape, dt, eps in
+            GN_SHAPES + REFINER_GN_SHAPES + ENCODER_GN_SHAPES],
         gn_bwd=[_gn_bwd_case(shape, dt, gen) for shape, dt in GN_BWD_SHAPES],
-        flash=[_flash_case(*shape, gen) for shape in FLASH_SHAPES],
+        flash=[_flash_case(*shape, gen)
+               for shape in FLASH_SHAPES + REFINER_FLASH_SITES],
         flash_bwd=[_flash_bwd_case(*shape, gen)
                    for shape in FLASH_BWD_SHAPES],
         adamw=[_adamw_case(*case, gen) for case in ADAMW_SHAPES],
@@ -808,23 +856,29 @@ def _log_profile(prof, what: str, wall_ms: float) -> float:
     return idle
 
 
-def profile_unet_step(model, label: str = "unet step") -> None:
+def profile_unet_step(model, label: str = "unet step",
+                      shallow: bool = False) -> None:
     """Where one denoising step's time goes: device time of one CFG
-    forward (b2, 1024^2) by kernel group, and the device's idle share."""
+    forward (b2, 1024^2) by kernel group, and the device's idle share;
+    with ``shallow``, of a DeepCache shallow forward around the deep
+    feature of a full one."""
     from torch.profiler import ProfilerActivity, profile
     ucfg = model.unet_config
-    args = (torch.zeros(2, 4, 128, 128, device="cuda"),
+    args = (torch.zeros(2, ucfg.in_channels, 128, 128, device="cuda"),
             torch.tensor([500, 500], device="cuda"),
             torch.zeros(2, 77, ucfg.cross_attention_dim, device="cuda"),
             torch.zeros(2, ucfg.pooled_embed_dim, device="cuda"),
-            torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2,
-                         device="cuda"))
+            torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024][
+                :ucfg.num_time_ids]] * 2, device="cuda"))
     with torch.inference_mode():
-        model.unet_apply(*args)
+        kw = {}
+        if shallow:
+            kw["deep_cache"] = model.unet_apply(*args, return_deep=True)[1]
+        model.unet_apply(*args, **kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.unet_apply(*args)
+            model.unet_apply(*args, **kw)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     _log_profile(prof, f"{label} (b2 1024^2)", wall_ms)
@@ -887,23 +941,25 @@ def _launches(names) -> dict:
     return {k: counters[k]() for k in names}
 
 
-def _first_nonfinite(model, calls) -> Optional[tuple]:
+def _first_nonfinite(calls) -> Optional[tuple]:
     """(call, module) of the first UNet module, in execution order, whose
-    output holds a non-finite value over the recorded UNet calls, else
-    None."""
-    names = {m: n or "unet" for n, m in model.unet.named_modules()}
-    found = []
+    output holds a non-finite value over the recorded UNet calls, each
+    (model, args, kwargs), else None."""
+    names, found, handles = {}, [], []
 
     def hook(module, inputs, output):
         if (not found and isinstance(output, torch.Tensor)
                 and not bool(torch.isfinite(output).all())):
             found.append(names[module])
 
-    handles = [m.register_forward_hook(hook) for m in model.unet.modules()]
+    for model in {id(m): m for m, _, _ in calls}.values():
+        names.update({m: n or "unet" for n, m in model.unet.named_modules()})
+        handles += [m.register_forward_hook(hook)
+                    for m in model.unet.modules()]
     try:
         with torch.inference_mode():
-            for i, args in enumerate(calls):
-                model.unet_apply(*args)
+            for i, (model, args, kw) in enumerate(calls):
+                model.unet_apply(*args, **kw)
                 if found:
                     return i, found[0]
     finally:
@@ -952,13 +1008,13 @@ def phase_slice(model, kernels=SERVING_KERNELS, label: str = "slice",
         f"calls, vae decode {rec['vae'][0][0]:.2f} ms, total "
         f"{total_s:.3f} s, peak memory {peak_gb:.2f} GiB")
     log(f"{label} kernel launches: {launches}")
-    calls = [a for _, a in rec["unet"]]
+    calls = [(model, a, {}) for _, a in rec["unet"]]
     with _plain_ops():
         plain = pipe(prompt, height=size, width=size,
                      num_inference_steps=STEPS, guidance_scale=5.0,
                      seed=SEED, return_latents=True)
         plain_where = (None if bool(torch.isfinite(plain).all())
-                       else _first_nonfinite(model, calls))
+                       else _first_nonfinite(calls))
     if finite:
         rel = ((latents - plain).norm() / plain.norm()).item()
         log(f"{label} latents, kernel path vs plain path (same seed): rel "
@@ -966,7 +1022,7 @@ def phase_slice(model, kernels=SERVING_KERNELS, label: str = "slice",
         check(rel <= SLICE_REL_L2_TOL, f"{label} latents rel L2 {rel}")
     else:
         check(overflow_ok, f"{label}: latents not finite")
-        where = _first_nonfinite(model, calls)
+        where = _first_nonfinite(calls)
         log(f"{label}: the latents overflow; first non-finite (UNet call, "
             f"module): kernel path {where}, plain path {plain_where}")
         check(where is not None and where == plain_where,
@@ -978,6 +1034,248 @@ def phase_slice(model, kernels=SERVING_KERNELS, label: str = "slice",
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the {label} path")
     return dict(launches=launches, finite=finite, peak_gb=peak_gb)
+
+
+# ------------------------------------------------ phase 10: rest of serving
+# kernels of each phase-10 path: the UNet's bf16 GN+SiLU and flash
+# forward; the paths that encode an image also the VAE's fp32 GN+SiLU
+T2I_KERNELS = ("gn_silu_fwd", "flash_fwd")
+ENCODE_KERNELS = T2I_KERNELS + ("gn_silu_fwd_f32",)
+
+
+def _checkpoint_round_trip(model, ckpt: Path) -> None:
+    """``export_diffusers`` of the bf16 base with the port's writer, then
+    ``SDXLPipeline.from_pretrained``: every tensor equal in value and
+    dtype, and the key audit of every component empty."""
+    from sdxl_training_improvements_tpu_torch.config import Config
+    from sdxl_training_improvements_tpu_torch.models import weights as W
+    from sdxl_training_improvements_tpu_torch.pipelines import SDXLPipeline
+    from sdxl_training_improvements_tpu_torch.training.checkpoints import (
+        DIRS, components, export_diffusers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbytes = export_diffusers(ckpt, components(model), Config(),
+                              unet_config=model.unet_config)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe = SDXLPipeline.from_pretrained(ckpt, dtype=torch.bfloat16,
+                                        device=DEVICE)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    unequal, audit, n_tensors = [], {}, 0
+    for name, module in components(model).items():
+        loaded = getattr(pipe.model, name).state_dict()
+        for k, v in module.state_dict().items():
+            n_tensors += 1
+            if v.dtype != loaded[k].dtype or not torch.equal(v, loaded[k]):
+                unequal.append(f"{name}.{k}")
+        audit[name] = W.check_bijective(
+            module, W.load_safetensors_dir(ckpt / DIRS[name]))
+    gib = nbytes / 2 ** 30
+    log(f"checkpoint round trip: {gib:.3f} GiB in {n_tensors} tensors "
+        f"written in {write_s:.2f} s ({gib / write_s:.2f} GiB/s), "
+        f"from_pretrained {read_s:.2f} s ({gib / read_s:.2f} GiB/s); "
+        f"tensors not equal: {len(unequal)} {unequal[:3]}; key audit "
+        f"(missing, unused) {audit}")
+    check(not unequal, f"checkpoint round trip: {unequal[:5]} differ")
+    check(all(a == ([], []) for a in audit.values()),
+          f"checkpoint key audit {audit}")
+    del pipe
+    _free()
+
+
+def _generate(ckpt: Path, out: Path) -> np.ndarray:
+    """``generate.main`` on the exported directory: text to image with
+    DPM++ 2M and DeepCache 2, then img2img from its PNG; both PNGs read
+    back with the port's reader.  Returns the first image."""
+    from sdxl_training_improvements_tpu_torch import generate
+    from sdxl_training_improvements_tpu_torch.png import read_png
+    args = ["--model", str(ckpt), "--prompt", PROMPTS[0], "--height",
+            str(SERVE_SIZE), "--width", str(SERVE_SIZE), "--steps",
+            str(STEPS), "--seed", str(SEED)]
+    images = []
+    for extra, sub in ((["--sampler", "dpmpp_2m", "--deep-cache", "2"],
+                        "text2img"),
+                       (["--init", str(out / "text2img" / "000.png"),
+                         "--strength", str(GENERATE_STRENGTH)], "img2img")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = generate.main(args + extra + ["--out", str(out / sub)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        img = read_png(out / sub / "000.png")
+        log(f"generate.main {' '.join(extra)}: rc {rc}, {wall:.2f} s (the "
+            f"checkpoint load included); PNG read back {img.shape} "
+            f"{img.dtype}, mean {img.mean():.2f}")
+        check(rc == 0, f"generate.main {extra}: rc {rc}")
+        check(img.shape == (SERVE_SIZE, SERVE_SIZE, 3)
+              and img.dtype == np.uint8,
+              f"generate.main PNG {img.shape} {img.dtype}")
+        images.append(img)
+        _free()
+    return images[0]
+
+
+def _recorded(models, calls):
+    """Patch each model's ``unet_apply`` to record (ms, shallow, model,
+    args, kwargs) of every call."""
+    stack = ExitStack()
+    for model in models:
+        def wrapper(*a, _model=model, _apply=model.unet_apply, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _apply(*a, **kw)
+            torch.cuda.synchronize()
+            calls.append(((time.perf_counter() - t0) * 1e3,
+                          kw.get("deep_cache") is not None, _model, a, kw))
+            return out
+        stack.enter_context(mock.patch.object(model, "unet_apply", wrapper))
+    return stack
+
+
+def _serve_case(label: str, models, run, kernels) -> dict:
+    """``run()`` -> latents through the kernels (launches of every serving
+    kernel counted from 0, UNet calls timed) and through the plain
+    versions with the same seed: the latents' relative L2 within
+    ``SLICE_REL_L2_TOL``; where they are not finite, the first module that
+    makes them so on each path.  Each of ``kernels`` must launch, the
+    flash forward only where a full UNet step ran.  Returns the
+    launches."""
+    calls: list = []
+    with _recorded(models, calls):
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        latents = run()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = _launches(SERVING_KERNELS)
+    unet_calls = [(m, a, kw) for _, _, m, a, kw in calls]
+    with _plain_ops():
+        plain = run()
+        plain_where = (None if bool(torch.isfinite(plain).all())
+                       else _first_nonfinite(unet_calls))
+    full = [ms for ms, shallow, *_ in calls if not shallow]
+    shallow = [ms for ms, is_shallow, *_ in calls if is_shallow]
+    finite = bool(torch.isfinite(latents).all())
+    rel = ((latents - plain).norm() / plain.norm()).item() if finite \
+        else float("nan")
+    log(f"phase 10 {label}: latents {list(latents.shape)} finite {finite}; "
+        f"kernel path vs plain (same seed) rel L2 {rel:.3e} (tol "
+        f"{SLICE_REL_L2_TOL:g}); {total_s:.3f} s; UNet {len(full)} full "
+        f"steps {statistics.mean(full) if full else 0:.2f} ms/step, "
+        f"{len(shallow)} shallow "
+        f"{statistics.mean(shallow) if shallow else 0:.2f} ms/step; "
+        f"launches {launches}")
+    if not finite:
+        where = _first_nonfinite(unet_calls)
+        log(f"phase 10 {label}: first non-finite (UNet call, module): "
+            f"kernel path {where}, plain path {plain_where}")
+    check(finite, f"phase 10 {label}: latents not finite")
+    check(rel <= SLICE_REL_L2_TOL, f"phase 10 {label}: rel L2 {rel}")
+    for k in kernels:
+        if k == "flash_fwd" and not full:
+            continue
+        check(launches[k] > 0, f"kernel {k} was not launched on the "
+              f"phase 10 {label} path")
+    return launches
+
+
+def _deep_cache_exact(model) -> None:
+    """An epsilon walk of one step makes one UNet call, step 0, which
+    DeepCache always runs in full: bit-equal to the uncached walk."""
+    from sdxl_training_improvements_tpu_torch.pipelines import SDXLPipeline
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    eps = NoiseSchedule.create(use_ztsnr=False, sigma_max=80.0,
+                               prediction_type="epsilon")
+    outs = [SDXLPipeline.from_model(model, schedule=eps, deep_cache=k)(
+        PROMPTS[:1], height=SERVE_SIZE, width=SERVE_SIZE,
+        num_inference_steps=1, seed=SEED, return_latents=True)
+        for k in (1, 3)]
+    equal = torch.equal(outs[0], outs[1])
+    log(f"phase 10 DeepCache: a 1-step walk with interval 3 bit-equal to "
+        f"the uncached walk: {equal}")
+    check(equal, "DeepCache's first call differs from the uncached call")
+
+
+def phase_rest_of_serving(model) -> dict:
+    """Phase 10 on the bf16 base model (see the module docstring); returns
+    each kernels-vs-plain path's launches."""
+    from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
+    from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
+    from sdxl_training_improvements_tpu_torch.pipelines import SDXLPipeline
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _checkpoint_round_trip(model, Path(tmp) / "ckpt")
+        image = _generate(Path(tmp) / "ckpt", Path(tmp) / "out")
+    prompt = PROMPTS[:1]
+    run = dict(num_inference_steps=STEPS, guidance_scale=5.0, seed=SEED,
+               return_latents=True)
+    t2i = dict(height=SERVE_SIZE, width=SERVE_SIZE, **run)
+
+    def base(**kw):
+        return SDXLPipeline.from_model(model, **kw)
+
+    paths = {
+        "dpmpp_2m": _serve_case(
+            "dpmpp_2m", [model],
+            lambda: base(sampler="dpmpp_2m")(prompt, **t2i), T2I_KERNELS),
+        "euler deep-cache 2": _serve_case(
+            "euler deep-cache 2", [model],
+            lambda: base(deep_cache=2)(prompt, **t2i), T2I_KERNELS),
+        "flow matching": _serve_case(
+            "flow matching", [model],
+            lambda: base(method="flow_matching")(prompt, **t2i),
+            T2I_KERNELS),
+        "img2img": _serve_case(
+            f"img2img strength {IMG2IMG_STRENGTH}", [model],
+            lambda: base().img2img(prompt, images=[image],
+                                   strength=IMG2IMG_STRENGTH, **run),
+            ENCODE_KERNELS)}
+    _deep_cache_exact(model)
+    profile_unet_step(model, "shallow DeepCache step", shallow=True)
+
+    def seeded(**kw):
+        t0 = time.perf_counter()
+        extra = SDXLModel.create(
+            dtype=torch.bfloat16, device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(SEED + 10),
+            **kw)
+        torch.cuda.synchronize()
+        log(f"phase 10 model {kw['unet_config'].block_out_channels} "
+            f"in_channels {kw['unet_config'].in_channels}, refiner "
+            f"{extra.clip_l is None}: "
+            f"{sum(p.numel() for p in extra.unet.parameters())} UNet "
+            f"parameters, {time.perf_counter() - t0:.2f} s")
+        return extra
+
+    inpainting = seeded(unet_config=UNetConfig.sdxl_inpainting())
+    mask = np.zeros((SERVE_SIZE, SERVE_SIZE), np.uint8)
+    mask[SERVE_SIZE // 4:3 * SERVE_SIZE // 4,
+         3 * SERVE_SIZE // 8:7 * SERVE_SIZE // 8] = 255
+    paths["inpaint"] = _serve_case(
+        "inpaint strength 0.8", [inpainting],
+        lambda: SDXLPipeline.from_model(inpainting).inpaint(
+            prompt, [image], [mask], strength=0.8, **run), ENCODE_KERNELS)
+    del inpainting
+    _free()
+    refiner = seeded(unet_config=UNetConfig.sdxl_refiner(), refiner=True)
+
+    def handoff():
+        noisy = base()(prompt, height=SERVE_SIZE, width=SERVE_SIZE,
+                       denoising_end=HANDOFF, **run)
+        return SDXLPipeline.from_model(refiner).refine(
+            prompt, noisy, denoising_start=HANDOFF, **run)
+
+    paths["base -> refiner"] = _serve_case(
+        f"base -> refiner at {HANDOFF}", [model, refiner], handoff,
+        T2I_KERNELS)
+    profile_unet_step(refiner, "refiner step")
+    del refiner
+    _free()
+    log(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 def _train_batch(model, n: int, gen, size: int = SIZE) -> dict:
@@ -1289,10 +1587,13 @@ def _site(shape) -> str:
     return "B={} S={} T={} H={} D={}".format(*shape)
 
 
-def kernel_report(k: dict, launches: dict) -> dict:
+def kernel_report(k: dict, paths: dict) -> dict:
     """One entry per kernel instantiation: errors over all of phase 3's
     shapes of its dtype; times, bound and library time at the shape named
-    in ``at``; launches on the main path that runs it."""
+    in ``at``; launches summed over the main paths (``paths``: label ->
+    launches by kernel) and by path."""
+    by_path = {name: {label: counts[name] for label, counts in paths.items()
+                      if counts.get(name)} for name in KERNELS}
     measured, device, library_device, extra = {}, {}, {}, {}
     no_library = (None, "none: GroupNorm then SiLU is two library calls "
                   "(two_library_calls)")
@@ -1342,8 +1643,10 @@ def kernel_report(k: dict, launches: dict) -> dict:
                                "flash_bwd_dq" + sfx: bwd["library_dev"],
                                "flash_bwd_dkv" + sfx: bwd["library_dev"]})
         # every site measured, for the forward at the serving step's sites
-        # (fp32: and phase 9's)
-        sites = F32_FWD_SITES if dt == torch.float32 else FLASH_SITES
+        # (fp32: and phase 9's; bf16: and the refiner's)
+        sites = {torch.float32: F32_FWD_SITES,
+                 torch.float16: FLASH_SITES}.get(
+                     dt, FLASH_SITES + REFINER_FLASH_SITES)
         extra["flash_fwd" + sfx] = {"sites": [
             {"at": _site(r["shape"]), "ms": r["ms"], "device_ms": r["dev"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1376,7 +1679,8 @@ def kernel_report(k: dict, launches: dict) -> dict:
     library_device["probe"] = k["probe"]["library_dev"]
     return {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": err, "ms": ms,
+         "launches": sum(by_path[name].values()),
+         "launches_by_path": by_path[name], "max_abs_err": err, "ms": ms,
          "device_ms": device.get(name), "plain_ms": plain_ms,
          "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib[0],
          "library_device_ms": library_device.get(name), "library": lib[1],
@@ -1403,7 +1707,8 @@ def main() -> None:
     log(f"SDXLModel.create full width on cuda: "
         f"{time.perf_counter() - t0:.2f} s")
     phase_unet(model)
-    phase_slice(model)
+    serving = phase_slice(model)
+    rest = phase_rest_of_serving(model)
     profile_unet_step(model)
     train = phase_train(model, cfg)
     phase_train_parity(model, cfg)
@@ -1411,10 +1716,14 @@ def main() -> None:
     _free()
     fp16 = phase_fp16()
     fp32 = phase_fp32_training()
-    # each instantiation's launches on the main path that runs it
-    launches = {**fp16["launches"], **fp32["train"]["launches"],
-                **train["launches"]}
-    log(json.dumps(kernel_report(kernels, launches)))
+    # each main path's launches, counted from 0 just before it ran
+    paths = {"serving (phase 5)": serving["launches"],
+             **{f"rest of serving (phase 10): {k}": v
+                for k, v in rest.items()},
+             "training (phase 6)": train["launches"],
+             "fp16 (phase 8)": fp16["launches"],
+             "fp32 training (phase 9)": fp32["train"]["launches"]}
+    log(json.dumps(kernel_report(kernels, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

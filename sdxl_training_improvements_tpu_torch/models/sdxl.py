@@ -1,15 +1,16 @@
 """SDXL model bundle: UNet + VAE + dual CLIP, in PyTorch.
 
 Port of ``sdxl_training_improvements_tpu/models/sdxl.py``: ``create`` with
-seeded weights for all four components, ``unet_apply``, ``encode_prompt``
-(dual CLIP -> prompt_embeds [B, 77, 2048] + pooled [B, 1280]) and
-``decode_latents``, ``trainable_params`` (the UNet's parameters: the
-training slice trains the UNet only, as JAX does), and ``from_config``,
-which builds the bundle a ``Config`` asks for.  Dtypes follow the JAX
-package: the UNet in the policy's compute dtype (``core/types.py``; a bare
-``dtype``, bf16 by default, otherwise), CLIP-L and CLIP-G in
-``weight_dtypes`` (by default that dtype), norms' parameters fp32, the VAE
-fp32.
+seeded weights for all four components (three for the refiner, which has
+no CLIP-L), ``unet_apply``, ``encode_prompt`` (dual CLIP -> prompt_embeds
+[B, 77, 2048] + pooled [B, 1280]; CLIP-G alone for the refiner),
+``encode_images`` and ``decode_latents``, ``trainable_params`` (the UNet's
+parameters: the training slice trains the UNet only, as JAX does), and
+``from_config``, which builds the bundle a ``Config`` asks for.  Dtypes
+follow the JAX package: the UNet in the policy's compute dtype
+(``core/types.py``; a bare ``dtype``, bf16 by default, otherwise), CLIP-L
+and CLIP-G in ``weight_dtypes`` (by default that dtype), norms' parameters
+fp32, the VAE fp32.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from torch import nn
 from sdxl_training_improvements_tpu_torch.core.types import (
     DataType, ModelWeightDtypes, Policy)
 from sdxl_training_improvements_tpu_torch.models.clip import (
-    CLIPTextConfig, CLIPTextModel, encode_dual)
+    CLIPTextConfig, CLIPTextModel, encode_dual, encode_g)
 from sdxl_training_improvements_tpu_torch.models.layers import (
     GroupNorm, LayerNormF32)
 from sdxl_training_improvements_tpu_torch.models.unet import (
@@ -57,14 +58,17 @@ def _init_(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def _materialize(module: nn.Module, dtype: torch.dtype, device,
-                 generator: torch.Generator) -> nn.Module:
-    """Meta-built module -> seeded weights on ``device``: ``dtype`` for
-    weights, fp32 for norm parameters, convs' weights channels_last."""
+                 generator: Optional[torch.Generator]) -> nn.Module:
+    """Meta-built module -> weights on ``device``: ``dtype`` for weights,
+    fp32 for norm parameters, convs' weights channels_last; seeded from
+    ``generator``, or left unset when it is None (a checkpoint fills
+    them)."""
     module = module.to_empty(device=device).to(dtype)
     for m in module.modules():
         if isinstance(m, (GroupNorm, LayerNormF32)):
             m.float()
-    _init_(module, generator)
+    if generator is not None:
+        _init_(module, generator)
     return module.to(memory_format=torch.channels_last).eval()
 
 
@@ -72,7 +76,8 @@ def _materialize(module: nn.Module, dtype: torch.dtype, device,
 class SDXLModel:
     unet: SDXLUNet
     vae: AutoencoderKL
-    clip_l: CLIPTextModel
+    # None for the refiner: CLIP-G conditioning only, no text_encoder/
+    clip_l: Optional[CLIPTextModel]
     clip_g: CLIPTextModel
 
     @classmethod
@@ -80,12 +85,18 @@ class SDXLModel:
                policy: Optional[Policy] = None,
                weight_dtypes: Optional[ModelWeightDtypes] = None,
                device="cuda", generator: Optional[torch.Generator] = None,
-               unet_config: Optional[UNetConfig] = None) -> "SDXLModel":
+               unet_config: Optional[UNetConfig] = None,
+               refiner: bool = False,
+               init_weights: bool = True) -> "SDXLModel":
         """Bundle on ``device`` (the card unless the caller asks for the
         CPU) with weights drawn from ``generator`` (a CPU generator seeded
         with 0 when None).  ``tiny`` builds the CPU-testable miniature;
         otherwise full SDXL-base width.  ``unet_config`` overrides the
-        UNet's (e.g. its remat settings).
+        UNet's (its remat settings, or a variant topology such as
+        ``UNetConfig.sdxl_inpainting`` / ``sdxl_refiner``).  ``refiner``
+        builds no CLIP-L: prompts go through CLIP-G alone.
+        ``init_weights=False`` leaves the weights unset, for a caller that
+        loads every tensor from a checkpoint next.
 
         ``policy`` (``core.types.Policy``), when given, replaces ``dtype``
         with its compute dtype; the UNet computes in its weights' dtype, so
@@ -110,7 +121,9 @@ class SDXLModel:
             dtype = policy.compute_dtype
         wd = weight_dtypes or ModelWeightDtypes.from_single_dtype(
             DataType.from_torch(dtype))
-        if generator is None:
+        if not init_weights:
+            generator = None
+        elif generator is None:
             generator = torch.Generator().manual_seed(0)
         # fp32 products in full fp32: the VAE (and an fp32 UNet and CLIP,
         # mixed_precision "no") run fp32 for accuracy, and cuDNN would
@@ -120,10 +133,12 @@ class SDXLModel:
         torch.backends.cudnn.allow_tf32 = False
         with torch.device("meta"):
             parts = (SDXLUNet(ucfg), AutoencoderKL(vcfg),
-                     CLIPTextModel(lcfg), CLIPTextModel(gcfg))
+                     None if refiner else CLIPTextModel(lcfg),
+                     CLIPTextModel(gcfg))
         dtypes = (dtype, torch.float32, wd.text_encoder.to_torch(),
                   wd.text_encoder_2.to_torch())
-        return cls(*(_materialize(m, dt, device, generator)
+        return cls(*(None if m is None
+                     else _materialize(m, dt, device, generator)
                      for m, dt in zip(parts, dtypes)))
 
     @classmethod
@@ -134,9 +149,11 @@ class SDXLModel:
         weights, as JAX ``training/loop.py``'s ``_load_model`` builds it:
         ``training.mixed_precision`` through ``Policy.from_mixed_precision``,
         ``tpu.remat`` / ``tpu.remat_policy`` into the UNet's config, the
-        miniature where ``model.model_type`` is ``sdxl_tiny``.  Checkpoint
-        import is not ported (ROADMAP queue 1), so a local checkpoint
-        directory in ``model.pretrained_model_name`` raises."""
+        miniature where ``model.model_type`` is ``sdxl_tiny``.  The
+        training loop's checkpoint import is not ported (ROADMAP queue 1,
+        item 12), so a local checkpoint directory in
+        ``model.pretrained_model_name`` raises; serving loads one with
+        ``SDXLPipeline.from_pretrained``."""
         key = config.model.model_type.strip().lower().replace("-", "_")
         types = ("base", "inpainting", "refiner", "sdxl", "sdxl_tiny")
         if key not in types + ("tiny",):
@@ -145,9 +162,10 @@ class SDXLModel:
                              f"{list(types)}")
         if Path(config.model.pretrained_model_name).exists():
             raise NotImplementedError(
-                f"{config.model.pretrained_model_name}: checkpoint import is "
-                "not ported yet (ROADMAP queue 1); from_config builds "
-                "seeded weights")
+                f"{config.model.pretrained_model_name}: checkpoint import "
+                "into training is not ported yet (ROADMAP queue 1, item "
+                "12); from_config builds seeded weights (serving: "
+                "SDXLPipeline.from_pretrained)")
         tiny = key in ("sdxl_tiny", "tiny")
         ucfg = (UNetConfig.tiny if tiny else UNetConfig.sdxl)(
             remat=config.tpu.remat, remat_policy=config.tpu.remat_policy)
@@ -166,15 +184,20 @@ class SDXLModel:
         return self.unet.conv_in.weight.device
 
     def unet_apply(self, sample, timesteps, prompt_embeds,
-                   pooled_prompt_embeds, time_ids):
+                   pooled_prompt_embeds, time_ids, deep_cache=None,
+                   return_deep: bool = False):
         return self.unet(sample, timesteps, prompt_embeds,
-                         pooled_prompt_embeds, time_ids)
+                         pooled_prompt_embeds, time_ids,
+                         deep_cache=deep_cache, return_deep=return_deep)
 
-    def encode_prompt(self, input_ids_l: torch.Tensor,
+    def encode_prompt(self, input_ids_l: Optional[torch.Tensor],
                       input_ids_g: torch.Tensor, clip_skip: int = 1):
         """Dual-CLIP encoding: penultimate states concatenated, pooled
-        from CLIP-G."""
+        from CLIP-G.  With no CLIP-L (the refiner) CLIP-G alone, and
+        ``input_ids_l`` may be None."""
         self._check_token_ids(input_ids_l, input_ids_g)
+        if self.clip_l is None:
+            return encode_g(self.clip_g, input_ids_g, clip_skip=clip_skip)
         return encode_dual(self.clip_l, self.clip_g, input_ids_l,
                            input_ids_g, clip_skip=clip_skip)
 
@@ -186,6 +209,8 @@ class SDXLModel:
                                 self.clip_g),
                                ("input_ids_l / tokenizer", input_ids_l,
                                 self.clip_l)):
+            if enc is None:
+                continue
             mx = int(ids.max())
             if mx >= enc.cfg.vocab_size:
                 raise ValueError(
@@ -194,6 +219,15 @@ class SDXLModel:
                     "Use a tokenizer matching the checkpoint, or "
                     "TokenizerPair.fallback(vocab_size=...) matching the "
                     "model.")
+
+    def encode_images(self, pixels: torch.Tensor,
+                      noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """fp32 pixels [B, 3, H, W] in [-1, 1] -> sampled, scaled latents
+        (``AutoencoderKL.encode``; ``noise`` or ``generator`` for the
+        sample's draw)."""
+        return self.vae.encode(pixels, noise=noise, generator=generator)
 
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents [B, 4, h, w] -> fp32 pixels [B, 3, 8h, 8w]."""

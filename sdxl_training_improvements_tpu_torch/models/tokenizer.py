@@ -1,13 +1,18 @@
 """Offline tokenization for the dual CLIP encoders.
 
-A copy of ``HashTokenizer`` and ``TokenizerPair`` from
-``sdxl_training_improvements_tpu/models/tokenizer.py`` (framework-neutral;
-copied so the port imports nothing of the JAX package).  Loading the
-checkpoint's own CLIP tokenizers waits until the port loads checkpoints.
+A copy of ``HashTokenizer``, ``TokenizerPair`` and the layout rules of
+``load_tokenizers`` from ``sdxl_training_improvements_tpu/models/
+tokenizer.py`` (framework-neutral; copied so the port imports nothing of
+the JAX package).  The checkpoint's own CLIP BPE tokenizers wrap
+``transformers``, which the card's machine lacks: where a checkpoint ships
+a tokenizer directory, ``load_tokenizers`` raises instead of hashing
+captions against pretrained embeddings (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import logging
 import zlib
+from pathlib import Path
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -55,3 +60,43 @@ class TokenizerPair:
                  ) -> "TokenizerPair":
         t = HashTokenizer(vocab_size, max_length)
         return cls(t, t)
+
+
+def load_tokenizers(model_dir, max_length: int = 77,
+                    single_encoder: bool = False,
+                    fallback_vocab_size: int = 49408) -> TokenizerPair:
+    """The tokenizer pair of a diffusers checkpoint directory, by JAX's
+    layout rules (``models/tokenizer.py:81-134``).  ``single_encoder`` is
+    the refiner layout (CLIP-G only): ``tokenizer/`` must then be absent.
+    Otherwise ``tokenizer/`` and ``tokenizer_2/`` come together or not at
+    all: one without the other is a partial checkpoint and raises.  With
+    no tokenizer directory the hash stand-in matches the encoder's
+    vocabulary (random-init checkpoints).  A present tokenizer directory
+    raises: the BPE tokenizer is not ported, and hashed ids against
+    pretrained CLIP weights would give images of nothing."""
+    model_dir = Path(model_dir)
+    dirs = [model_dir / "tokenizer", model_dir / "tokenizer_2"]
+    exists = [d.exists() for d in dirs]
+    if single_encoder and exists[0]:
+        raise FileNotFoundError(
+            f"checkpoint at {model_dir} has tokenizer/ but was detected as "
+            "a single-encoder (refiner) checkpoint: layout mismatch")
+    if not single_encoder and any(exists) and not all(exists):
+        have, missing = (dirs[0], dirs[1]) if exists[0] else (dirs[1],
+                                                               dirs[0])
+        raise FileNotFoundError(
+            f"checkpoint at {model_dir} has {have.name}/ but no "
+            f"{missing.name}/: a partial or corrupt checkpoint. Restore "
+            "both tokenizer directories (or remove both to opt into the "
+            "hash-tokenizer stand-in for from-scratch runs).")
+    if exists[1]:
+        raise NotImplementedError(
+            f"{dirs[1]}: the CLIP BPE tokenizer is not ported (it needs "
+            "transformers; ROADMAP queue 1). Refusing to hash captions "
+            "against this checkpoint's pretrained text encoders.")
+    logging.getLogger(__name__).warning(
+        "no tokenizer directory under %s - using the hash tokenizer "
+        "stand-in (fine for random-init weights, WRONG for pretrained "
+        "CLIP weights)", model_dir)
+    return TokenizerPair.fallback(vocab_size=fallback_vocab_size,
+                                  max_length=max_length)

@@ -1,15 +1,15 @@
 """AutoencoderKL (the SDXL VAE) in PyTorch, fp32.
 
 Port of ``sdxl_training_improvements_tpu/models/vae.py``.  Encoder and
-decoder are both built so a full state dict loads strictly; the slice runs
-only ``decode``.  Every resnet's GroupNorm+SiLU goes through the kernel on
+decoder: ``encode`` (sampled, scaled latents, for img2img and inpainting)
+and ``decode``.  Every resnet's GroupNorm+SiLU goes through the kernel on
 the card; the mid-block attention (single head) is a plain matmul +
 softmax, as in the JAX package.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -177,6 +177,24 @@ class AutoencoderKL(nn.Module):
             memory_format=torch.channels_last)
         mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
         return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, pixels: torch.Tensor, sample: bool = True,
+               noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, 3, H, W] in [-1, 1] -> scaled latents ``(mean + exp(0.5 *
+        logvar) * n) * scaling_factor`` (``mean * scaling_factor`` without
+        ``sample``), JAX ``vae.py:196-203``.  ``n`` is ``noise`` when given,
+        else N(0, 1) drawn from ``generator`` on the latents' device."""
+        mean, logvar = self.moments(pixels)
+        if sample:
+            if noise is None:
+                noise = torch.randn(mean.shape, generator=generator,
+                                    device=mean.device, dtype=mean.dtype)
+            elif tuple(noise.shape) != tuple(mean.shape):
+                raise ValueError(f"noise shape {tuple(noise.shape)} != "
+                                 f"latents {tuple(mean.shape)}")
+            mean = mean + torch.exp(0.5 * logvar) * noise.to(mean)
+        return mean * self.config.scaling_factor
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Scaled latents [B, 4, h, w] -> pixels [B, 3, 8h, 8w]."""
