@@ -68,7 +68,25 @@ Phases, each printing what it found:
    the base -> refiner handoff on a seeded full-width refiner, each extra
    model freed before the next.  Phase 3 also holds the GN+SiLU forward at
    the refiner's widths (bf16) and the fp32 VAE encoder's, and the bf16
-   flash forward at the refiner's attention sites.
+   flash forward at the refiner's attention sites;
+11. the training entry point, after phase 9 with the earlier models freed:
+   ``main.main`` on ``configs/novelai_v3_1024.yaml`` as the port's YAML
+   reader loads it (full SDXL-base width, seeded weights, the cuts logged)
+   over 8 seeded PNGs in a temporary directory, 4 at 1024x1024 and 4 at
+   1216x832: run A (3 epochs, 6 steps: the cache's latent shapes, each
+   step's loss read after the run, steps 3-4 timed as one window between
+   two synchronizes, steps 5-6 profiled for device time and idle share,
+   peak memory, launches); then, on run A's model, the precompute's rate
+   over 256 PNGs through the trainer's own precompute, one image of each
+   size through the fp32 VAE kernels against plain, a b1 forward and
+   backward on the 1216x832 bucket's cache entry through the kernels
+   against plain, and the convolutions' device time with cuDNN's
+   deterministic algorithms and its defaults; run B (1 epoch and the final
+   checkpoint, then ``--resume`` to 3 epochs: the checkpoint's GiB, save
+   and restore times), whose parameters, optimizer state, step and
+   generators must be ``torch.equal`` to run A's; the log's metric lines;
+   the directory deleted.  Phase 3 also holds the bf16 GN+SiLU and flash
+   kernels at the 1216x832 bucket's sites (S = 3952 and 988).
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (``launches``: the sum over the main paths, ``launches_by_path``:
@@ -82,10 +100,12 @@ import functools
 import gc
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from contextlib import ExitStack
 from pathlib import Path
 from typing import Optional
@@ -168,6 +188,14 @@ FLASH_BWD_SHAPES = (  # (B, S, T, heads, D): the b4 training step's sites
     (4, 1024, 77, 4, 128),
     (4, 1024, 77, 20, 64),
 )
+# phase 11's landscape bucket (1216x832: latents 104x152) at b1 in bf16:
+# attention at 52x76 and 26x38 (S = 3952 and 988, neither a multiple of
+# the kernels' tiles), and GroupNorm at the three levels (C/G = 10, 30,
+# 20, 80)
+ENTRY_FLASH_SITES = ((1, 3952, 3952, 10, 64), (1, 3952, 77, 10, 64),
+                     (1, 988, 988, 20, 64), (1, 988, 77, 20, 64))
+ENTRY_GN_SHAPES = ((1, 15808, 320), (1, 15808, 960), (1, 3952, 640),
+                   (1, 988, 2560))
 ADAMW_SHAPES = (  # (leaf shape, channels_last, gradient dtype, decay fires)
     ((1280, 1280), False, torch.float32, False),  # attention projection
     ((10240, 1280), False, torch.float32, True),  # GEGLU input projection
@@ -736,12 +764,15 @@ def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     res = dict(
         gn=[_gn_case(shape, dt, eps, gen) for shape, dt, eps in
-            GN_SHAPES + REFINER_GN_SHAPES + ENCODER_GN_SHAPES],
-        gn_bwd=[_gn_bwd_case(shape, dt, gen) for shape, dt in GN_BWD_SHAPES],
-        flash=[_flash_case(*shape, gen)
-               for shape in FLASH_SHAPES + REFINER_FLASH_SITES],
+            GN_SHAPES + REFINER_GN_SHAPES + ENCODER_GN_SHAPES
+            + tuple((s, torch.bfloat16, 1e-5) for s in ENTRY_GN_SHAPES)],
+        gn_bwd=[_gn_bwd_case(shape, dt, gen) for shape, dt in
+                GN_BWD_SHAPES
+                + tuple((s, torch.bfloat16) for s in ENTRY_GN_SHAPES)],
+        flash=[_flash_case(*shape, gen) for shape in
+               FLASH_SHAPES + REFINER_FLASH_SITES + ENTRY_FLASH_SITES],
         flash_bwd=[_flash_bwd_case(*shape, gen)
-                   for shape in FLASH_BWD_SHAPES],
+                   for shape in FLASH_BWD_SHAPES + ENTRY_FLASH_SITES],
         adamw=[_adamw_case(*case, gen) for case in ADAMW_SHAPES],
         probe=_probe_case())
     for dt in FLASH_DTYPES:
@@ -1395,25 +1426,36 @@ def phase_train(model, cfg, kernels=TRAIN_KERNELS, size: int = SIZE) -> dict:
     return dict(steps=steps, peak_gb=peak_gb, launches=launches)
 
 
-def phase_train_parity(model, cfg, size: int = SIZE,
-                       tols=(TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_L2_TOL),
-                       kernels=()) -> dict:
-    """One forward and backward at batch 1, size^2, with replayed noise
-    and timestep, through the kernels and through the plain versions:
-    the loss and the relative L2 of all gradients together (within
-    ``tols``), and the launches of ``kernels`` on the kernel path."""
+def _loss_and_grads(model, cfg, batch, schedule, params) -> tuple:
+    """One forward and backward of the configured method on ``batch``:
+    (the loss, the gradients of ``params``)."""
     from sdxl_training_improvements_tpu_torch.training.methods import (
         get_method)
+    loss, _ = get_method(cfg.training.method)(model.unet_apply, batch, None,
+                                              schedule, cfg.model)
+    return loss, torch.autograd.grad(loss, params)
+
+
+def phase_train_parity(model, cfg, size: int = SIZE,
+                       tols=(TRAIN_LOSS_REL_TOL, TRAIN_GRAD_REL_L2_TOL),
+                       kernels=(), batch: Optional[dict] = None) -> dict:
+    """One forward and backward at batch 1, size^2 (or on ``batch``), with
+    replayed noise and timestep, through the kernels and through the plain
+    versions: the loss and the relative L2 of all gradients together
+    (within ``tols``), and the launches of ``kernels`` on the kernel
+    path."""
     from sdxl_training_improvements_tpu_torch.training.schedules import (
         NoiseSchedule)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-    batch = _train_batch(model, 1, gen, size)
-    batch["noise"] = torch.randn(1, 4, size // 8, size // 8, generator=gen,
-                                 device=DEVICE)
-    batch["timesteps"] = torch.tensor([500], device=DEVICE)
-    loss_fn = get_method(cfg.training.method)
+    if batch is None:
+        batch = _train_batch(model, 1, gen, size)
+    batch = dict(batch)
+    shape = tuple(batch["vae_latents"].shape)
+    batch["noise"] = torch.randn(shape, generator=gen, device=DEVICE)
+    batch["timesteps"] = torch.tensor([500] * shape[0], device=DEVICE)
     schedule = NoiseSchedule.from_config(cfg)
     params = list(model.unet.parameters())
+    where = f"b{shape[0]} latents {shape[2]}x{shape[3]}"
 
     def loss_and_grads():
         """(loss, gradients, ms of the second of two calls): the first
@@ -1422,9 +1464,7 @@ def phase_train_parity(model, cfg, size: int = SIZE,
             grads = None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loss, _ = loss_fn(model.unet_apply, batch, None, schedule,
-                              cfg.model)
-            grads = torch.autograd.grad(loss, params)
+            loss, grads = _loss_and_grads(model, cfg, batch, schedule, params)
             torch.cuda.synchronize()
         return loss.item(), grads, (time.perf_counter() - t0) * 1e3
 
@@ -1442,7 +1482,7 @@ def phase_train_parity(model, cfg, size: int = SIZE,
     nonzero = sum(int(g.count_nonzero()) for g in plain_grads) / sum(
         g.numel() for g in plain_grads)
     loss_tol, grad_tol = tols
-    log(f"train parity ({cfg.training.mixed_precision}, b1 {size}^2, "
+    log(f"train parity ({cfg.training.mixed_precision}, {where}, "
         f"t=500): loss kernels {loss:.6f} vs plain {plain_loss:.6f}, rel "
         f"{loss_rel:.3e} (tol {loss_tol:g}); all {len(grads)} gradients rel "
         f"L2 {rel:.3e} (tol {grad_tol:g}), finite {finite}, nonzero share "
@@ -1551,6 +1591,426 @@ def phase_fp32_training() -> dict:
     del model
     _free()
     return dict(train=train, parity=parity)
+
+
+# ------------------------------------------ phase 11: training entry point
+NOVELAI_YAML = Path(__file__).resolve().parent / "configs" / \
+    "novelai_v3_1024.yaml"
+# (width, height) of the phase's seeded PNGs, four of each: one global
+# batch of 4 per bucket, so 2 steps an epoch over 2 bucket shapes
+ENTRY_IMAGE_SIZES = ((1024, 1024), (1216, 832))
+ENTRY_CAPTIONS = ("masterpiece, best quality, 1girl, solo, smile",
+                  "landscape, mountains, lake, sunset, scenery",
+                  "1boy, armor, sword, castle, night",
+                  "cat, window, indoors, plant, sunlight")
+# the precompute's fp32 VAE encoder and the bf16 train step, and the
+# startup probe of create_train_state
+ENTRY_KERNELS = TRAIN_KERNELS + ("gn_silu_fwd_f32", "probe")
+# one image's latents through the fp32 VAE encoder, kernels against plain:
+# the two differ in the GroupNorm statistics' summation order only
+ENTRY_LATENT_REL_L2_TOL = 1e-3
+ENTRY_EPOCHS = 3  # run A: steps 1-2 meet each bucket shape first
+ENTRY_TIMED = (3, 4)  # run A's steps timed as one window (warm)
+ENTRY_PROFILED = (5, 6)  # and the steps profiled as another
+# the precompute's rate: 16 seeded PNGs (8 at each bucket) copied to 16
+# paths each, every path its own cache entry
+ENTRY_BULK_UNIQUE, ENTRY_BULK_COPIES = 16, 16
+
+
+def _entry_config(root: Path, name: str, images: str = "images",
+                  cache: str = "cache", log_every: Optional[int] = None,
+                  **training) -> Path:
+    """``configs/novelai_v3_1024.yaml`` as the port's reader loads it, with
+    the phase's cuts (each logged by the caller), written to ``root``."""
+    from sdxl_training_improvements_tpu_torch import _yaml
+    raw = _yaml.load_file(NOVELAI_YAML)
+    raw["model"]["pretrained_model_name"] = str(root / "no-checkpoint")
+    raw["training"].update(gradient_accumulation_steps=1, **training)
+    raw["data"]["train_data_dir"] = [str(root / images)]
+    logging_cfg = {"log_dir": str(root / "logs")}
+    if log_every is not None:
+        logging_cfg["log_every"] = log_every
+    raw["global_config"] = {"cache": {"cache_dir": str(root / cache)},
+                            "logging": logging_cfg}
+    path = root / f"{name}.yaml"
+    path.write_text(_yaml.dump(raw))
+    return path
+
+
+def _write_paeth_png(path: Path, img: np.ndarray) -> None:
+    """HxWx3 uint8 -> an RGB PNG whose rows all use the Paeth filter (what
+    Pillow's adaptive encoder picks for most rows of a photo, and the
+    slowest filter to undo)."""
+    h, w, _ = img.shape
+    x = img.astype(np.int16).reshape(h, w * 3)
+    left, up, corner = (np.zeros_like(x) for _ in range(3))
+    left[:, 3:], up[1:], corner[1:, 3:] = x[:, :-3], x[:-1], x[:-1, :-3]
+    p = left + up - corner
+    pa, pb, pc = (np.abs(p - v) for v in (left, up, corner))
+    pred = np.where((pa <= pb) & (pa <= pc), left,
+                    np.where(pb <= pc, up, corner))
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8),
+                           ((x - pred) & 0xFF).astype(np.uint8)], 1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    path.write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + chunk(b"IEND", b""))
+
+
+def _entry_images(folder: Path, n: int = 8) -> None:
+    """``n`` seeded PNGs with tag captions in ``folder``: the first half at
+    the first of ENTRY_IMAGE_SIZES, the rest at the second; each read
+    back through the port's reader against its pixels."""
+    from sdxl_training_improvements_tpu_torch.png import read_png
+    rng = np.random.default_rng(SEED)
+    folder.mkdir(parents=True)
+    for i in range(n):
+        w, h = ENTRY_IMAGE_SIZES[2 * i // n]
+        # smooth gradients plus noise: a photo-like image
+        y, x = np.mgrid[0:h, 0:w]
+        base = np.stack([x * 255 // w, y * 255 // h,
+                         (x + y) * 255 // (w + h)], -1)
+        img = np.clip(base + rng.integers(-20, 21, (h, w, 3)), 0, 255
+                      ).astype(np.uint8)
+        _write_paeth_png(folder / f"{i:02d}.png", img)
+        check(np.array_equal(read_png(folder / f"{i:02d}.png"), img),
+              f"{folder / f'{i:02d}.png'} does not read back")
+        (folder / f"{i:02d}.txt").write_text(ENTRY_CAPTIONS[i % 4])
+
+
+def _run_main(argv, timed=None, profiled=None) -> tuple:
+    """``main.main(argv)`` on the card: (its trainer, each step's latents
+    shape and loss, the windows' wall ms and the profiled window's
+    profiler).  The losses stay on the device until the run has ended, so
+    the loop's own reads are its only host syncs; ``timed`` and
+    ``profiled`` are (first, last) step numbers of a window timed from a
+    synchronize before its first step's call to one after its last
+    step's return, the second under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdxl_training_improvements_tpu_torch import main as entry
+    from sdxl_training_improvements_tpu_torch.training import loop
+    trainers, steps, windows = [], [], {}
+    make_step, init = loop.make_train_step, loop.SDXLTrainer.__init__
+    stack = ExitStack()
+    spans = {k: v for k, v in (("timed", timed), ("profiled", profiled))
+             if v is not None}
+
+    def timed_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed_step(state, batch):
+            n = len(steps) + 1
+            for name, (first, _) in spans.items():
+                if n == first:
+                    if name == "profiled":
+                        windows["prof"] = stack.enter_context(
+                            profile(activities=[ProfilerActivity.CUDA]))
+                    torch.cuda.synchronize()
+                    windows[name] = time.perf_counter()
+            state, metrics = step(state, batch)
+            steps.append(dict(loss=metrics["loss"].detach(),
+                              shape=list(batch["vae_latents"].shape)))
+            for name, (_, last) in spans.items():
+                if n == last:
+                    torch.cuda.synchronize()
+                    windows[name] = (time.perf_counter() - windows[name]) * 1e3
+                    if name == "profiled":
+                        stack.close()
+            return state, metrics
+        return timed_step
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        trainers.append(self)
+
+    with mock.patch.object(loop, "make_train_step", timed_make_step), \
+            mock.patch.object(loop.SDXLTrainer, "__init__", recording_init):
+        rc = entry.main(argv)
+    check(rc == 0, f"main.main exit code {rc}")
+    for s in steps:
+        s["loss"] = s["loss"].item()
+    return trainers[0], steps, windows
+
+
+def _state_snapshot(state) -> tuple:
+    """(every tensor of the train state on the host, the step and the
+    generators' states)."""
+    from sdxl_training_improvements_tpu_torch.training import checkpoints
+    tensors, meta = checkpoints.flatten_train_state(state)
+    return {k: v.detach().cpu() for k, v in tensors.items()}, meta
+
+
+def _entry_latents_check(model, root: Path) -> dict:
+    """The latents of the first image of each size through the fp32 VAE
+    encoder, kernels against the plain versions (the same draw): rel L2
+    by image."""
+    from sdxl_training_improvements_tpu_torch.data.buckets import Bucket
+    from sdxl_training_improvements_tpu_torch.data.dataset import (
+        prepare_image_array)
+    from sdxl_training_improvements_tpu_torch.png import read_png, to_rgb
+    f = model.vae.config.downscale_factor
+    rels = {}
+    for i, (w, h) in zip((0, 4), ENTRY_IMAGE_SIZES):
+        name = f"{i:02d}.png"
+        arr, _, _ = prepare_image_array(
+            to_rgb(read_png(root / "images" / name)), Bucket(w, h))
+        px = torch.from_numpy(arr)[None].to(DEVICE)
+        noise = torch.randn(1, 4, h // f, w // f, device=DEVICE,
+                            generator=torch.Generator(DEVICE).manual_seed(SEED))
+        with torch.no_grad():
+            lat = model.encode_images(px, noise=noise)
+            with _plain_ops():
+                ref = model.encode_images(px, noise=noise)
+        rels[name] = ((lat - ref).norm() / ref.norm()).item()
+        log(f"phase 11 precompute latents ({name}, {w}x{h}), kernels vs "
+            f"plain: rel L2 {rels[name]:.3e} (tol "
+            f"{ENTRY_LATENT_REL_L2_TOL:g})")
+        check(rels[name] <= ENTRY_LATENT_REL_L2_TOL,
+              f"phase 11 latents {name} rel {rels[name]}")
+    return rels
+
+
+def _entry_precompute_rate(trainer, root: Path) -> dict:
+    """The trainer's own precompute (``SDXLTrainer._precompute_into``) over
+    ENTRY_BULK_UNIQUE * ENTRY_BULK_COPIES PNGs into a fresh cache: its
+    images/s and stage seconds."""
+    import shutil
+    from sdxl_training_improvements_tpu_torch.config import Config
+    from sdxl_training_improvements_tpu_torch.data.dataset import (
+        create_dataset)
+    src, bulk = root / "bulk_src", root / "bulk"
+    _entry_images(src, ENTRY_BULK_UNIQUE)
+    bulk.mkdir()
+    for png in sorted(src.glob("*.png")):
+        for r in range(ENTRY_BULK_COPIES):
+            for suffix in (".png", ".txt"):
+                shutil.copyfile(png.with_suffix(suffix),
+                                bulk / f"{png.stem}_{r:02d}{suffix}")
+    shutil.rmtree(src)
+    cfg = Config.from_yaml(_entry_config(root, "bulk", images="bulk",
+                                         cache="bulk_cache"))
+    ds = create_dataset(cfg)
+    trainer._precompute_into(ds, label="bulk")
+    stats = dict(ds.last_precompute_stats)
+    n = ENTRY_BULK_UNIQUE * ENTRY_BULK_COPIES
+    log(f"phase 11 precompute rate: {stats['images']} of {n} PNGs (all "
+        f"rows Paeth; {ENTRY_BULK_UNIQUE} seeded images, half at each of "
+        f"{ENTRY_IMAGE_SIZES}, each at {ENTRY_BULK_COPIES} paths) in "
+        f"{stats['seconds']:.3f} s: {stats['images_per_sec']:.3f} images/s "
+        f"(batch {cfg.training.batch_size}; stage seconds: decode "
+        f"{stats['stage_decode_cpu_s']} on the host's threads, encode "
+        f"{stats['stage_encode_device_s']}, waiting on decode "
+        f"{stats['stage_decode_wait_s']})")
+    check(stats["images"] == n, f"precompute cached {stats['images']} of {n}")
+    shutil.rmtree(bulk)
+    shutil.rmtree(root / "bulk_cache")
+    return stats
+
+
+def _entry_cached_batch(trainer, name: str) -> dict:
+    """A b1 batch of the cache's entry of image ``name``, on the card."""
+    ds = trainer.dataset
+    i = [Path(p).name for p in ds.image_paths].index(name)
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in ds.get_batch([i]).items()}
+
+
+def _entry_conv_cost(model, cfg, batch) -> dict:
+    """Device ms of the convolutions, and of all kernels, in one b1
+    forward and backward on ``batch`` under the profiler: with cuDNN's
+    deterministic algorithms (as the trainer runs) and with the process's
+    defaults (no autotuning either way)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdxl_training_improvements_tpu_torch.training.loop import (
+        deterministic_convolutions)
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    schedule = NoiseSchedule.from_config(cfg)
+    params = list(model.unet.parameters())
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    batch = dict(batch, timesteps=torch.tensor([500], device=DEVICE),
+                 noise=torch.randn(batch["vae_latents"].shape, generator=gen,
+                                   device=DEVICE))
+    res = {}
+    for label, ctx in (("deterministic", deterministic_convolutions),
+                       ("default", lambda _: ExitStack())):
+        with ctx(torch.device(DEVICE)):
+            _loss_and_grads(model, cfg, batch, schedule, params)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _loss_and_grads(model, cfg, batch, schedule, params)
+                torch.cuda.synchronize()
+        conv = total = 0.0
+        for e in prof.key_averages():
+            ms = max(e.self_device_time_total, 0) / 1e3
+            total += ms
+            if _kernel_group(e.key) == "convolution":
+                conv += ms
+        res[label] = dict(conv_ms=conv, total_ms=total)
+    shape = list(batch["vae_latents"].shape)
+    log(f"phase 11 cuDNN algorithms, one b1 forward+backward (latents "
+        f"{shape}), device ms of the convolutions / of all kernels: "
+        f"deterministic {res['deterministic']['conv_ms']:.2f} / "
+        f"{res['deterministic']['total_ms']:.2f}, default "
+        f"{res['default']['conv_ms']:.2f} / "
+        f"{res['default']['total_ms']:.2f}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_entry_point() -> dict:
+    """Phase 11: the training entry point, ``main.main``, at full
+    SDXL-base width on the recipe of ``configs/novelai_v3_1024.yaml``, as
+    the port's YAML reader loads it, over 8 seeded PNGs: run A
+    (ENTRY_EPOCHS epochs, no saves; one window of warm steps timed and
+    one profiled), then the precompute's rate over a larger set, the
+    kernels against plain on the landscape bucket, and run B (1 epoch
+    with the final checkpoint, then ``--resume`` to ENTRY_EPOCHS), whose
+    final parameters, optimizer state, step and generators must be
+    ``torch.equal`` to run A's."""
+    import shutil
+    from sdxl_training_improvements_tpu_torch.data.cache import CacheManager
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_entry_"))
+    n_steps = 2 * ENTRY_EPOCHS
+    try:
+        _entry_images(root / "images")
+        log(f"phase 11: config {NOVELAI_YAML.name} (BASELINE config 2: "
+            "ddpm, v-prediction, ZTSNR, MinSNR 5, adamw_bf16, bf16, "
+            "micro-batch 1, no remat) with these cuts: data, cache, log "
+            "and output paths in a temporary directory; "
+            "gradient_accumulation_steps 4 -> 1 (global batch 4 as 4 "
+            "micro-steps of 1; for time); model.pretrained_model_name -> "
+            f"a path that does not exist (seeded weights); num_epochs "
+            f"{ENTRY_EPOCHS} (run A), 1 then {ENTRY_EPOCHS} (run B); "
+            "logging.log_every 10 -> 1 in run B's first part only (its "
+            "metric lines); save_every 0, save_best false and "
+            "save_final_model false except run B's first part (final "
+            "checkpoint only); 8 seeded PNGs, 4 at 1024x1024 and 4 at "
+            "1216x832")
+        no_saves = dict(save_every=0, save_best=False)
+        cfg_a = _entry_config(root, "run_a", num_epochs=ENTRY_EPOCHS,
+                              save_final_model=False, **no_saves)
+        _zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, steps, windows = _run_main(
+            ["--config", str(cfg_a), "--output-dir", str(root / "out_a"),
+             "--device", DEVICE], timed=ENTRY_TIMED, profiled=ENTRY_PROFILED)
+        wall_s = time.perf_counter() - t0
+        launches = _launches(ENTRY_KERNELS)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats = trainer.dataset.last_precompute_stats
+        cache = CacheManager(root / "cache")
+        shapes = sorted(tuple(e["latent_shape"]) for e in cache.index.values())
+        log(f"phase 11 precompute in run A: {stats['images']} images, "
+            f"{stats['seconds']:.3f} s (a smoke reading, not a rate: the "
+            f"rate is timed below); cache latent shapes {shapes}")
+        f = trainer.model.vae.config.downscale_factor
+        check(shapes == sorted((4, h // f, w // f) for w, h in
+                               ENTRY_IMAGE_SIZES for _ in range(4)),
+              f"cache entries {shapes}")
+        for i, s in enumerate(steps):
+            log(f"phase 11 run A step {i + 1}: latents {s['shape']}, loss "
+                f"{s['loss']:.6f}")
+        check(len(steps) == n_steps and trainer.state.step == n_steps,
+              f"run A: {len(steps)} steps, state step {trainer.state.step}")
+        check(all(np.isfinite(s["loss"]) for s in steps),
+              "phase 11: a loss is not finite")
+        n_timed = ENTRY_TIMED[1] - ENTRY_TIMED[0] + 1
+        n_prof = ENTRY_PROFILED[1] - ENTRY_PROFILED[0] + 1
+        step_ms = windows["timed"] / n_timed
+        idle = _log_profile(windows["prof"], f"phase 11 run A steps "
+                            f"{ENTRY_PROFILED[0]}-{ENTRY_PROFILED[1]} "
+                            "(no syncs inside the window)",
+                            windows["profiled"])
+        busy_ms = (1 - idle) * windows["profiled"] / n_prof
+        log(f"phase 11 run A: main.main {wall_s:.2f} s (model build, "
+            f"precompute, {n_steps} steps); steps {ENTRY_TIMED[0]}-"
+            f"{ENTRY_TIMED[1]} {windows['timed']:.2f} ms from a synchronize "
+            f"before to one after ({step_ms:.2f} ms a step, log_every as "
+            f"configured); steps {ENTRY_PROFILED[0]}-{ENTRY_PROFILED[1]} "
+            f"profiled: {busy_ms:.2f} ms of device time a step, idle share "
+            f"{idle:.3f}; peak memory {peak_gb:.2f} GiB; launches "
+            f"{launches}")
+        for k, n in launches.items():
+            check(n > 0, f"kernel {k} was not launched on the entry path")
+        ref, ref_meta = _state_snapshot(trainer.state)
+        trainer.state = None
+        _free()
+        rate = _entry_precompute_rate(trainer, root)
+        rels = _entry_latents_check(trainer.model, root)
+        # the landscape bucket through the kernels and the plain versions
+        # (phase 3 holds each kernel at its sites)
+        batch = _entry_cached_batch(trainer, "04.png")
+        parity = phase_train_parity(
+            trainer.model, trainer.config, batch=batch,
+            kernels=tuple(k for k in TRAIN_KERNELS if k != "fused_adamw"))
+        conv = _entry_conv_cost(trainer.model, trainer.config, batch)
+        del trainer, batch
+        _free()
+
+        free_gb = shutil.disk_usage(root).free / 2 ** 30
+        log(f"phase 11 run B: free disk {free_gb:.1f} GiB before the save")
+        cfg_b1 = _entry_config(root, "run_b1", num_epochs=1, log_every=1,
+                               save_final_model=True, **no_saves)
+        trainer, steps_b1, _ = _run_main(
+            ["--config", str(cfg_b1), "--output-dir", str(root / "out_b"),
+             "--device", DEVICE])
+        save = dict(trainer.last_save)
+        del trainer
+        _free()
+        final = root / "out_b" / "final_checkpoint"
+        ckpt_gb = sum(f.stat().st_size for f in final.rglob("*")
+                      if f.is_file()) / 2 ** 30
+        log(f"phase 11 run B: {len(steps_b1)} steps, then the final "
+            f"checkpoint {ckpt_gb:.2f} GiB on disk (train state "
+            f"{save['state_gib']:.2f} GiB snapshot to host in "
+            f"{save['state_s']:.2f} s, written in the background; diffusers "
+            f"export {save['export_gib']:.2f} GiB in {save['export_s']:.2f} "
+            f"s; all on disk {save['join_s']:.2f} s after the export)")
+        cfg_b2 = _entry_config(root, "run_b2", num_epochs=ENTRY_EPOCHS,
+                               save_final_model=False, **no_saves)
+        trainer, steps_b2, _ = _run_main(
+            ["--config", str(cfg_b2), "--output-dir", str(root / "out_b"),
+             "--resume", "--device", DEVICE])
+        log(f"phase 11 run B: resumed in {trainer.restore_seconds:.2f} s, "
+            f"then {len(steps_b2)} steps; losses "
+            f"{[round(s['loss'], 6) for s in steps_b1 + steps_b2]} vs run "
+            f"A {[round(s['loss'], 6) for s in steps]}")
+        got, meta = _state_snapshot(trainer.state)
+        del trainer
+        _free()
+        differ = [k for k in ref if not torch.equal(ref[k], got[k])]
+        log(f"phase 11 resume vs uninterrupted: {len(ref)} tensors, "
+            f"{len(differ)} differ {differ[:3]}; step {meta['step']} vs "
+            f"{ref_meta['step']}; generators equal {meta == ref_meta}")
+        check(set(got) == set(ref) and not differ,
+              f"resume: tensors differ {differ[:3]}")
+        check(meta == ref_meta, "resume: step or generator states differ")
+        log_file = root / "logs" / "training.log"
+        metric_steps = {int(ln.split("metrics step=")[1].split()[0])
+                        for ln in log_file.read_text().splitlines()
+                        if "metrics step=" in ln}
+        log(f"phase 11 {log_file.name}: metric lines at steps "
+            f"{sorted(metric_steps)}")
+        check({1, 2} <= metric_steps,
+              "phase 11: run B's metric lines (log_every 1) missing")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not root.exists(), f"{root} was not deleted")
+    log(f"phase 11 wall time {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, steps=steps, step_ms=step_ms, idle=idle,
+                busy_ms=busy_ms, peak_gb=peak_gb, save=save,
+                checkpoint_gb=ckpt_gb, precompute=rate, latents=rels,
+                parity=parity, conv=conv)
 
 
 # operations per element of the elementwise kernels, on the fp32 units
@@ -1716,13 +2176,15 @@ def main() -> None:
     _free()
     fp16 = phase_fp16()
     fp32 = phase_fp32_training()
+    entry = phase_entry_point()
     # each main path's launches, counted from 0 just before it ran
     paths = {"serving (phase 5)": serving["launches"],
              **{f"rest of serving (phase 10): {k}": v
                 for k, v in rest.items()},
              "training (phase 6)": train["launches"],
              "fp16 (phase 8)": fp16["launches"],
-             "fp32 training (phase 9)": fp32["train"]["launches"]}
+             "fp32 training (phase 9)": fp32["train"]["launches"],
+             "training entry point (phase 11)": entry["launches"]}
     log(json.dumps(kernel_report(kernels, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

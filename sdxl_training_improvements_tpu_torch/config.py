@@ -1,22 +1,27 @@
-"""Typed configuration of the training slice, in plain dataclasses.
+"""Typed configuration tree, in plain dataclasses.
 
-Port of ``sdxl_training_improvements_tpu/config.py`` (``ModelConfig``,
-``OptimizerConfig``, ``TrainingConfig``, ``TPUConfig`` and the root
-``Config`` with ``from_dict``): the same fields, defaults and validation,
-so a config dict that the JAX package takes means the same here.  The
-``data`` / ``global_config`` / ``tag_weighting`` sections and
-``from_yaml`` are not ported yet (ROADMAP queue 1, data and loop; the
-card's machine has no pyyaml); ``from_dict`` ignores unknown sections as
-the JAX merge ignores unknown keys.  ``TPUConfig`` keeps its name and
-fields: the trainer reads ``remat``, ``micro_batch_size``,
-``grad_accum_dtype`` and ``sr_noise`` from it, and refuses the settings
-the port does not take yet.
+Port of ``sdxl_training_improvements_tpu/config.py``: every section
+(``model``, ``optimizer``, ``training``, ``data``, ``global_config.{cache,
+logging,image}``, ``tag_weighting``, ``tpu``) with the same fields,
+defaults and validation, and the root ``Config`` with ``from_dict``,
+``from_yaml`` and ``save_yaml``, so a config file that the JAX package
+takes means the same here.  The card's machine has no pyyaml: the files
+are read and written by the port's own reader of the configs' YAML subset
+(``_yaml.py``), which resolves scalars as ``yaml.safe_load`` does.
+Unknown keys are ignored, as in the JAX merge.  ``TPUConfig`` keeps its
+name and fields: the trainer reads ``remat``, ``micro_batch_size``,
+``grad_accum_dtype``, ``sr_noise``, ``async_checkpointing`` and
+``profile_dir`` from it, and refuses the settings the port does not take
+yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import asdict, dataclass, field
-from typing import Any, Dict, List, Optional
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Union
+
+from sdxl_training_improvements_tpu_torch import _yaml
 
 
 @dataclass
@@ -123,10 +128,96 @@ class TrainingConfig:
 
 
 @dataclass
+class ImageConfig:
+    supported_dims: List[List[int]] = field(
+        default_factory=lambda: [
+            [640, 1536],
+            [768, 1344],
+            [832, 1216],
+            [896, 1152],
+            [1024, 1024],
+            [1152, 896],
+            [1216, 832],
+            [1344, 768],
+            [1536, 640],
+        ]
+    )
+    max_aspect_ratio: float = 2.4
+    target_size: List[int] = field(default_factory=lambda: [1024, 1024])
+    max_size: List[int] = field(default_factory=lambda: [1536, 1536])
+    min_size: List[int] = field(default_factory=lambda: [384, 384])
+    bucket_step: int = 64
+
+
+@dataclass
+class CacheConfig:
+    cache_dir: Union[str, Path] = "cache"
+    max_cache_size: int = 10000
+    use_cache: bool = True
+    cache_latents: bool = True
+    cache_text_embeddings: bool = True
+    # one cache per host under <cache_dir>/host-NNN (multi-process runs;
+    # the port runs one process, ROADMAP queue 1 item 14)
+    partitioned: bool = False
+
+    @property
+    def persistent(self) -> bool:
+        """Whether the precompute cache persists on disk across runs: any
+        of the three knobs false puts it in a per-run temporary directory
+        (precompute still runs; JAX ``CacheConfig.persistent``)."""
+        return bool(self.use_cache and self.cache_latents
+                    and self.cache_text_embeddings)
+
+
+@dataclass
+class LoggingConfig:
+    use_wandb: bool = False
+    wandb_project: str = "sdxl-training"
+    wandb_entity: Optional[str] = None
+    log_dir: str = "logs"
+    filename: str = "training.log"
+    console_level: str = "INFO"
+    file_level: str = "DEBUG"
+    capture_warnings: bool = True
+    log_every: int = 10
+
+
+@dataclass
+class DataConfig:
+    train_data_dir: Union[str, List[str]] = field(
+        default_factory=lambda: ["data/train"])
+    validation_data_dir: Optional[Union[str, List[str]]] = None
+    image_size: int = 1024
+    center_crop: bool = True
+    random_flip: bool = True
+    tokenizer_max_length: int = 77
+    validation_prompts: List[str] = field(default_factory=list)
+
+
+@dataclass
+class GlobalConfig:
+    cache: CacheConfig = field(default_factory=CacheConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    image: ImageConfig = field(default_factory=ImageConfig)
+
+
+@dataclass
+class TagWeightingConfig:
+    enable_tag_weighting: bool = False
+    use_cache: bool = True
+    required: bool = False
+    min_weight: float = 0.1
+    max_weight: float = 3.0
+    default_weight: float = 1.0
+    smoothing_factor: float = 0.05
+
+
+@dataclass
 class TPUConfig:
     """Device and step settings.  The name and fields are the JAX
     package's; on the card ``mesh_shape``/``shard_params`` have no
-    counterpart yet (ROADMAP queue 1, multi-GPU)."""
+    counterpart yet (ROADMAP queue 1, item 14: the trainer refuses a mesh
+    of more than one device)."""
 
     mesh_shape: Optional[List[int]] = None
     axis_names: List[str] = field(
@@ -178,6 +269,10 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    global_config: GlobalConfig = field(default_factory=GlobalConfig)
+    tag_weighting: TagWeightingConfig = field(
+        default_factory=TagWeightingConfig)
     tpu: TPUConfig = field(default_factory=TPUConfig)
 
     def to_dict(self) -> Dict[str, Any]:
@@ -199,6 +294,22 @@ class Config:
         _merge_into_dataclass(cfg, raw)
         cfg.tpu.__post_init__()  # validate the merged values
         return cfg
+
+    @classmethod
+    def from_yaml(cls, path: Union[str, Path]) -> "Config":
+        """The config in the YAML file at ``path`` over the defaults; a
+        missing file gives ``Config()``, as in the JAX package."""
+        path = Path(path)
+        if not path.exists():
+            return cls()
+        raw = _yaml.load_file(path) or {}
+        if not isinstance(raw, dict):
+            raise ValueError(f"{path}: the config must be a mapping at the "
+                             f"top level, got {type(raw).__name__}")
+        return cls.from_dict(raw)
+
+    def save_yaml(self, path: Union[str, Path]) -> None:
+        Path(path).write_text(_yaml.dump(self.to_dict()), encoding="utf-8")
 
 
 def _merge_into_dataclass(obj: Any, data: Dict[str, Any]) -> Any:

@@ -14,9 +14,10 @@ fp32, the VAE fp32.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, FrozenSet, Optional
 
 import torch
 from torch import nn
@@ -79,6 +80,9 @@ class SDXLModel:
     # None for the refiner: CLIP-G conditioning only, no text_encoder/
     clip_l: Optional[CLIPTextModel]
     clip_g: CLIPTextModel
+    # the components loaded from a checkpoint by from_config; None when
+    # every component holds seeded weights
+    imported: Optional[FrozenSet[str]] = None
 
     @classmethod
     def create(cls, *, tiny: bool = False, dtype=torch.bfloat16,
@@ -145,35 +149,57 @@ class SDXLModel:
     def from_config(cls, config, *, device="cuda",
                     generator: Optional[torch.Generator] = None
                     ) -> "SDXLModel":
-        """The bundle ``config`` (a root ``Config``) asks for, with seeded
-        weights, as JAX ``training/loop.py``'s ``_load_model`` builds it:
+        """The bundle ``config`` (a root ``Config``) asks for, as JAX
+        ``training/loop.py``'s ``_load_model`` builds it for training:
         ``training.mixed_precision`` through ``Policy.from_mixed_precision``,
         ``tpu.remat`` / ``tpu.remat_policy`` into the UNet's config, the
-        miniature where ``model.model_type`` is ``sdxl_tiny``.  The
-        training loop's checkpoint import is not ported (ROADMAP queue 1,
-        item 12), so a local checkpoint directory in
-        ``model.pretrained_model_name`` raises; serving loads one with
-        ``SDXLPipeline.from_pretrained``."""
+        miniature where ``model.model_type`` is ``sdxl_tiny``.
+
+        When ``model.pretrained_model_name`` is a local diffusers-layout
+        directory, the UNet's topology comes from its ``unet/config.json``
+        (a refiner, 5 time ids, builds no CLIP-L), every component present
+        on disk is loaded into the seeded bundle (``imported`` names
+        them), and an inpainting checkpoint (a UNet taking more channels
+        than the VAE's latents) raises: training has no source for the
+        mask channels.  Otherwise every weight is seeded from
+        ``generator``."""
         key = config.model.model_type.strip().lower().replace("-", "_")
         types = ("base", "inpainting", "refiner", "sdxl", "sdxl_tiny")
         if key not in types + ("tiny",):
             raise ValueError(f"Unknown model type: "
                              f"{config.model.model_type!r}. Valid: "
                              f"{list(types)}")
-        if Path(config.model.pretrained_model_name).exists():
-            raise NotImplementedError(
-                f"{config.model.pretrained_model_name}: checkpoint import "
-                "into training is not ported yet (ROADMAP queue 1, item "
-                "12); from_config builds seeded weights (serving: "
-                "SDXLPipeline.from_pretrained)")
         tiny = key in ("sdxl_tiny", "tiny")
-        ucfg = (UNetConfig.tiny if tiny else UNetConfig.sdxl)(
-            remat=config.tpu.remat, remat_policy=config.tpu.remat_policy)
-        return cls.create(
+        remat = dict(remat=config.tpu.remat,
+                     remat_policy=config.tpu.remat_policy)
+        local = Path(config.model.pretrained_model_name)
+        declared = None
+        if local.exists():
+            from sdxl_training_improvements_tpu_torch.pipelines import (
+                SDXLPipeline)
+            declared = SDXLPipeline.declared_unet_config(local)
+        ucfg = ((UNetConfig.tiny if tiny else UNetConfig.sdxl)(**remat)
+                if declared is None else dataclasses.replace(declared,
+                                                             **remat))
+        model = cls.create(
             tiny=tiny,
             policy=Policy.from_mixed_precision(
                 config.training.mixed_precision),
-            device=device, generator=generator, unet_config=ucfg)
+            device=device, generator=generator, unet_config=ucfg,
+            refiner=ucfg.num_time_ids == 5)
+        if ucfg.in_channels != model.vae.config.latent_channels:
+            raise ValueError(
+                f"checkpoint declares in_channels={ucfg.in_channels} (an "
+                "inpainting-style UNet) but fine-tuning provides "
+                f"{model.vae.config.latent_channels}-channel latents only. "
+                "Inpainting checkpoints are supported for inference "
+                "(SDXLPipeline.from_pretrained / inpaint), not yet for "
+                "training.")
+        if local.exists():
+            from sdxl_training_improvements_tpu_torch.training.checkpoints \
+                import import_diffusers
+            model.imported = frozenset(import_diffusers(model, local))
+        return model
 
     @property
     def unet_config(self) -> UNetConfig:

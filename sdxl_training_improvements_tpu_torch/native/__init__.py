@@ -1,0 +1,106 @@
+"""Native (C++) image library: built by g++ at first use, bound by ctypes.
+
+``prepare_image_native`` fuses Lanczos3 resize -> crop -> flip -> [-1, 1]
+float32 CHW in OpenMP-parallel C++ (``image_ops.cpp``, the JAX package's
+arithmetic, so both packages prepare an image to the same bits);
+``png_unfilter`` undoes the PNG row filters for ``png.read_png``.
+
+The library is compiled into the package's ``_build/`` directory, named by
+a hash of the source and the flags.  The JAX package falls back to PIL
+when the build fails; the port has no such fallback (the card's machine
+has no Pillow), so a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+_SRC = Path(__file__).resolve().parent / "image_ops.cpp"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
+
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_F32P = ctypes.POINTER(ctypes.c_float)
+_INTP = ctypes.POINTER(ctypes.c_int)
+
+
+def build() -> Path:
+    """The shared library, compiled unless an up-to-date one exists."""
+    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(FLAGS).encode()
+                            ).hexdigest()[:16]
+    lib = BUILD_DIR / f"libimage_ops_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(["g++", *FLAGS, str(_SRC), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed to build {_SRC}:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    lib.prepare_image.restype = ctypes.c_int
+    lib.prepare_image.argtypes = [
+        _U8P, ctypes.c_int, ctypes.c_int,  # src, sh, sw
+        _F32P, ctypes.c_int, ctypes.c_int,  # dst, th, tw
+        ctypes.c_int, ctypes.c_int,  # crop_top, crop_left
+        ctypes.c_int, ctypes.c_int,  # rh, rw
+        ctypes.c_int,  # flip
+    ]
+    lib.png_unfilter.restype = ctypes.c_int
+    lib.png_unfilter.argtypes = [_U8P, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, _U8P, _INTP]
+    return lib
+
+
+def prepare_image_native(rgb: np.ndarray, target_h: int, target_w: int,
+                         crop_top: int, crop_left: int, resized_h: int,
+                         resized_w: int, flip: bool = False) -> np.ndarray:
+    """uint8 HWC RGB -> float32 CHW in [-1, 1]: resized to (resized_h,
+    resized_w), the (target_h, target_w) window at (crop_top, crop_left),
+    mirrored when ``flip``."""
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected HWC RGB uint8, got {rgb.shape}")
+    sh, sw = rgb.shape[:2]
+    out = np.empty((3, target_h, target_w), dtype=np.float32)
+    rc = load().prepare_image(
+        rgb.ctypes.data_as(_U8P), sh, sw, out.ctypes.data_as(_F32P),
+        target_h, target_w, crop_top, crop_left, resized_h, resized_w,
+        int(flip))
+    if rc != 0:
+        raise ValueError(f"prepare_image failed with code {rc} (source "
+                         f"{sh}x{sw}, resized {resized_h}x{resized_w}, "
+                         f"crop {target_h}x{target_w} at ({crop_top}, "
+                         f"{crop_left}))")
+    return out
+
+
+def png_unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The PNG row filters of ``data`` (h rows of a filter byte and
+    ``stride`` bytes) undone: [h, stride] uint8."""
+    if len(data) != h * (stride + 1):
+        raise ValueError(f"PNG data is {len(data)} bytes, expected "
+                         f"{h * (stride + 1)}")
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((h, stride), np.uint8)
+    bad = ctypes.c_int(-1)
+    rc = load().png_unfilter(src.ctypes.data_as(_U8P), h, stride, bpp,
+                             out.ctypes.data_as(_U8P), ctypes.byref(bad))
+    if rc != 0:
+        row = bad.value
+        raise ValueError(f"PNG row {row}: unknown filter type "
+                         f"{src[row * (stride + 1)]}")
+    return out

@@ -1,9 +1,12 @@
 """PNG files with the standard library and numpy.
 
-The card's machine has no Pillow, so ``generate.py`` writes and reads PNGs
-here: ``write_png`` writes 8-bit gray or RGB (filter 0 on every row,
-zlib); ``read_png`` reads non-interlaced 8-bit gray, gray+alpha, RGB and
-RGBA with any of the five row filters.  ``to_rgb`` and ``to_gray`` convert
+The card's machine has no Pillow, so ``generate.py`` and the dataset
+write and read PNGs here: ``write_png`` writes 8-bit gray or RGB (filter 0
+on every row, zlib); ``read_png`` reads non-interlaced 8-bit gray,
+gray+alpha, RGB and RGBA with any of the five row filters, undone in C++
+(``native.png_unfilter``; ``_unfilter`` is its plain numpy/Python version,
+which the tests hold it against byte for byte); ``read_png_size`` reads
+the size from the IHDR chunk alone.  ``to_rgb`` and ``to_gray`` convert
 as Pillow's ``convert("RGB")`` / ``convert("L")`` do (alpha dropped, not
 composited; ITU-R 601-2 luma in 16-bit fixed point).
 """
@@ -14,6 +17,8 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+from sdxl_training_improvements_tpu_torch import native
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> channels (0 gray, 2 RGB, 4 gray + alpha, 6 RGBA)
@@ -51,7 +56,8 @@ def _paeth(a: int, b: int, c: int) -> int:
 
 
 def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """The PNG row filters undone: [h, stride] uint8."""
+    """The PNG row filters undone: [h, stride] uint8 (the plain version of
+    ``native.png_unfilter``)."""
     if len(data) != h * (stride + 1):
         raise ValueError(f"PNG data is {len(data)} bytes, expected "
                          f"{h * (stride + 1)}")
@@ -115,8 +121,19 @@ def read_png(path) -> np.ndarray:
             f"{interlace}: only non-interlaced 8-bit gray, gray+alpha, RGB "
             "and RGBA are read")
     c = _CHANNELS[color]
-    out = _unfilter(zlib.decompress(b"".join(idat)), h, w * c, c)
+    out = native.png_unfilter(zlib.decompress(b"".join(idat)), h, w * c, c)
     return out.reshape(h, w) if c == 1 else out.reshape(h, w, c)
+
+
+def read_png_size(path) -> tuple:
+    """(width, height) from the IHDR chunk, which a PNG file starts with;
+    any other file raises, naming it."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file (the port reads PNG "
+                         "images only)")
+    return struct.unpack(">II", head[16:24])
 
 
 def to_rgb(a: np.ndarray) -> np.ndarray:

@@ -1,10 +1,13 @@
-"""Diffusers-layout checkpoint export and import, in PyTorch.
+"""Checkpoints: the train state for resume, and the diffusers-layout export.
 
-Port of ``export_diffusers``/``_write_diffusers`` and ``import_diffusers``
-from ``sdxl_training_improvements_tpu/training/checkpoints.py``
-(``:148-208``, ``:324-359``), on the port's own safetensors reader and
-writer (``models/weights.py``).  The files are the JAX package's:
+Port of ``sdxl_training_improvements_tpu/training/checkpoints.py``, on the
+port's own safetensors reader and writer (``models/weights.py``).  A
+checkpoint directory holds::
 
+    state/train_state.safetensors   every parameter and optimizer-state
+                                    tensor, under stable names
+    state/train_state.json          step, the optimizer's scalars and the
+                                    CPU generators' states
     unet/diffusion_pytorch_model.safetensors  (+ unet/config.json)
     vae/diffusion_pytorch_model.safetensors
     text_encoder/model.safetensors            (CLIP-L; absent: refiner)
@@ -12,15 +15,28 @@ writer (``models/weights.py``).  The files are the JAX package's:
     scheduler/scheduler_config.json           (optional)
     config.json                               (the port's Config)
 
-Train-state save/resume and LoRA export are not ported (ROADMAP queue 1,
-item 12).
+``state/`` is written as ``state.tmp/`` and renamed when complete (the JAX
+package's Orbax tmp-dir commit), so ``latest_checkpoint`` never sees a
+torn save.  ``save_train_state(blocking=False)`` (``tpu.
+async_checkpointing``) snapshots the state to host memory and writes it on
+a worker thread; ``wait_for_saves`` joins it and re-raises its errors.
+The generators are part of the state: the train state's draws every
+sample's noise and timestep, the bf16 AdamW's every leaf's rounding
+seeds, so a resume that dropped them would be a different run.  LoRA
+export and import are not ported (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Set
+from typing import Dict, List, Mapping, Optional, Set, Tuple
 
+import torch
 from torch import nn
 
 from sdxl_training_improvements_tpu_torch.models import weights as W
@@ -92,3 +108,162 @@ def import_diffusers(model, model_dir) -> Set[str]:
         W.load_component(module, model_dir / sub)
         loaded.add(name)
     return loaded
+
+
+# ------------------------------------------------------------ train state
+STATE_TENSORS = "train_state.safetensors"
+STATE_META = "train_state.json"
+_POOL: Optional[ThreadPoolExecutor] = None
+_PENDING: List[Future] = []
+_LOCK = threading.Lock()
+
+
+def _pool() -> ThreadPoolExecutor:
+    global _POOL
+    if _POOL is None:
+        _POOL = ThreadPoolExecutor(max_workers=1,
+                                   thread_name_prefix="ckpt-state")
+    return _POOL
+
+
+def wait_for_saves() -> None:
+    """Block until every in-flight state save is on disk; re-raise the
+    first failure.  Safe with nothing pending."""
+    global _PENDING
+    with _LOCK:
+        pending, _PENDING = _PENDING, []
+    for fut in pending:
+        fut.result()
+
+
+def _generator_state(gen: torch.Generator) -> str:
+    return bytes(gen.get_state().tolist()).hex()
+
+
+def _set_generator_state(gen: torch.Generator, text: str) -> None:
+    gen.set_state(torch.tensor(list(bytes.fromhex(text)), dtype=torch.uint8))
+
+
+def flatten_train_state(state) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """(tensors by stable name, JSON-able scalars) of a ``TrainState``:
+    ``params.<name>``, ``opt.<field>.<name>`` for each dict field of the
+    optimizer state (moments, shift, decay phases), and the step, the
+    optimizer's integer fields and every CPU generator's state."""
+    tensors = {f"params.{n}": p for n, p in state.params.items()}
+    opt = state.opt_state
+    meta = {"step": int(state.step), "generator":
+            _generator_state(state.generator),
+            "optimizer": type(opt).__name__, "optimizer_fields": {}}
+    for f in dataclasses.fields(opt):
+        value = getattr(opt, f.name)
+        if isinstance(value, dict):
+            tensors.update({f"opt.{f.name}.{n}": t for n, t in value.items()})
+        elif isinstance(value, torch.Generator):
+            meta["optimizer_fields"][f.name] = {
+                "generator": _generator_state(value)}
+        elif isinstance(value, int):
+            meta["optimizer_fields"][f.name] = value
+        else:
+            raise TypeError(f"optimizer state field {f.name!r} of type "
+                            f"{type(value).__name__} cannot be saved")
+    return tensors, meta
+
+
+def _write_state(ckpt_dir: Path, tensors: Mapping[str, torch.Tensor],
+                 meta: dict) -> None:
+    tmp, final, old = (ckpt_dir / "state.tmp", ckpt_dir / "state",
+                       ckpt_dir / "state.old")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    W.save_safetensors(tensors, tmp / STATE_TENSORS)
+    (tmp / STATE_META).write_text(json.dumps(meta, indent=1))
+    if final.exists():
+        shutil.rmtree(old, ignore_errors=True)
+        os.replace(final, old)
+    os.replace(tmp, final)
+    shutil.rmtree(old, ignore_errors=True)
+
+
+def save_train_state(ckpt_dir, state, config=None,
+                     blocking: bool = True) -> int:
+    """Save ``state`` (a ``TrainState``) under ``ckpt_dir/state``; returns
+    the bytes of its tensors.
+
+    ``blocking=False``: the tensors are first copied to host memory (the
+    full train state: parameters and optimizer state), and the files are
+    written on a worker thread; the caller may update the state as soon
+    as this returns.  At most one save is in flight.  Call
+    ``wait_for_saves`` before reading the checkpoint back or exiting."""
+    ckpt_dir = Path(ckpt_dir).absolute()
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    tensors, meta = flatten_train_state(state)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    if config is not None:
+        (ckpt_dir / "config.json").write_text(
+            json.dumps(config.to_dict(), indent=2, default=str))
+    wait_for_saves()
+    if blocking:
+        _write_state(ckpt_dir, tensors, meta)
+        return nbytes
+    snapshot = {k: t.detach().to("cpu", memory_format=torch.contiguous_format,
+                                 copy=True)
+                for k, t in tensors.items()}
+    fut = _pool().submit(_write_state, ckpt_dir, snapshot, meta)
+    with _LOCK:
+        _PENDING.append(fut)
+    return nbytes
+
+
+def restore_train_state(ckpt_dir, template_state):
+    """Load ``ckpt_dir/state`` into ``template_state`` in place (its
+    tensors keep their device, dtype and layout) and return it.  Every
+    tensor of the template must be in the file with its shape and dtype,
+    and nothing else."""
+    wait_for_saves()  # a just-issued save of this directory commits first
+    sdir = Path(ckpt_dir).absolute() / "state"
+    meta = json.loads((sdir / STATE_META).read_text())
+    tensors, _ = flatten_train_state(template_state)
+    saved = W.read_safetensors(sdir / STATE_TENSORS)
+    if set(saved) != set(tensors) or meta["optimizer"] != type(
+            template_state.opt_state).__name__:
+        missing = sorted(set(tensors) - set(saved))[:3]
+        extra = sorted(set(saved) - set(tensors))[:3]
+        raise ValueError(
+            f"{sdir} does not match this run's train state (optimizer "
+            f"{meta['optimizer']} vs {type(template_state.opt_state).__name__}"
+            f"; missing e.g. {missing}, unexpected e.g. {extra})")
+    with torch.no_grad():
+        for k, t in tensors.items():
+            src = saved[k]
+            if src.shape != t.shape or src.dtype != t.dtype:
+                raise ValueError(f"{sdir}: {k} is {src.dtype} "
+                                 f"{list(src.shape)}, the run's "
+                                 f"{t.dtype} {list(t.shape)}")
+            t.copy_(src)
+    del saved
+    template_state.step = meta["step"]
+    _set_generator_state(template_state.generator, meta["generator"])
+    opt = template_state.opt_state
+    for name, value in meta["optimizer_fields"].items():
+        if isinstance(value, dict):
+            _set_generator_state(getattr(opt, name), value["generator"])
+        else:
+            setattr(opt, name, value)
+    return template_state
+
+
+def latest_checkpoint(output_dir) -> Optional[Path]:
+    """Most recently written checkpoint under ``output_dir`` (``--resume``
+    with no directory), by the mtime of its ``state/``: a fixed name-based
+    preference could roll a resumed run back to a stale state."""
+    output_dir = Path(output_dir)
+    if not output_dir.exists():
+        return None
+    candidates = list(output_dir.glob("checkpoint-*"))
+    for name in ("final_checkpoint", "best_checkpoint"):
+        if (output_dir / name).exists():
+            candidates.append(output_dir / name)
+    with_state = [c for c in candidates if (c / "state").exists()]
+    if not with_state:
+        return None
+    return max(with_state, key=lambda c: (c / "state").stat().st_mtime)

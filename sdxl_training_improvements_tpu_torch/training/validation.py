@@ -7,17 +7,23 @@ walks the sigma-space samplers (the ZTSNR Karras-Euler or DPM++(2M)),
 the img2img entry, the inpainting channels and the base->refiner handoff;
 aesthetic-score rows for 5-time-id (refiner) UNets; and
 ``latents_to_images``.  Mesh serving is not ported (ROADMAP queue 1, item
-14): passing a mesh raises.
+14): passing a mesh raises.  The training loop's pieces: ``ValidationLogger``
+(sample the validation prompts, write PNGs with ``png.write_png``, log
+them) and ``validation_loss`` (the training method's loss over held-out
+batches, deterministic across calls).
 """
 from __future__ import annotations
 
 import math
+from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from sdxl_training_improvements_tpu_torch.png import write_png
 from sdxl_training_improvements_tpu_torch.training import schedules as S
+from sdxl_training_improvements_tpu_torch.training.methods import get_method
 
 
 def latents_to_images(decoded: torch.Tensor) -> List[np.ndarray]:
@@ -235,3 +241,85 @@ class ValidationSampler:
         if return_latents:
             return latents
         return latents_to_images(self.model.decode_latents(latents))
+
+
+class ValidationLogger:
+    """Periodic sampling + PNG save + image-sink logging (the reference
+    ``ValidationLogger.run_validation`` intent, ``validation.py:33-92``)."""
+
+    def __init__(self, sampler: ValidationSampler, prompts: Sequence[str],
+                 output_dir, logger=None, height: int = 1024,
+                 width: int = 1024):
+        self.sampler = sampler
+        self.prompts = list(prompts)
+        self.output_dir = Path(output_dir)
+        self.logger = logger
+        self.height, self.width = height, width
+
+    def run_validation(self, step: int,
+                       generator: Optional[torch.Generator] = None
+                       ) -> List[Path]:
+        """One image per prompt from the sampler's model as it stands,
+        written to ``validation-<step>/NN.png``; the draws come from a
+        generator seeded with ``step`` unless one is given."""
+        if generator is None:
+            generator = torch.Generator(
+                device=self.sampler.model.device).manual_seed(step)
+        images = self.sampler.generate(self.prompts, generator,
+                                       self.height, self.width)
+        out_dir = self.output_dir / f"validation-{step:06d}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        paths = []
+        for i, img in enumerate(images):
+            p = out_dir / f"{i:02d}.png"
+            try:
+                write_png(p, img)
+                paths.append(p)
+            except OSError as e:  # disk full / unwritable dir: say so
+                if self.logger is not None:
+                    self.logger.warning(
+                        f"validation image save failed for {p}: {e}")
+        if self.logger is not None:
+            self.logger.log_images(
+                {f"validation/{i:02d}": img for i, img in enumerate(images)},
+                step=step)
+            self.logger.info(f"Validation images at step {step} -> {out_dir}")
+        return paths
+
+
+def validation_loss(unet_apply, dataset, schedule, config, seed: int,
+                    max_batches: int = 8, num_time_ids: int = 6,
+                    device="cuda") -> Optional[float]:
+    """Mean training-method loss over the validation set, under
+    ``torch.no_grad``.
+
+    Deterministic across calls: the epoch-0 batch order, and batch ``i``'s
+    draws from its own generator seeded by ``(seed, i)`` (JAX's
+    ``fold_in(key, i)``), so epoch-over-epoch values are comparable; this
+    is what drives best-checkpoint selection when
+    ``data.validation_data_dir`` is set."""
+    from sdxl_training_improvements_tpu_torch.data.pipeline import (
+        adapt_batch_time_ids, batches_for_epoch)
+
+    loss_fn = get_method(config.training.method)
+    mcfg = config.model
+    losses = []
+    with torch.no_grad():
+        for i, batch in enumerate(batches_for_epoch(
+                dataset, config.training.batch_size, epoch=0,
+                seed=config.training.seed)):
+            if i >= max_batches:
+                break
+            if num_time_ids != 6:  # refiner fine-tune: 5-id conditioning
+                batch = adapt_batch_time_ids(
+                    batch, num_time_ids,
+                    getattr(mcfg, "aesthetic_score", 6.0))
+            gen = torch.Generator(device=device).manual_seed(
+                seed * 100003 + i)
+            tbatch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                      for k, v in batch.items()}
+            loss, _ = loss_fn(unet_apply, tbatch, gen, schedule, mcfg)
+            losses.append(loss.detach())
+    if not losses:
+        return None
+    return float(np.mean(torch.stack(losses).double().cpu().numpy()))

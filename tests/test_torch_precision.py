@@ -25,6 +25,7 @@ CPU, with the same numpy inputs and the flax modules' own parameters:
   of pyyaml, holds the YAML's settings.
 """
 import dataclasses
+import json
 from pathlib import Path
 
 import jax
@@ -44,6 +45,7 @@ from sdxl_training_improvements_tpu.training.optimizers import (
 from sdxl_training_improvements_tpu_torch import config as TC
 from sdxl_training_improvements_tpu_torch.core import types as TT
 from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
+from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
 from sdxl_training_improvements_tpu_torch.models.weights import (
     from_jax_params)
 from sdxl_training_improvements_tpu_torch.training import schedules as TS
@@ -171,7 +173,11 @@ def test_from_config_refusals(tmp_path):
         SDXLModel.from_config(TC.Config.from_dict(
             {"model": {"model_type": "tiny"},
              "training": {"mixed_precision": "fp8"}}), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint import"):
+    # a local checkpoint is imported now; an inpainting one is refused
+    (tmp_path / "unet").mkdir()
+    (tmp_path / "unet" / "config.json").write_text(json.dumps(
+        UNetConfig.tiny(in_channels=9).to_diffusers_config()))
+    with pytest.raises(ValueError, match="inpainting"):
         SDXLModel.from_config(TC.Config.from_dict(
             {"model": {"model_type": "sdxl_tiny",
                        "pretrained_model_name": str(tmp_path)}}),
