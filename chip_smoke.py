@@ -86,7 +86,30 @@ Phases, each printing what it found:
    and restore times), whose parameters, optimizer state, step and
    generators must be ``torch.equal`` to run A's; the log's metric lines;
    the directory deleted.  Phase 3 also holds the bf16 GN+SiLU and flash
-   kernels at the 1216x832 bucket's sites (S = 3952 and 988).
+   kernels at the 1216x832 bucket's sites (S = 3952 and 988);
+12. the remaining training features, after phase 11 with its models
+   freed, each at full SDXL-base width on phase 11's recipe and cuts:
+   (12a) ``main.main`` with LoRA (rank 4, the default targets) and EMA
+   0.9999 over phase 11's PNGs, 2 epochs with steps 3-4 profiled (device
+   time, idle share, the update's ms by CUDA events, peak memory,
+   launches); on its model, with seeded trees, the merge path against
+   the branch path (dropout 0), the LoRA gradients through the kernels
+   against the kernels' plain versions at a trained adapter's scale, and
+   with adapters outweighing the base every bf16 path's and the fp32
+   kernels' gradients against an fp32 plain reference; then 1 epoch with the
+   final checkpoint, whose adapter (``import_lora``) and merged UNet are
+   read back ``torch.equal``, and ``--resume`` to 2 epochs, ``torch.equal``
+   to the uninterrupted run; (12b-12e) on one seeded model, its UNet
+   reset before each, ``make_optimizer`` -> ``make_train_step`` ->
+   ``create_train_state`` at b4 1024^2: schedule-free (3 steps, warmup 2;
+   ``eval_params`` is x), SOAP (the install, then Adam with a QR refresh;
+   its memory reckoned from the UNet's shapes and cut by ``SOAP_CUTS``
+   until it fits) and adamw_bf16 with int8 moments (3 steps; 4 state
+   bytes a parameter; one [10240, 1280] leaf through dequantize -> the
+   CUDA fused AdamW -> quantize ``torch.equal`` to the plain chain), and
+   (12e) adamw_bf16 with an EMA shadow of the whole UNet (2 steps);
+   each sub-path's loss, state and peak GiB, step profile and launches;
+   and each new state's resume through ``main.main`` on the tiny model.
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (``launches``: the sum over the main paths, ``launches_by_path``:
@@ -99,6 +122,7 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import math
 import statistics
 import struct
 import subprocess
@@ -799,6 +823,27 @@ def _plain_ops():
     stack.enter_context(mock.patch.object(
         layers, "dot_product_attention",
         attention.dot_product_attention_reference))
+    return stack
+
+
+def _kernels_plain_versions():
+    """The flash and GN+SiLU autograd Functions with each kernel replaced
+    by its plain version (``*_reference``), as phase 3 holds them: the
+    backward keeps the kernels' formulas (Delta = rowsum(dO * O) from the
+    saved 16-bit output), where ``_plain_ops``'s attention lets autograd
+    differentiate the softmax."""
+    from sdxl_training_improvements_tpu_torch.ops import flash_attention
+    from sdxl_training_improvements_tpu_torch.ops import groupnorm
+    stack = ExitStack()
+    for module, name, plain in (
+            (flash_attention, "flash_attention_fwd_cuda",
+             flash_attention.flash_attention_fwd_reference),
+            (flash_attention, "flash_attention_bwd_cuda",
+             flash_attention.flash_attention_bwd_reference),
+            (groupnorm, "gn_silu_fwd_cuda", groupnorm.gn_silu_fwd_reference),
+            (groupnorm, "gn_silu_bwd_cuda",
+             groupnorm.groupnorm_silu_backward_reference)):
+        stack.enter_context(mock.patch.object(module, name, plain))
     return stack
 
 
@@ -1683,14 +1728,16 @@ def _entry_images(folder: Path, n: int = 8) -> None:
         (folder / f"{i:02d}.txt").write_text(ENTRY_CAPTIONS[i % 4])
 
 
-def _run_main(argv, timed=None, profiled=None) -> tuple:
+def _run_main(argv, timed=None, profiled=None, events=False) -> tuple:
     """``main.main(argv)`` on the card: (its trainer, each step's latents
     shape and loss, the windows' wall ms and the profiled window's
     profiler).  The losses stay on the device until the run has ended, so
     the loop's own reads are its only host syncs; ``timed`` and
     ``profiled`` are (first, last) step numbers of a window timed from a
     synchronize before its first step's call to one after its last
-    step's return, the second under the profiler."""
+    step's return, the second under the profiler.  ``events``: each step
+    also records the train step's CUDA events, read after the run as its
+    forward+backward, clip and optimizer ms."""
     from torch.profiler import ProfilerActivity, profile
 
     from sdxl_training_improvements_tpu_torch import main as entry
@@ -1713,9 +1760,11 @@ def _run_main(argv, timed=None, profiled=None) -> tuple:
                             profile(activities=[ProfilerActivity.CUDA]))
                     torch.cuda.synchronize()
                     windows[name] = time.perf_counter()
-            state, metrics = step(state, batch)
+            ev = {} if events else None
+            state, metrics = step(state, batch, ev)
             steps.append(dict(loss=metrics["loss"].detach(),
-                              shape=list(batch["vae_latents"].shape)))
+                              shape=list(batch["vae_latents"].shape),
+                              events=ev))
             for name, (_, last) in spans.items():
                 if n == last:
                     torch.cuda.synchronize()
@@ -1735,7 +1784,18 @@ def _run_main(argv, timed=None, profiled=None) -> tuple:
     check(rc == 0, f"main.main exit code {rc}")
     for s in steps:
         s["loss"] = s["loss"].item()
+        ev = s.pop("events")
+        if ev:
+            s.update(_event_ms(ev))
     return trainers[0], steps, windows
+
+
+def _event_ms(ev: dict) -> dict:
+    """A train step's CUDA events (``make_train_step``'s ``events``) as
+    the ms of its forward+backward, clip and optimizer parts."""
+    return dict(fwd_bwd_ms=ev["start"].elapsed_time(ev["backward"]),
+                clip_ms=ev["backward"].elapsed_time(ev["clip"]),
+                opt_ms=ev["clip"].elapsed_time(ev["update"]))
 
 
 def _state_snapshot(state) -> tuple:
@@ -2013,6 +2073,678 @@ def phase_entry_point() -> dict:
                 parity=parity, conv=conv)
 
 
+# -------------------------------- phase 12: the remaining training features
+# 12a: the entry point with LoRA (rank 4, the default targets) and weight
+# EMA; the kernels of the bf16 step without the fused AdamW (the LoRA tree
+# is fp32: adamw_bf16 takes its exact fp32 path), the precompute's fp32
+# VAE encoder and the startup probe
+LORA_KERNELS = ("gn_silu_fwd", "gn_silu_bwd", "flash_fwd", "flash_bwd_dq",
+                "flash_bwd_dkv", "gn_silu_fwd_f32", "probe")
+LORA_EPOCHS = 2  # steps 1-2 meet each bucket shape first
+LORA_PROFILED = (3, 4)
+LORA_EMA_DECAY = 0.9999
+# seeded LoRA trees with up ~ N(0, std^2).  At 1e-3 (the scale of a
+# trained adapter's delta) the kernels are held against their plain
+# versions at phase 7's bars.  At 0.05 the adapters outweigh the seeded
+# base projections: logits spread by up to ~250, the softmax nearly one-hot,
+# and every bf16 path's LoRA gradients lie far from the fp32 ones (the two
+# plain paths' too, and apart from each other), so there each bf16 path is
+# held against an fp32 reference (the UNet cast to fp32, plain ops): the
+# kernels' error may be at most LORA_ERR_RATIO times their plain versions'
+# (the same formulas: Delta = rowsum(dO * O) from the saved 16-bit output,
+# as JAX's Pallas backward forms it; plain attention differentiates the
+# softmax from fp32 probabilities and is logged beside them), and the fp32
+# kernels are held against that reference at phase 7's gradient bar
+LORA_UP_STD_TRAINED, LORA_UP_STD_LARGE = 1e-3, 0.05
+LORA_LARGE_TIMESTEPS = (500, 900)
+LORA_ERR_RATIO = 1.25
+# 12b-12e: the optimizers through the API at the entry point's recipe
+# (b4 at 1024^2 as 4 micro-steps of 1, no remat); the kernels of the bf16
+# step and the probe, plus the fused AdamW under int8 moments
+OPT_KERNELS = ("gn_silu_fwd", "gn_silu_bwd", "flash_fwd", "flash_bwd_dq",
+               "flash_bwd_dkv", "probe")
+SF_STEPS, SF_WARMUP, SOAP_STEPS, INT8_STEPS, EMA_STEPS = 3, 2, 2, 3, 2
+# SOAP at full width does not fit 80 GB with its defaults (the reckoning
+# is logged): the cuts, in the order tried
+SOAP_CUTS = (("tpu", "grad_accum_dtype", "bfloat16"),
+             ("optimizer", "max_precond_dim", 4096))
+SOAP_FIT_GIB = 70  # of the card's 79.2 GiB, the rest for eigh and temps
+INT8_LEAF = (10240, 1280)  # the largest bf16 leaf (GEGLU proj)
+TINY_IMAGE = {"min_size": [32, 32], "max_size": [96, 96], "bucket_step": 16}
+
+
+def _lora_config(root: Path, name: str, **training) -> Path:
+    return _entry_config(root, name, lora={"enabled": True},
+                         ema_decay=LORA_EMA_DECAY, save_every=0,
+                         save_best=False, **training)
+
+
+def _lora_seeded_tree(trainer, up_std: float) -> dict:
+    """The trained tree with its up factors drawn anew, N(0, up_std^2)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    return {k: (torch.randn(v.shape, generator=gen, device=DEVICE)
+                * up_std if k.endswith(".up") else v.detach().clone()
+                ).requires_grad_(True)
+            for k, v in trainer.state.params.items()}
+
+
+def _rel_l2(names, grads, ref, keep=lambda k: True) -> float:
+    pairs = [(a.double(), b.double())
+             for k, a, b in zip(names, grads, ref) if keep(k)]
+    num = sum((a - b).square().sum() for a, b in pairs)
+    return (num / sum(b.square().sum() for _, b in pairs)).sqrt().item()
+
+
+def _by_group(names, grads, ref) -> dict:
+    qk = lambda k: ".to_q." in k or ".to_k." in k  # noqa: E731
+    return {group: round(_rel_l2(names, grads, ref, keep), 6)
+            for group, keep in (("all", lambda k: True), ("to_q/to_k", qk),
+                                ("to_v/to_out", lambda k: not qk(k)))}
+
+
+def _lora_checks(trainer, batch: dict) -> dict:
+    """On run A's trainer and one b1 cache entry, with seeded trees: the
+    merge path against the branch path (dropout 0) through the kernels;
+    at the trained scale, the loss and LoRA gradients through the kernels
+    against the plain versions (phase 7's bars); at the large scale, every
+    bf16 path and the fp32 kernels against an fp32 plain reference (the
+    UNet is left in fp32: the caller drops the trainer)."""
+    from sdxl_training_improvements_tpu_torch.training.methods import (
+        get_method)
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    cfg = trainer.config
+    small = _lora_seeded_tree(trainer, LORA_UP_STD_TRAINED)
+    large = _lora_seeded_tree(trainer, LORA_UP_STD_LARGE)
+    names = list(small)
+    base = trainer.model.trainable_params()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    shape = tuple(batch["vae_latents"].shape)
+    batch = dict(batch, noise=torch.randn(shape, generator=gen,
+                                          device=DEVICE))
+    schedule = NoiseSchedule.from_config(cfg)
+    where = f"b1 latents {shape[2]}x{shape[3]}"
+
+    def apply(tree, **kw):
+        return functools.partial(trainer.lora_apply, tree, base_params=base,
+                                 **kw)
+
+    def at(t):
+        return dict(batch, timesteps=torch.tensor([t] * shape[0],
+                                                  device=DEVICE))
+
+    with torch.no_grad():
+        b = at(500)
+        x = schedule.add_noise(b["vae_latents"].float(), b["noise"],
+                               b["timesteps"])
+        args = (x, b["timesteps"], b["prompt_embeds"],
+                b["pooled_prompt_embeds"], b["time_ids"])
+        merged = apply(large, branch=False)(*args).float()
+        branched = apply(large, branch=True)(*args).float()
+    rel_mb = ((merged - branched).norm() / merged.norm()).item()
+    del merged, branched
+    log(f"phase 12a merge vs branch (dropout 0), one {where} forward "
+        f"through the kernels, seeded tree (up ~ N(0, "
+        f"{LORA_UP_STD_LARGE}^2)): rel L2 {rel_mb:.3e} (tol "
+        f"{SLICE_REL_L2_TOL:g})")
+    check(rel_mb <= SLICE_REL_L2_TOL, f"12a merge vs branch {rel_mb}")
+
+    def loss_and_grads(tree, t, plain=ExitStack):
+        with plain():
+            loss, _ = get_method(cfg.training.method)(apply(tree), at(t),
+                                                      None, schedule,
+                                                      cfg.model)
+            grads = torch.autograd.grad(loss, list(tree.values()))
+        return loss.item(), [g.detach() for g in grads]
+
+    _zero_launches()
+    loss, grads = loss_and_grads(small, 500)
+    launches = _launches(LORA_KERNELS[:5])
+    plain_loss, plain_grads = loss_and_grads(small, 500,
+                                             _kernels_plain_versions)
+    rel = _rel_l2(names, grads, plain_grads)
+    loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+    trained = dict(loss_rel=loss_rel, grad_rel_l2=rel,
+                   by_group=_by_group(names, grads, plain_grads))
+    log(f"phase 12a LoRA parity, trained scale (up ~ N(0, "
+        f"{LORA_UP_STD_TRAINED}^2), {where}, t=500): loss kernels "
+        f"{loss:.6e}, their plain versions {plain_loss:.6e} (rel "
+        f"{loss_rel:.3e}, tol {TRAIN_LOSS_REL_TOL:g}); {len(grads)} LoRA "
+        f"gradients, kernels vs their plain versions rel L2 {rel:.3e} (tol "
+        f"{TRAIN_GRAD_REL_L2_TOL:g}), by group {trained['by_group']}; "
+        f"launches {launches}")
+    check(loss_rel <= TRAIN_LOSS_REL_TOL, f"12a parity loss {loss_rel}")
+    check(rel <= TRAIN_GRAD_REL_L2_TOL, f"12a parity gradients {rel}")
+    check(all(n > 0 for n in launches.values()),
+          f"12a parity: a kernel was not launched {launches}")
+    del grads, plain_grads
+
+    # the large scale: bf16 paths first, then the UNet in fp32
+    paths = {}
+    for t in LORA_LARGE_TIMESTEPS:
+        for label, plain in (("kernels", ExitStack),
+                             ("plain versions", _kernels_plain_versions),
+                             ("plain attention", _plain_ops)):
+            paths[t, label] = loss_and_grads(large, t, plain)
+    trainer.model.unet.float()
+    for t in LORA_LARGE_TIMESTEPS:
+        _zero_launches()
+        paths[t, "fp32 kernels"] = loss_and_grads(large, t)
+        f32_launches = _launches(F32_TRAIN_KERNELS)
+        check(all(n > 0 for n in f32_launches.values()),
+              f"12a fp32 kernels: a kernel was not launched {f32_launches}")
+        paths[t, "fp32 reference"] = loss_and_grads(large, t, _plain_ops)
+    large_scale = {}
+    for t in LORA_LARGE_TIMESTEPS:
+        ref_loss, ref = paths[t, "fp32 reference"]
+        err = {label: _by_group(names, paths[t, label][1], ref)
+               for label in ("kernels", "plain versions", "plain attention",
+                             "fp32 kernels")}
+        between = {"kernels vs plain versions": _by_group(
+                       names, paths[t, "kernels"][1],
+                       paths[t, "plain versions"][1]),
+                   "plain versions vs plain attention": _by_group(
+                       names, paths[t, "plain versions"][1],
+                       paths[t, "plain attention"][1])}
+        losses = {label: paths[t, label][0] for label in
+                  ("kernels", "plain versions", "plain attention",
+                   "fp32 kernels", "fp32 reference")}
+        k_loss_rel = abs(losses["kernels"] - losses["plain versions"]) / abs(
+            losses["plain versions"])
+        ratio = err["kernels"]["all"] / err["plain versions"]["all"]
+        log(f"phase 12a LoRA gradients, adapters dominant (up ~ N(0, "
+            f"{LORA_UP_STD_LARGE}^2), {where}, t={t}): losses {losses}; rel "
+            f"L2 against the fp32 reference {err}; between bf16 paths "
+            f"{between}; kernels' error / their plain versions' "
+            f"{ratio:.3f} (tol {LORA_ERR_RATIO:g}); fp32 kernels vs the "
+            f"reference {err['fp32 kernels']['all']:.3e} (tol "
+            f"{TRAIN_GRAD_REL_L2_TOL:g})")
+        check(k_loss_rel <= TRAIN_LOSS_REL_TOL,
+              f"12a large-scale loss, t={t}: {k_loss_rel}")
+        check(ratio <= LORA_ERR_RATIO,
+              f"12a large-scale bf16 kernels' gradient error, t={t}: "
+              f"{ratio} of their plain versions'")
+        check(err["fp32 kernels"]["all"] <= TRAIN_GRAD_REL_L2_TOL,
+              f"12a large-scale fp32 kernels, t={t}: "
+              f"{err['fp32 kernels']['all']}")
+        large_scale[t] = dict(losses=losses, vs_fp32=err, between=between,
+                              ratio=ratio)
+    del paths
+    return dict(merge_vs_branch=rel_mb, trained=trained,
+                large=large_scale)
+
+
+def _lora_export_checks(trainer, final: Path) -> dict:
+    """The final checkpoint's adapter is the trained EMA tree and its
+    UNet the merged weights, each tensor read back ``torch.equal``."""
+    from sdxl_training_improvements_tpu_torch.models import weights as W
+    from sdxl_training_improvements_tpu_torch.training import checkpoints
+    tree = {k: v.detach().cpu() for k, v in trainer.eval_params().items()}
+    got = checkpoints.import_lora(final / checkpoints.LORA_FILE,
+                                  trainer.model.unet)
+    differ = [k for k in tree if not torch.equal(got.get(k), tree[k])]
+    check(set(got) == set(tree) and not differ,
+          f"12a adapter differs from the EMA tree: {differ[:3]}")
+    merged = trainer.unet_export_state()
+    saved = W.read_safetensors(final / checkpoints.UNET_FILE)
+    unet_differ = [k for k, v in merged.items()
+                   if not torch.equal(saved[k], v.detach().cpu())]
+    check(set(saved) == set(merged) and not unet_differ,
+          f"12a merged UNet export differs: {unet_differ[:3]}")
+    n_merged = sum(1 for k in tree if k.endswith(".down"))
+    log(f"phase 12a final checkpoint: {checkpoints.LORA_FILE} "
+        f"({(final / checkpoints.LORA_FILE).stat().st_size / 2 ** 20:.2f} "
+        f"MiB, {len(tree)} tensors) read back torch.equal to the EMA tree; "
+        f"the merged UNet ({len(saved)} tensors, {n_merged} merged) read "
+        f"back torch.equal")
+    return dict(adapter_tensors=len(tree), unet_tensors=len(saved))
+
+
+def phase_lora_ema() -> dict:
+    """12a: ``main.main`` with LoRA and EMA at full SDXL-base width, as
+    phase 11 runs it: run A (LORA_EPOCHS epochs; steps LORA_PROFILED
+    profiled), the LoRA checks on its model, run B (1 epoch with the
+    final checkpoint, whose adapter and merged UNet are read back, then
+    ``--resume`` to LORA_EPOCHS), ``torch.equal`` to run A."""
+    import shutil
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_lora_"))
+    try:
+        _entry_images(root / "images")
+        log(f"phase 12a: {NOVELAI_YAML.name} with phase 11's cuts and "
+            f"training.lora.enabled true (rank 4, alpha 1, dropout 0, the "
+            f"default targets), training.ema_decay {LORA_EMA_DECAY}; "
+            f"num_epochs {LORA_EPOCHS} (run A), 1 then {LORA_EPOCHS} "
+            f"(run B)")
+        cfg_a = _lora_config(root, "lora_a", num_epochs=LORA_EPOCHS,
+                             save_final_model=False)
+        _zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, steps, windows = _run_main(
+            ["--config", str(cfg_a), "--output-dir", str(root / "out_a"),
+             "--device", DEVICE], profiled=LORA_PROFILED, events=True)
+        wall_s = time.perf_counter() - t0
+        launches = _launches(LORA_KERNELS)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_lora = sum(v.numel() for v in trainer.state.params.values())
+        for i, s in enumerate(steps):
+            log(f"phase 12a run A step {i + 1}: latents {s['shape']}, loss "
+                f"{s['loss']:.6f}; forward+backward {s['fwd_bwd_ms']:.2f}, "
+                f"clip {s['clip_ms']:.3f}, optimizer {s['opt_ms']:.3f} ms "
+                f"(CUDA events)")
+        n_steps = 2 * LORA_EPOCHS
+        check(len(steps) == n_steps and trainer.state.step == n_steps,
+              f"12a run A: {len(steps)} steps")
+        check(all(np.isfinite(s["loss"]) for s in steps),
+              "12a: a loss is not finite")
+        n_prof = LORA_PROFILED[1] - LORA_PROFILED[0] + 1
+        idle = _log_profile(windows["prof"], "phase 12a run A steps "
+                            f"{LORA_PROFILED[0]}-{LORA_PROFILED[1]}",
+                            windows["profiled"])
+        busy_ms = (1 - idle) * windows["profiled"] / n_prof
+        prof_steps = steps[LORA_PROFILED[0] - 1:LORA_PROFILED[1]]
+        opt_ms = statistics.mean(s["opt_ms"] for s in prof_steps)
+        log(f"phase 12a run A: main.main {wall_s:.2f} s; "
+            f"{len(trainer.state.params)} "
+            f"LoRA tensors, {n_lora} parameters (fp32; the base frozen); "
+            f"steps {LORA_PROFILED[0]}-{LORA_PROFILED[1]}: "
+            f"{windows['profiled'] / n_prof:.2f} ms a step wall, "
+            f"{busy_ms:.2f} ms of device time, idle {idle:.3f}, optimizer "
+            f"+ EMA {opt_ms:.3f} ms a step (events); peak {peak_gb:.2f} "
+            f"GiB; launches {launches}")
+        for k, n in launches.items():
+            check(n > 0, f"kernel {k} was not launched on the LoRA path")
+        check(launches["probe"] > 0, "12a: no startup probe")
+        ref, ref_meta = _state_snapshot(trainer.state)
+        batch = _entry_cached_batch(trainer, "00.png")
+        parity = _lora_checks(trainer, batch)
+        del trainer, batch
+        _free()
+
+        cfg_b1 = _lora_config(root, "lora_b1", num_epochs=1,
+                              save_final_model=True)
+        trainer, steps_b1, _ = _run_main(
+            ["--config", str(cfg_b1), "--output-dir", str(root / "out_b"),
+             "--device", DEVICE])
+        save = dict(trainer.last_save)
+        final = root / "out_b" / "final_checkpoint"
+        export = _lora_export_checks(trainer, final)
+        del trainer
+        _free()
+        cfg_b2 = _lora_config(root, "lora_b2", num_epochs=LORA_EPOCHS,
+                              save_final_model=False)
+        trainer, steps_b2, _ = _run_main(
+            ["--config", str(cfg_b2), "--output-dir", str(root / "out_b"),
+             "--resume", "--device", DEVICE])
+        got, meta = _state_snapshot(trainer.state)
+        del trainer
+        _free()
+        differ = [k for k in ref if not torch.equal(ref[k], got[k])]
+        log(f"phase 12a run B: checkpoint train state "
+            f"{save['state_gib']:.4f} GiB, export {save['export_gib']:.2f} "
+            f"GiB; resumed, {len(ref)} tensors (LoRA tree, EMA shadow, "
+            f"moments), {len(differ)} differ {differ[:3]}; generators and "
+            f"step equal {meta == ref_meta}; losses "
+            f"{[round(s['loss'], 6) for s in steps_b1 + steps_b2]} vs run A "
+            f"{[round(s['loss'], 6) for s in steps]}")
+        check(set(got) == set(ref) and not differ,
+              f"12a resume: tensors differ {differ[:3]}")
+        check(meta == ref_meta, "12a resume: step or generators differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not root.exists(), f"{root} was not deleted")
+    log(f"phase 12a wall time {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, steps=steps, idle=idle, busy_ms=busy_ms,
+                opt_ms=opt_ms, peak_gb=peak_gb, parity=parity, save=save,
+                export=export)
+
+
+def _state_gib(state) -> float:
+    """GiB of the optimizer state's tensors."""
+    from sdxl_training_improvements_tpu_torch.training import checkpoints
+    tensors, _ = checkpoints.flatten_train_state(state)
+    return sum(t.numel() * t.element_size() for k, t in tensors.items()
+               if k.startswith("opt.")) / 2 ** 30
+
+
+def _optimizer_path(label: str, model, cfg, batch, n_steps: int,
+                    init: dict, kernels=OPT_KERNELS) -> tuple:
+    """``n_steps`` of ``cfg``'s optimizer through make_optimizer ->
+    make_train_step -> create_train_state on the seeded weights ``init``;
+    the last step profiled.  Returns (a row of numbers, the state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdxl_training_improvements_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    from sdxl_training_improvements_tpu_torch.training.trainer import (
+        create_train_state, make_train_step)
+    model.unet.load_state_dict(init)
+    _zero_launches()
+    _free()
+    optimizer = make_optimizer(cfg)
+    step = make_train_step(model.unet_apply, NoiseSchedule.from_config(cfg),
+                           optimizer, cfg)
+    state = create_train_state(model.trainable_params(), optimizer,
+                               seed=cfg.training.seed)
+    torch.cuda.synchronize()
+    state_gib = _state_gib(state)
+    rows = []
+    for i in range(n_steps):
+        ev: dict = {}
+        with ExitStack() as stack:
+            if i == n_steps - 1:
+                prof = stack.enter_context(
+                    profile(activities=[ProfilerActivity.CUDA]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, ev)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        row = dict(loss=metrics["loss"].item(), wall_ms=wall_ms,
+                   **_event_ms(ev))
+        rows.append(row)
+        log(f"phase {label} step {i + 1}: loss {row['loss']:.6f}, grad norm "
+            f"{metrics['grad_norm'].item():.6f}; {wall_ms:.2f} ms wall = "
+            f"forward+backward {row['fwd_bwd_ms']:.2f} + clip "
+            f"{row['clip_ms']:.2f} + optimizer {row['opt_ms']:.2f} ms")
+        check(np.isfinite(row["loss"]), f"{label} step {i + 1} loss")
+    idle = _log_profile(prof, f"phase {label} step {n_steps}",
+                        rows[-1]["wall_ms"])
+    launches = _launches(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase {label}: {type(optimizer).__name__}, optimizer state "
+        f"{state_gib:.2f} GiB, peak {peak_gb:.2f} GiB, last step device "
+        f"{(1 - idle) * rows[-1]['wall_ms']:.2f} ms, idle {idle:.3f}; "
+        f"launches {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched in phase {label}")
+    retries = getattr(optimizer, "eigh_retries", None)
+    if retries is not None:
+        log(f"phase {label}: {retries} eigh calls solved again in fp64 "
+            "after fp32 did not converge")
+    return dict(steps=rows, idle=idle, launches=launches, peak_gb=peak_gb,
+                state_gib=state_gib, eigh_retries=retries), state
+
+
+def _soap_reckoning(cfg) -> dict:
+    """GiB of SOAP's state at full width for ``cfg``, from the UNet's
+    shapes (meta tensors)."""
+    from sdxl_training_improvements_tpu_torch.models.unet import (
+        SDXLUNet, UNetConfig)
+    from sdxl_training_improvements_tpu_torch.training.optimizers.soap import (
+        SOAP, _precond_shape)
+    oc = cfg.optimizer
+    soap = SOAP(max_precond_dim=oc.max_precond_dim, merge_dims=oc.merge_dims)
+    with torch.device("meta"):
+        shapes = [p.shape for p in SDXLUNet(UNetConfig.sdxl()).parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    mats = sum(d * d for s in shapes for d in _precond_shape(
+        soap.leaf_shape(s), oc.max_precond_dim, oc.precondition_1d))
+    return dict(moments=2 * n * 4 / 2 ** 30, gg_q=2 * mats * 4 / 2 ** 30,
+                grads=n * (2 if cfg.tpu.grad_accum_dtype == "bfloat16"
+                           else 4) / 2 ** 30)
+
+
+def _int8_leaf_case(gen) -> dict:
+    """One INT8_LEAF update: dequantize -> the CUDA kernel -> quantize
+    against dequantize -> the plain chain -> quantize, ``torch.equal`` in
+    the delta, the shift, the codes and the scales; and the times."""
+    from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
+    from sdxl_training_improvements_tpu_torch.ops import quantize as Q
+
+    def randn(scale):
+        return scale * torch.randn(INT8_LEAF, generator=gen, device=DEVICE)
+
+    p, g = randn(0.05).bfloat16(), randn(1e-3)
+    mq = Q.quantize_8bit(randn(1e-4), signed=True)
+    vq = Q.quantize_8bit(randn(1e-4).square(), signed=False)
+    shift = randn(1e-7).bfloat16()
+    kw = dict(lr_eff=1e-4 * (1 - 0.999 ** 3) ** 0.5, decay_amt=0.0,
+              seed0=0x9E3779B9, seed1=0x7F4A7C15)
+
+    def update(fn, sh):
+        m = Q.dequantize_8bit(mq, signed=True)
+        v = Q.dequantize_8bit(vq, signed=False)
+        delta, m, v, sh = fn(p, g, m, v, sh, **kw)
+        return (delta, sh, Q.quantize_8bit(m, signed=True),
+                Q.quantize_8bit(v, signed=False))
+
+    got = update(O.fused_adamw_cuda, shift.clone())
+    ref = update(O.fused_adamw_reference, shift)
+    equal = {"delta": torch.equal(got[0], ref[0]),
+             "shift": torch.equal(got[1], ref[1]),
+             **{f"{name}.{k}": torch.equal(a[k], b[k])
+                for name, a, b in (("m", got[2], ref[2]),
+                                   ("v", got[3], ref[3]))
+                for k in ("q", "s")}}
+    res = dict(equal=all(equal.values()),
+               ms=time_ms(lambda: update(O.fused_adamw_cuda, shift.clone())),
+               plain_ms=time_ms(lambda: update(O.fused_adamw_reference,
+                                               shift),
+                                warmup=1, iters=3, repeats=3))
+    log(f"phase 12d int8 leaf {list(INT8_LEAF)}: dequantize -> CUDA fused "
+        f"AdamW -> quantize vs dequantize -> plain chain -> quantize: "
+        f"torch.equal {equal}; {res['ms']:.4f} ms vs {res['plain_ms']:.4f} "
+        f"ms a leaf")
+    check(res["equal"], f"12d int8 leaf not equal to plain: {equal}")
+    return res
+
+
+def _int8_bytes_per_param(state) -> float:
+    """Optimizer-state bytes per bf16 parameter (moments and shift)."""
+    st = state.opt_state
+    n = nbytes = 0
+    for k, p in state.params.items():
+        if p.dtype != torch.bfloat16:
+            continue
+        n += p.numel()
+        for moment in (st.exp_avg[k], st.exp_avg_sq[k]):
+            ts = moment.values() if isinstance(moment, dict) else [moment]
+            nbytes += sum(t.numel() * t.element_size() for t in ts)
+        nbytes += st.shift[k].numel() * st.shift[k].element_size()
+    return nbytes / n
+
+
+def phase_optimizers() -> dict:
+    """12b-12e on one seeded full-width model, its UNet reset to the same
+    weights before each: schedule-free (``eval_params`` is x), SOAP (the
+    install, an Adam step and a QR refresh; the cuts SOAP_CUTS),
+    adamw_bf16 with int8 moments (4 state bytes a parameter; one leaf
+    through the kernel against plain) and adamw_bf16 with an EMA shadow
+    of the whole UNet."""
+    from sdxl_training_improvements_tpu_torch import _yaml
+    from sdxl_training_improvements_tpu_torch.config import Config
+    from sdxl_training_improvements_tpu_torch.training.optimizers import (
+        schedule_free_eval_params)
+    t_phase = time.perf_counter()
+    raw = _yaml.load_file(NOVELAI_YAML)
+    raw["model"]["pretrained_model_name"] = str(Path(tempfile.gettempdir())
+                                                / "no-checkpoint")
+    raw["training"]["gradient_accumulation_steps"] = 1
+    log("phase 12b-12e: the recipe of "
+        f"{NOVELAI_YAML.name} through make_optimizer -> make_train_step -> "
+        "create_train_state (bf16, v-prediction, micro-batch 1, no remat), "
+        "global batch 4 at 1024^2 as 4 micro-steps of 1 "
+        "(gradient_accumulation_steps 4 -> 1, as phase 11), seeded weights "
+        "and latents")
+    cfg, model = _model_from_config(raw)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    batch = _train_batch(model, cfg.training.batch_size, gen, SIZE)
+    init = {k: v.detach().cpu() for k, v in model.unet.state_dict().items()}
+    out = {}
+
+    cfg.optimizer.optimizer_type = "adamw_schedule_free_kahan"
+    cfg.optimizer.warmup_steps = SF_WARMUP
+    log(f"phase 12b: optimizer_type adamw_schedule_free_kahan, warmup_steps "
+        f"{SF_WARMUP}, kahan_sum {cfg.optimizer.kahan_sum}, {SF_STEPS} steps")
+    out["sf"], state = _optimizer_path("12b", model, cfg, batch, SF_STEPS,
+                                       init)
+    x = schedule_free_eval_params(state.opt_state, state.params,
+                                  beta1=cfg.optimizer.beta1)
+    name = WATCHED[0]
+    z, y = state.opt_state.z[name], state.params[name]
+    want = ((y.float() - (1 - cfg.optimizer.beta1) * z)
+            / cfg.optimizer.beta1).to(y.dtype)
+    check(torch.equal(x[name], want), "12b eval_params is not the x "
+          "sequence")
+    log(f"phase 12b eval_params: x = (y - (1 - b1) z) / b1 on {name}, "
+        f"differing from y in {int((x[name] != y).sum())} of {y.numel()}")
+    del state, x
+    _free()
+
+    cfg.optimizer.optimizer_type = "soap"
+    cfg.optimizer.precondition_frequency = SOAP_STEPS
+    need = _soap_reckoning(cfg)
+    # what phase 12b's peak held beside its state: weights, activations
+    # and the fp32 gradient accumulator (its three fp32 trees are 1.5 x
+    # SOAP's two moments)
+    base = out["sf"]["peak_gb"] - 1.5 * need["moments"] - need["grads"]
+    cuts = []
+    for cut in SOAP_CUTS + (None,):
+        est = base + sum(need.values())
+        log(f"phase 12c reckoning ({', '.join(cuts) or 'no cut'}): SOAP "
+            f"moments {need['moments']:.2f} GiB + GG and Q "
+            f"{need['gg_q']:.2f} + gradient accumulator {need['grads']:.2f} "
+            f"+ weights and activations {base:.2f} = {est:.2f} GiB (room: "
+            f"{SOAP_FIT_GIB} GiB)")
+        if est < SOAP_FIT_GIB or cut is None:
+            break
+        section, key, value = cut
+        setattr(getattr(cfg, section), key, value)
+        cuts.append(f"{section}.{key} -> {value}")
+        need = _soap_reckoning(cfg)
+    log(f"phase 12c: optimizer_type soap, precondition_frequency "
+        f"{SOAP_STEPS}, merge_dims {cfg.optimizer.merge_dims}, "
+        f"max_precond_dim {cfg.optimizer.max_precond_dim}; cuts: "
+        f"{cuts or 'none'}; {SOAP_STEPS} steps (install, then Adam + QR "
+        f"refresh)")
+    out["soap"], state = _optimizer_path("12c", model, cfg, batch,
+                                         SOAP_STEPS, init)
+    out["soap"]["cuts"] = cuts
+    out["soap"]["first_step_s"] = out["soap"]["steps"][0]["wall_ms"] / 1e3
+    log(f"phase 12c: the install step took "
+        f"{out['soap']['first_step_s']:.2f} s wall (eigh of every GG)")
+    del state
+    _free()
+    cfg.optimizer.max_precond_dim = 10000
+    cfg.tpu.grad_accum_dtype = "float32"
+
+    cfg.optimizer.optimizer_type = "adamw_bf16"
+    cfg.optimizer.moments_8bit = True
+    log(f"phase 12d: adamw_bf16, moments_8bit true, sr_noise "
+        f"{cfg.tpu.sr_noise}, {INT8_STEPS} steps")
+    out["int8"], state = _optimizer_path(
+        "12d", model, cfg, batch, INT8_STEPS, init,
+        kernels=OPT_KERNELS + ("fused_adamw",))
+    per_param = _int8_bytes_per_param(state)
+    log(f"phase 12d: {per_param:.4f} optimizer-state bytes a bf16 "
+        f"parameter (bf16 moments: 6)")
+    check(abs(per_param - 4.0) < 1e-3, f"12d: {per_param} bytes a param")
+    out["int8"]["bytes_per_param"] = per_param
+    del state
+    _free()
+    cfg.optimizer.moments_8bit = False
+
+    cfg.training.ema_decay = LORA_EMA_DECAY
+    log(f"phase 12e: adamw_bf16 (bf16 moments), training.ema_decay "
+        f"{LORA_EMA_DECAY}: the full fine-tune with its fp32 shadow, "
+        f"{EMA_STEPS} steps")
+    out["ema"], state = _optimizer_path(
+        "12e", model, cfg, batch, EMA_STEPS, init,
+        kernels=OPT_KERNELS + ("fused_adamw",))
+    shadow = state.opt_state.ema
+    shadow_gib = sum(t.numel() * t.element_size()
+                     for t in shadow.values()) / 2 ** 30
+    log(f"phase 12e: EMA shadow {shadow_gib:.2f} GiB of the optimizer "
+        f"state's {out['ema']['state_gib']:.2f}")
+    out["ema"]["shadow_gib"] = shadow_gib
+    del state, shadow
+    _free()
+    cfg.training.ema_decay = None
+    out["int8"]["leaf"] = _int8_leaf_case(gen)
+    del model, init, batch
+    _free()
+    out["resume"] = _tiny_resumes()
+    log(f"phase 12b-12e wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _tiny_config(root: Path, name: str, images: Path, optimizer: dict,
+                 **training) -> Path:
+    from sdxl_training_improvements_tpu_torch import _yaml
+    raw = {"model": {"model_type": "sdxl_tiny",
+                     "pretrained_model_name": str(root / "none")},
+           "optimizer": {"learning_rate": 1e-4, **optimizer},
+           "training": {"batch_size": 2, "save_every": 0,
+                        "save_best": False, **training},
+           "tpu": {"sr_noise": "hash"},
+           "data": {"train_data_dir": [str(images)], "image_size": 64},
+           "global_config": {
+               "cache": {"cache_dir": str(root / "cache")},
+               "image": TINY_IMAGE,
+               "logging": {"log_dir": str(root / "logs")}}}
+    path = root / f"{name}.yaml"
+    path.write_text(_yaml.dump(raw))
+    return path
+
+
+def _tiny_resumes() -> dict:
+    """Each new optimizer state through a checkpoint on the card:
+    ``main.main`` on the tiny model over 4 seeded 64x64 PNGs, 2 epochs
+    uninterrupted against 1 epoch with the final checkpoint then
+    ``--resume``, every tensor and generator ``torch.equal``."""
+    import shutil
+    cases = {"schedule_free": ({"optimizer_type":
+                                "adamw_schedule_free_kahan",
+                                "warmup_steps": 2}, "no"),
+             "soap": ({"optimizer_type": "soap",
+                       "precondition_frequency": 2}, "no"),
+             "int8": ({"optimizer_type": "adamw_bf16", "moments_8bit": True},
+                      "bf16")}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    res = {}
+    try:
+        images = root / "images"
+        images.mkdir()
+        rng = np.random.default_rng(SEED)
+        for i in range(4):
+            _write_paeth_png(images / f"{i}.png", rng.integers(
+                0, 256, (64, 64, 3), dtype=np.uint8))
+            (images / f"{i}.txt").write_text(ENTRY_CAPTIONS[i])
+        for label, (opt, precision) in cases.items():
+            d = root / label
+            d.mkdir()
+            kw = dict(mixed_precision=precision)
+
+            def run(name, epochs, *extra, **more):
+                cfg = _tiny_config(d, name, images, opt, num_epochs=epochs,
+                                   **kw, **more)
+                return _run_main(["--config", str(cfg), "--output-dir",
+                                  str(d / ("a" if name == "a" else "b")),
+                                  "--device", DEVICE, *extra])[0]
+
+            ref = _state_snapshot(run("a", 2, save_final_model=False).state)
+            run("b1", 1)
+            got = _state_snapshot(run("b2", 2, "--resume",
+                                      save_final_model=False).state)
+            differ = [k for k in ref[0] if not torch.equal(ref[0][k],
+                                                           got[0].get(k))]
+            log(f"phase 12 resume on the card, tiny model, {label} "
+                f"({precision}): {len(ref[0])} tensors, {len(differ)} "
+                f"differ {differ[:3]}; step and generators equal "
+                f"{got[1] == ref[1]}")
+            check(set(got[0]) == set(ref[0]) and not differ,
+                  f"{label} resume: tensors differ {differ[:3]}")
+            check(got[1] == ref[1], f"{label} resume: step or generators")
+            res[label] = len(ref[0])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 # operations per element of the elementwise kernels, on the fp32 units
 # (not the tensor cores): the GN forward (Welford statistics; normalise,
 # affine, SiLU), the GN backward (xhat, z, sigmoid, dz and two sums; then
@@ -2177,6 +2909,8 @@ def main() -> None:
     fp16 = phase_fp16()
     fp32 = phase_fp32_training()
     entry = phase_entry_point()
+    lora = phase_lora_ema()
+    optimizers = phase_optimizers()
     # each main path's launches, counted from 0 just before it ran
     paths = {"serving (phase 5)": serving["launches"],
              **{f"rest of serving (phase 10): {k}": v
@@ -2184,7 +2918,13 @@ def main() -> None:
              "training (phase 6)": train["launches"],
              "fp16 (phase 8)": fp16["launches"],
              "fp32 training (phase 9)": fp32["train"]["launches"],
-             "training entry point (phase 11)": entry["launches"]}
+             "training entry point (phase 11)": entry["launches"],
+             "LoRA + EMA entry point (phase 12a)": lora["launches"],
+             "schedule-free (phase 12b)": optimizers["sf"]["launches"],
+             "SOAP (phase 12c)": optimizers["soap"]["launches"],
+             "int8 moments (phase 12d)": optimizers["int8"]["launches"],
+             "full fine-tune + EMA (phase 12e)":
+                 optimizers["ema"]["launches"]}
     log(json.dumps(kernel_report(kernels, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,10 @@ key names, so ``load_state_dict(..., strict=True)`` takes the result.
 * Norm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``
 
 A gradient tree maps the same way.  ``from_jax_opt_state`` maps the JAX
-``AdamWBF16State`` (per-leaf layout) onto the port's optimizer state, so
-both optimizers can start from the same state.
+optimizer states (``AdamWBF16State`` per-leaf with bf16 or int8 moments,
+``EMAState``, ``ScheduleFreeKahanState``, ``SOAPState``) onto the port's,
+and ``from_jax_lora`` a LoRA tree onto the port's, so both packages can
+start from the same state.
 
 Diffusers interop (JAX ``models/weights.py:88-278``): a safetensors reader
 and writer of the port's own (the card's machine has no ``safetensors``
@@ -109,29 +111,117 @@ def from_jax_params(tree, clip: bool = False) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _key(path: Tuple[str, ...], lora: bool) -> str:
+    """The port's name of a JAX tree leaf: a parameter's key, or for a
+    LoRA tree (``{flax kernel path: {"down", "up"}}``) ``<module>.down`` /
+    ``<module>.up``."""
+    if not lora:
+        return _leaf(path, np.zeros((1,)))[0]
+    flat, which = path[0], path[1]
+    module = _leaf(tuple(flat.split("/")), np.zeros((1,)))[0]
+    return module[:-len(".weight")] + "." + which
+
+
+def _lora_layout(which: str, arr: np.ndarray) -> np.ndarray:
+    """JAX LoRA factors -> the port's: down [in, r] / [kh, kw, in, r] ->
+    [r, in] / [r, in, kh, kw]; up [r, out] -> [out, r]."""
+    if which == "down" and arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    return arr.T
+
+
+def from_jax_lora(tree) -> Dict[str, torch.Tensor]:
+    """JAX LoRA tree (``models/lora.py`` ``lora_init``: flax kernel path ->
+    {"down", "up"}, numpy arrays) -> the port's tree (``<module>.down`` /
+    ``<module>.up`` in torch's layout, ``models/lora.py``)."""
+    return {_key(path, True): _to_torch(_lora_layout(path[-1],
+                                                     np.asarray(v)))
+            for path, v in _leaves(tree)}
+
+
+def _is_codes(v) -> bool:
+    return isinstance(v, Mapping) and set(v) == {"q", "s"}
+
+
+def _state_leaves(tree, path=()):
+    """``_leaves``, with an int8 moment's ``{"q", "s"}`` as one leaf."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping) and not _is_codes(v):
+            yield from _state_leaves(v, path + (str(k),))
+        else:
+            yield path + (str(k),), v
+
+
 def from_jax_opt_state(state, like: Optional[Mapping[str, torch.Tensor]] = None,
-                       generator: Optional[torch.Generator] = None):
-    """JAX ``AdamWBF16State`` (per-leaf layout; its trees as numpy arrays)
-    -> the port's ``AdamWBF16State``: the moments and shift through the
-    parameters' key and layout mapping, ``accumulated_decay`` per key as
-    0-d fp32 tensors, and ``step``.  ``like`` (the port's parameters by
-    name) gives each state tensor its parameter's device and strides, as
-    the port's ``init`` lays it out.  ``generator`` (a CPU generator,
-    seeded with 0 when None) draws the port's next per-leaf seeds."""
-    from sdxl_training_improvements_tpu_torch.training.optimizers import (
-        AdamWBF16State)
+                       generator: Optional[torch.Generator] = None,
+                       lora: bool = False):
+    """A JAX optimizer state (its trees as numpy arrays) -> the port's:
+    ``AdamWBF16State`` (per-leaf, bf16 or int8 moments), ``EMAState``
+    (recursively), ``ScheduleFreeKahanState`` and ``SOAPState``.  Trees
+    shaped like the parameters go through the parameters' key and layout
+    mapping (``lora=True``: the LoRA tree's, ``from_jax_lora``); int8
+    codes are laid out like their parameter, scales are 0-d; SOAP's
+    trees, already in the JAX layout the port's SOAP works in, are only
+    re-keyed.  ``like`` (the port's parameters by name) gives each tensor
+    shaped like a parameter that parameter's device and strides, as the
+    port's ``init`` lays it out.  ``generator`` (a CPU generator, seeded
+    with 0 when None) draws the port's next per-leaf seeds."""
+    from sdxl_training_improvements_tpu_torch.training import optimizers as O
+    kind = type(state).__name__
+
+    def placed(k, t):
+        if like is None:
+            return t
+        return torch.empty_like(like[k], dtype=t.dtype).copy_(t)
+
+    def leaf(path, v):
+        if lora:
+            return _to_torch(_lora_layout(path[-1], np.asarray(v)))
+        return _leaf(path, v)[1]
 
     def tree(t):
-        out = from_jax_params(t)
-        if like is None:
-            return out
-        return {k: torch.empty_like(like[k], dtype=v.dtype).copy_(v)
-                for k, v in out.items()}
+        out = {}
+        for path, v in _state_leaves(t):
+            k = _key(path, lora)
+            if _is_codes(v):
+                q = leaf(path, v["q"])
+                out[k] = {"q": placed(k, q),
+                          "s": _to_torch(np.asarray(v["s"])).reshape(())}
+            else:
+                out[k] = placed(k, leaf(path, v))
+        return out
 
-    acc = {k: v.float().reshape(()) for k, v in
-           from_jax_params(state.accumulated_decay).items()}
-    return AdamWBF16State(
-        step=int(np.asarray(state.step)), exp_avg=tree(state.exp_avg),
+    def rekeyed(t):  # SOAP: no layout change
+        out = {}
+        for path, v in _leaves(t):
+            if isinstance(v, (tuple, list)):
+                out[_key(path, lora)] = tuple(_to_torch(np.asarray(m))
+                                              for m in v)
+            else:
+                out[_key(path, lora)] = _to_torch(np.asarray(v))
+        return out
+
+    step = None if not hasattr(state, "step") else int(np.asarray(
+        state.step))
+    if kind == "EMAState":
+        return O.EMAState(
+            inner=from_jax_opt_state(state.inner, like, generator, lora),
+            ema={k: v.float() for k, v in tree(state.ema).items()},
+            count=int(np.asarray(state.count)))
+    if kind == "ScheduleFreeKahanState":
+        return O.ScheduleFreeKahanState(
+            step=step, exp_avg_sq=tree(state.exp_avg_sq), z=tree(state.z),
+            kahan_comp=tree(state.kahan_comp))
+    if kind == "SOAPState":
+        return O.SOAPState(step=step, exp_avg=rekeyed(state.exp_avg),
+                           exp_avg_sq=rekeyed(state.exp_avg_sq),
+                           gg=rekeyed(state.gg), q=rekeyed(state.q))
+    if kind != "AdamWBF16State":
+        raise TypeError(f"no port counterpart for JAX state {kind}")
+    acc = {_key(path, lora): _to_torch(np.asarray(v)).float().reshape(())
+           for path, v in _leaves(state.accumulated_decay)}
+    return O.AdamWBF16State(
+        step=step, exp_avg=tree(state.exp_avg),
         exp_avg_sq=tree(state.exp_avg_sq), shift=tree(state.shift),
         accumulated_decay=acc,
         generator=generator or torch.Generator().manual_seed(0))

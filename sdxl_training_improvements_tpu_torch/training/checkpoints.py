@@ -22,8 +22,12 @@ async_checkpointing``) snapshots the state to host memory and writes it on
 a worker thread; ``wait_for_saves`` joins it and re-raises its errors.
 The generators are part of the state: the train state's draws every
 sample's noise and timestep, the bf16 AdamW's every leaf's rounding
-seeds, so a resume that dropped them would be a different run.  LoRA
-export and import are not ported (ROADMAP queue 1, item 13).
+seeds, so a resume that dropped them would be a different run.
+
+LoRA (JAX ``:210-323``): ``export_lora`` writes the adapter as
+``pytorch_lora_weights.safetensors`` in the peft layout with a
+``lora_config.json`` sidecar, ``import_lora`` reads it back into the
+port's tree (``models/lora.py``).
 """
 from __future__ import annotations
 
@@ -60,18 +64,26 @@ def components(model) -> Dict[str, nn.Module]:
 
 def export_diffusers(ckpt_dir, modules: Mapping[str, nn.Module],
                      config=None, scheduler_config: Optional[dict] = None,
-                     unet_config=None) -> int:
+                     unet_config=None,
+                     unet_state: Optional[Mapping[str, torch.Tensor]] = None
+                     ) -> int:
     """Write diffusers-layout safetensors for every component in
     ``modules`` ({unet, vae, clip_l, clip_g}; ``components(model)`` gives
     an ``SDXLModel``'s), one tensor at a time from wherever it lives.
     ``unet_config`` also writes ``unet/config.json``
     (``UNetConfig.to_diffusers_config``), from which ``from_pretrained``
     rebuilds variant topologies; ``config`` (a root ``Config``) the root
-    ``config.json``.  Returns the bytes of tensor files written."""
+    ``config.json``.  ``unet_state`` (the UNet's state dict with other
+    weights: EMA's, schedule-free's x, a merged LoRA) is written in place
+    of ``modules["unet"]``'s own.  Returns the bytes of tensor files
+    written."""
     ckpt_dir = Path(ckpt_dir)
     written = 0
     if "unet" in modules:
-        written += W.save_unet(modules["unet"], ckpt_dir / UNET_FILE)
+        if unet_state is not None:
+            written += W.save_safetensors(unet_state, ckpt_dir / UNET_FILE)
+        else:
+            written += W.save_unet(modules["unet"], ckpt_dir / UNET_FILE)
         if unet_config is not None:
             (ckpt_dir / "unet" / "config.json").write_text(
                 json.dumps(unet_config.to_diffusers_config(), indent=2))
@@ -92,6 +104,83 @@ def export_diffusers(ckpt_dir, modules: Mapping[str, nn.Module],
         (ckpt_dir / "config.json").write_text(
             json.dumps(config.to_dict(), indent=2, default=str))
     return written
+
+
+LORA_FILE = "pytorch_lora_weights.safetensors"
+
+
+def export_lora(ckpt_dir, lora_tree: Mapping[str, torch.Tensor], rank: int,
+                alpha: float, prefix: str = "unet") -> Path:
+    """The adapter as ``pytorch_lora_weights.safetensors`` in the
+    diffusers/peft layout, ``<prefix>.<module>.lora_A.weight`` [r, in]
+    (a convolution's [r, in, kh, kw]) and ``lora_B.weight`` [out, r] (a
+    convolution's [out, r, 1, 1]), fp32, plus ``lora_config.json``.  As in
+    JAX, alpha is folded into ``lora_B`` and the sidecar declares
+    ``lora_alpha == r`` (peft's scaling 1), so every consumer reproduces
+    the trained delta."""
+    from sdxl_training_improvements_tpu_torch.models.lora import lora_pairs
+    ckpt_dir = Path(ckpt_dir)
+    state = {}
+    for name, down, up in lora_pairs(lora_tree):
+        b = up.detach().float() * alpha
+        if down.dim() == 4:
+            b = b[:, :, None, None]
+        state[f"{prefix}.{name}.lora_A.weight"] = down.detach().float()
+        state[f"{prefix}.{name}.lora_B.weight"] = b
+    out = ckpt_dir / LORA_FILE
+    W.save_safetensors(state, out)
+    (ckpt_dir / "lora_config.json").write_text(json.dumps(
+        {"r": rank, "lora_alpha": rank, "base": prefix,
+         "note": "alpha folded into lora_B; apply with scaling 1.0"},
+        indent=2))
+    return out
+
+
+def import_lora(path, unet: nn.Module, prefix: str = "unet"
+                ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``export_lora`` (and a peft file's unet adapters) -> the
+    port's tree on the CPU, alpha already folded in: apply it with alpha
+    1.  Keys of another prefix (a text encoder's adapters) are skipped
+    with a warning; a key that names no Linear or Conv2d of ``unet``, a
+    lora_B wider than 1x1, or a module with one half of its pair raise."""
+    import logging
+    state = W.read_safetensors(path)
+    modules = {n for n, m in unet.named_modules()
+               if isinstance(m, (nn.Linear, nn.Conv2d))}
+    tree: Dict[str, torch.Tensor] = {}
+    skipped = []
+    for k, v in state.items():
+        if not k.endswith((".lora_A.weight", ".lora_B.weight")):
+            continue
+        mods, which = k.rsplit(".lora_", 1)
+        if not mods.startswith(prefix + "."):
+            skipped.append(k)
+            continue
+        name = mods[len(prefix) + 1:]
+        if name not in modules:
+            raise KeyError(f"LoRA key {k!r} matches no kernel in the model")
+        if which.startswith("A"):
+            tree[f"{name}.down"] = v.clone()
+        else:
+            if v.dim() == 4 and tuple(v.shape[2:]) != (1, 1):
+                raise ValueError(
+                    f"LoRA key {k!r} has a {v.shape[2]}x{v.shape[3]} "
+                    "lora_B kernel; only 1x1 up-projections are supported "
+                    "(spatial taps belong in lora_A)")
+            tree[f"{name}.up"] = (v[:, :, 0, 0] if v.dim() == 4 else v
+                                  ).clone()
+    if skipped:
+        logging.getLogger(__name__).warning(
+            "import_lora: skipped %d non-%r adapter keys (e.g. %s)",
+            len(skipped), prefix, skipped[0])
+    names = {k.rsplit(".", 1)[0] for k in tree}
+    incomplete = sorted(n for n in names if f"{n}.down" not in tree
+                        or f"{n}.up" not in tree)
+    if incomplete:
+        raise ValueError(
+            f"LoRA file {path} is missing lora_A or lora_B for "
+            f"{len(incomplete)} module(s): {incomplete[:5]}")
+    return tree
 
 
 def import_diffusers(model, model_dir) -> Set[str]:
@@ -144,29 +233,73 @@ def _set_generator_state(gen: torch.Generator, text: str) -> None:
     gen.set_state(torch.tensor(list(bytes.fromhex(text)), dtype=torch.uint8))
 
 
+def _flatten_opt(opt, prefix: str, tensors: Dict[str, torch.Tensor]
+                 ) -> dict:
+    """Add ``opt``'s tensors to ``tensors`` under ``prefix`` and return its
+    JSON-able fields.  A dict field holds per-parameter entries: a tensor
+    (``<prefix>.<field>.<name>``), an int8 moment's codes and scale
+    (``...<name>.q`` / ``.s``) or a tuple of matrices (``...<name>.<i>``,
+    SOAP's, (0, 0) placeholders included); a dataclass field (EMA's inner
+    state) nests; generators and ints go to the JSON."""
+    fields = {}
+    for f in dataclasses.fields(opt):
+        value = getattr(opt, f.name)
+        key = f"{prefix}.{f.name}"
+        if isinstance(value, dict):
+            for n, t in value.items():
+                if isinstance(t, torch.Tensor):
+                    tensors[f"{key}.{n}"] = t
+                elif isinstance(t, dict):
+                    tensors.update({f"{key}.{n}.{k}": v
+                                    for k, v in t.items()})
+                elif isinstance(t, tuple):
+                    tensors.update({f"{key}.{n}.{i}": v
+                                    for i, v in enumerate(t)})
+                else:
+                    raise TypeError(f"optimizer state {key}.{n} of type "
+                                    f"{type(t).__name__} cannot be saved")
+        elif dataclasses.is_dataclass(value):
+            fields[f.name] = {"optimizer": type(value).__name__,
+                              "fields": _flatten_opt(value, key, tensors)}
+        elif isinstance(value, torch.Generator):
+            fields[f.name] = {"generator": _generator_state(value)}
+        elif isinstance(value, int):
+            fields[f.name] = value
+        else:
+            raise TypeError(f"optimizer state field {f.name!r} of type "
+                            f"{type(value).__name__} cannot be saved")
+    return fields
+
+
 def flatten_train_state(state) -> Tuple[Dict[str, torch.Tensor], dict]:
     """(tensors by stable name, JSON-able scalars) of a ``TrainState``:
-    ``params.<name>``, ``opt.<field>.<name>`` for each dict field of the
-    optimizer state (moments, shift, decay phases), and the step, the
-    optimizer's integer fields and every CPU generator's state."""
+    ``params.<name>``, ``opt.<field>.<name>`` for each per-parameter
+    entry of the optimizer state (``_flatten_opt``: moments, shift, decay
+    phases, EMA's shadow and inner state, schedule-free's z and
+    compensation, SOAP's matrices, int8 codes and scales), and the step,
+    the optimizer's integer fields and every CPU generator's state."""
     tensors = {f"params.{n}": p for n, p in state.params.items()}
     opt = state.opt_state
     meta = {"step": int(state.step), "generator":
             _generator_state(state.generator),
-            "optimizer": type(opt).__name__, "optimizer_fields": {}}
-    for f in dataclasses.fields(opt):
-        value = getattr(opt, f.name)
-        if isinstance(value, dict):
-            tensors.update({f"opt.{f.name}.{n}": t for n, t in value.items()})
-        elif isinstance(value, torch.Generator):
-            meta["optimizer_fields"][f.name] = {
-                "generator": _generator_state(value)}
-        elif isinstance(value, int):
-            meta["optimizer_fields"][f.name] = value
-        else:
-            raise TypeError(f"optimizer state field {f.name!r} of type "
-                            f"{type(value).__name__} cannot be saved")
+            "optimizer": type(opt).__name__,
+            "optimizer_fields": _flatten_opt(opt, "opt", tensors)}
     return tensors, meta
+
+
+def _restore_fields(opt, fields: dict) -> None:
+    for name, value in fields.items():
+        if isinstance(value, dict) and "fields" in value:
+            inner = getattr(opt, name)
+            if value["optimizer"] != type(inner).__name__:
+                raise ValueError(f"checkpoint optimizer field {name!r} is "
+                                 f"{value['optimizer']}, the run's "
+                                 f"{type(inner).__name__}")
+            _restore_fields(inner, value["fields"])
+        elif isinstance(value, dict):
+            _set_generator_state(getattr(opt, name), value["generator"])
+        else:
+            setattr(opt, name, value)
 
 
 def _write_state(ckpt_dir: Path, tensors: Mapping[str, torch.Tensor],
@@ -243,12 +376,7 @@ def restore_train_state(ckpt_dir, template_state):
     del saved
     template_state.step = meta["step"]
     _set_generator_state(template_state.generator, meta["generator"])
-    opt = template_state.opt_state
-    for name, value in meta["optimizer_fields"].items():
-        if isinstance(value, dict):
-            _set_generator_state(getattr(opt, name), value["generator"])
-        else:
-            setattr(opt, name, value)
+    _restore_fields(template_state.opt_state, meta["optimizer_fields"])
     return template_state
 
 

@@ -9,8 +9,14 @@ cadence are the JAX package's.  The differences:
 
 * one device, ``device=`` (the card unless the caller asks for the CPU);
   a ``tpu.mesh_shape`` of more than one device is not ported (ROADMAP
-  queue 1, item 14), nor LoRA (``training.lora.enabled``, item 13); both
-  raise;
+  queue 1, item 14) and raises;
+* LoRA (``training.lora.enabled``, JAX ``:97-126``): the trainable tree
+  is the pairs (``models/lora.py``), the frozen UNet goes to the step as
+  ``const_params``; checkpoints ship the adapter (``export_lora``) and
+  the merged UNet;
+* the weights to evaluate and export (``eval_params``) are the EMA
+  shadow, else schedule-free's x, else the parameters; validation images
+  and the diffusers export use them (LoRA: merged into the base);
 * the precompute runs the port's VAE encoder and CLIPs under
   ``torch.no_grad``, the VAE's sample drawn from a generator seeded with
   ``training.seed``;
@@ -28,7 +34,7 @@ import math
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -43,12 +49,15 @@ from sdxl_training_improvements_tpu_torch.data.pipeline import (
     prefetch_to_device)
 from sdxl_training_improvements_tpu_torch.models.base import (
     TimestepBiasStrategy)
+from sdxl_training_improvements_tpu_torch.models.lora import (
+    DEFAULT_TARGETS, lora_merge, lora_train_wrappers)
 from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
 from sdxl_training_improvements_tpu_torch.models.tokenizer import (
     TokenizerPair, load_tokenizers)
 from sdxl_training_improvements_tpu_torch.training import checkpoints as C
 from sdxl_training_improvements_tpu_torch.training.optimizers import (
-    make_optimizer)
+    EMAState, ScheduleFreeKahanState, ema_eval_params, make_optimizer,
+    schedule_free_eval_params)
 from sdxl_training_improvements_tpu_torch.training.schedules import (
     NoiseSchedule)
 from sdxl_training_improvements_tpu_torch.training.trainer import (
@@ -99,10 +108,6 @@ class SDXLTrainer:
             raise NotImplementedError(
                 f"tpu.mesh_shape {list(mesh)}: training over several cards "
                 "is not ported (ROADMAP queue 1, item 14: multi-GPU)")
-        if config.training.lora.enabled:
-            raise NotImplementedError(
-                "training.lora.enabled: LoRA training is not ported "
-                "(ROADMAP queue 1, item 13)")
 
         # ----- model
         if model is None:
@@ -117,13 +122,34 @@ class SDXLTrainer:
         # ----- schedule / optimizer / step
         self.schedule = NoiseSchedule.from_config(config)
         self.optimizer = make_optimizer(config)
-        self._apply_fn = self.model.unet_apply  # validation_loss runs it too
-        self.train_step = make_train_step(self._apply_fn, self.schedule,
-                                          self.optimizer, config)
+
+        # LoRA: the trainable tree becomes the pairs and the step applies
+        # them to the frozen base, which rides the step as const_params
+        lcfg = config.training.lora
+        self.lora_apply = None
+        step_consts = None
+        if lcfg.enabled:
+            trainable, apply_fn = lora_train_wrappers(
+                self.model, torch.Generator(device=self.device).manual_seed(
+                    config.training.seed + 1),
+                rank=lcfg.rank, alpha=lcfg.alpha,
+                targets=tuple(lcfg.targets) if lcfg.targets
+                else DEFAULT_TARGETS, dropout=lcfg.dropout)
+            self.lora_apply = apply_fn
+            step_consts = self.model.trainable_params()
+            # validation_loss evaluates the adapter as trained
+            self._apply_fn = lambda *a, **k: apply_fn(
+                self.state.params, *a, base_params=step_consts, **k)
+        else:
+            trainable = self.model.trainable_params()
+            apply_fn = self._apply_fn = self.model.unet_apply
+        self.train_step = make_train_step(apply_fn, self.schedule,
+                                          self.optimizer, config,
+                                          const_params=step_consts)
 
         # ----- state (fresh or resumed)
-        state = create_train_state(self.model.trainable_params(),
-                                   self.optimizer, seed=config.training.seed)
+        state = create_train_state(trainable, self.optimizer,
+                                   seed=config.training.seed)
         resume = config.training.resume_from
         self.best_loss = float("inf")
         if resume == "auto":
@@ -376,10 +402,50 @@ class SDXLTrainer:
         return {k: float(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------- weights
-    def eval_params(self) -> Dict[str, torch.Tensor]:
-        """Weights to evaluate/export: the trained parameters (the port
-        has no EMA or schedule-free state yet, ROADMAP queue 1 item 13)."""
+    def eval_params(self) -> Mapping[str, torch.Tensor]:
+        """Weights to evaluate/export.  Precedence: the fp32 EMA shadow
+        when ``training.ema_decay`` is on; else schedule-free's averaged x
+        sequence; else the parameters (under LoRA: the pairs)."""
+        opt_state = self.state.opt_state
+        # (EMA + schedule-free is refused by make_optimizer)
+        if isinstance(opt_state, EMAState):
+            return ema_eval_params(opt_state, self.state.params)
+        if isinstance(opt_state, ScheduleFreeKahanState):
+            return schedule_free_eval_params(
+                opt_state, self.state.params,
+                beta1=self.config.optimizer.beta1)
         return self.state.params
+
+    @contextmanager
+    def evaluated_weights(self):
+        """The UNet runs with ``eval_params`` for the body: under LoRA the
+        adapter merges the evaluated pairs; otherwise each parameter's
+        data is swapped for its evaluated tensor and swapped back after."""
+        params = self.eval_params()
+        if self.lora_apply is not None:
+            with self.lora_apply.adapter.bound(params):
+                yield
+            return
+        live = self.state.params
+        saved = {n: live[n].data for n in live if params[n] is not live[n]}
+        try:
+            for n in saved:
+                live[n].data = params[n]
+            yield
+        finally:
+            for n, d in saved.items():
+                live[n].data = d
+
+    def unet_export_state(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The UNet state dict to export when it is not the module's own:
+        the merged LoRA, or the evaluated weights; None otherwise."""
+        params = self.eval_params()
+        if self.lora_apply is not None:
+            params = lora_merge(self.model.trainable_params(), params,
+                                alpha=self.config.training.lora.alpha)
+        elif params is self.state.params:
+            return None
+        return {**self.model.unet.state_dict(), **params}
 
     # ----------------------------------------------------------- validation
     def run_validation_loss(self, val_ds: AspectBucketDataset
@@ -422,7 +488,8 @@ class SDXLTrainer:
             size = self.config.data.image_size
             vl = ValidationLogger(sampler, prompts, self.output_dir,
                                   logger=self.logger, height=size, width=size)
-            vl.run_validation(int(self.state.step))
+            with self.evaluated_weights():
+                vl.run_validation(int(self.state.step))
         except Exception as e:  # sampling must never kill training
             self.logger.warning(f"validation sampling failed: {e}")
 
@@ -448,9 +515,15 @@ class SDXLTrainer:
         t2 = time.perf_counter()
         (path / "trainer_state.json").write_text(json.dumps(
             {"best_loss": self.best_loss, "step": int(self.state.step)}))
+        if self.lora_apply is not None:
+            # ship the adapter (peft layout) and the merged UNet
+            lcfg = self.config.training.lora
+            C.export_lora(path, self.eval_params(), rank=lcfg.rank,
+                          alpha=lcfg.alpha)
         export_bytes = C.export_diffusers(
             path, components(self.model), config=self.config,
             unet_config=self.model.unet_config,
+            unet_state=self.unet_export_state(),
             scheduler_config={
                 "prediction_type": self.config.training.prediction_type,
                 "num_train_timesteps": self.config.model.num_timesteps,

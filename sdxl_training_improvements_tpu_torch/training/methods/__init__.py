@@ -201,3 +201,8 @@ def flow_matching_loss(unet_apply, batch,
                    "time_mean": t.float().mean(),
                    "time_std": t.float().std(correction=0)}
     return loss, metrics
+
+
+# the extension template registers itself (JAX: the same import)
+from sdxl_training_improvements_tpu_torch.training.methods import (  # noqa: E402,F401,E501
+    example_method as _example_method)

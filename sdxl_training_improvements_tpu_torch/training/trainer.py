@@ -18,11 +18,17 @@ Port of ``sdxl_training_improvements_tpu/training/trainer.py``
 Randomness is keyed by sample: the state's CPU generator draws two seeds
 per sample of the global batch (``batch["sample_seeds"]``) and one seed per
 micro-batch, so a sample's noise and timestep do not depend on the tiling.
-Not ported here: ``const_params`` (LoRA's frozen base), meshes and
-host-streamed state (ROADMAP queue 1).
+``const_params`` (LoRA's frozen base, JAX ``trainer.py:54-66``) is an
+argument of the step, not part of the state: its tensors are set to
+``requires_grad=False``, are not copied and have no optimizer state; the
+step hands them to ``unet_apply(params, *args, base_params=...,
+seed=...)``, whose first argument is the trainable tree (LoRA's pairs)
+and ``seed`` the micro-batch's seed (LoRA's dropout masks).  Not ported
+here: meshes and host-streamed state (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -66,7 +72,9 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
-                    optimizer, config) -> Callable:
+                    optimizer, config,
+                    const_params: Optional[Mapping[str, torch.Tensor]] = None
+                    ) -> Callable:
     """Build ``step(state, batch, events=None) -> (state, metrics)``.
 
     ``batch`` leaves are [global_batch, ...]; with accumulation G the
@@ -88,6 +96,9 @@ def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
     mcfg = config.model
     accum_dtype = (torch.bfloat16 if config.tpu.grad_accum_dtype
                    == "bfloat16" else torch.float32)
+    if const_params is not None:
+        for t in const_params.values():
+            t.requires_grad_(False)
 
     def mark(events, name):
         if events is not None:
@@ -118,7 +129,12 @@ def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
             mb = {k: v[i * mb_size:(i + 1) * mb_size]
                   for k, v in full.items()}
             gen = torch.Generator(device=device).manual_seed(micro_seeds[i])
-            loss, m = loss_fn(unet_apply, mb, gen, schedule, mcfg)
+            apply = unet_apply
+            if const_params is not None:
+                apply = functools.partial(unet_apply, state.params,
+                                          base_params=const_params,
+                                          seed=micro_seeds[i])
+            loss, m = loss_fn(apply, mb, gen, schedule, mcfg)
             g = list(torch.autograd.grad(loss, params))
             losses.append(loss.detach())
             metrics.append(m)

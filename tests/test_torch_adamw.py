@@ -33,7 +33,7 @@ from sdxl_training_improvements_tpu.training.optimizers.adamw_bf16 import (
     adamw_bf16 as jax_adamw_bf16)
 from sdxl_training_improvements_tpu_torch.config import Config
 from sdxl_training_improvements_tpu_torch.training.optimizers import (
-    AdamW, AdamWBF16, make_optimizer)
+    EMA, AdamW, AdamWBF16, make_optimizer)
 
 LR, WD, STEPS = 1e-3, 1e-2, 3
 
@@ -104,8 +104,9 @@ def test_adamw_matches_optax(p_dtype, g_dtype):
 def test_make_optimizer_builds_plain_adamw():
     """``optimizer_type: adamw`` builds the plain update from the
     optimizer section; as in JAX, the adamw_bf16-only settings (layout,
-    int8 moments, noise, host-streamed state) do not apply to it, while
-    EMA stays unported."""
+    int8 moments, noise, host-streamed state) do not apply to it; EMA
+    (unported until it was, when this case asserted the refusal) wraps
+    it."""
     cfg = Config.from_dict({"optimizer": {
         "optimizer_type": "adamw", "learning_rate": 1e-5, "beta1": 0.8,
         "beta2": 0.99, "epsilon": 1e-6, "weight_decay": 0.05,
@@ -116,8 +117,9 @@ def test_make_optimizer_builds_plain_adamw():
     assert (opt.lr, opt.beta1, opt.beta2, opt.eps, opt.weight_decay) == (
         1e-5, 0.8, 0.99, 1e-6, 0.05)
     cfg.training.ema_decay = 0.999
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(cfg)
+    opt = make_optimizer(cfg)
+    assert isinstance(opt, EMA) and isinstance(opt.inner, AdamW)
+    assert opt.decay == 0.999
 
 
 def test_adamw_bf16_refuses_fp16_leaves_as_jax_does():

@@ -51,6 +51,17 @@ from sdxl_training_improvements_tpu_torch.training.optimizers import (
 RTOL, ATOL = 2e-4, 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small tensors: with six
+    xdist workers each spinning a pool the size of the host, the tiny
+    model's steps ran ~20x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------ schedules
 
 @pytest.fixture
