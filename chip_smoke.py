@@ -57,11 +57,11 @@ Phases, each printing what it found:
    convolutions in TF32; ``SDXLModel.create`` turns both switches off);
 10. the rest of serving, run right after phase 5 on its bf16 base model:
    the checkpoint round trip (``export_diffusers`` with the port's
-   safetensors writer into a temporary directory, ``SDXLPipeline.
-   from_pretrained`` back: every tensor ``torch.equal``, the key audit
-   empty), ``generate.main`` on that directory at 1024^2 (DPM++ 2M,
-   DeepCache 2; its PNG read back, then ``--init`` with it at strength
-   0.35), and each new mode through the kernels against the plain
+   safetensors writer into a temporary directory kept for phase 13,
+   ``SDXLPipeline.from_pretrained`` back: every tensor ``torch.equal``,
+   the key audit empty), ``generate.main`` on that directory at 1024^2
+   (DPM++ 2M, DeepCache 2; its PNG read back, then ``--init`` with it at
+   strength 0.35), and each new mode through the kernels against the plain
    versions (latents within ``SLICE_REL_L2_TOL``): DPM++ 2M, Euler with
    DeepCache 2 (its first call bit-equal to the uncached one), flow
    matching, img2img, inpainting on a seeded full-width 9-channel UNet and
@@ -109,7 +109,30 @@ Phases, each printing what it found:
    CUDA fused AdamW -> quantize ``torch.equal`` to the plain chain), and
    (12e) adamw_bf16 with an EMA shadow of the whole UNet (2 steps);
    each sub-path's loss, state and peak GiB, step profile and launches;
-   and each new state's resume through ``main.main`` on the tiny model.
+   and each new state's resume through ``main.main`` on the tiny model;
+13. the serving entry points, right after phase 10 on its bf16 base and
+   its checkpoint: (13a) ``aot.export_text2img`` at 1024^2, b1, Euler,
+   8 steps, guidance 5, then ``AOTPipeline.load``, which captures the
+   encode, the CFG UNet call and the fp32 VAE decode as CUDA graphs in one
+   pool (capture s, graphs and their nodes, pool GiB logged); 20 images
+   through the graphs and 3 through the eager kernel path (UNet wall ms a
+   step, median and p90, s an image, one image's latents profiled for
+   device busy ms and idle share), the graph latents against the eager
+   kernel path at the same seeds (rel L2 within ``AOT_REL_L2_TOL``,
+   ``torch.equal`` logged) and against the plain versions (within
+   ``SLICE_REL_L2_TOL``), the decode graph within one uint8 step of the
+   eager decode of the same latents, whose fp32 output is finite; (13b)
+   the same for DPM++ 2M with DeepCache 2
+   (the full call with ``return_deep`` and the shallow one, each a
+   graph); (13c) ``serve.build_server`` on port 0 in a thread over 13a's
+   artifact: /healthz, two concurrent requests whose PNGs, read back by
+   ``png.read_png``, equal ``AOTPipeline``'s images, a 400 on a batch
+   mismatch, 5 requests timed (the launches counted over the served
+   requests alone, the reference images made after); (13d) ``generate.main`` with
+   ``--export-aot`` and then ``--aot`` on phase 10's checkpoint, and the
+   exit on a conflicting ``--steps``.  Each graph path's launches are its
+   launches per capture times its replays (the wrappers count a capture
+   once).
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (``launches``: the sum over the main paths, ``launches_by_path``:
@@ -1275,16 +1298,16 @@ def _deep_cache_exact(model) -> None:
     check(equal, "DeepCache's first call differs from the uncached call")
 
 
-def phase_rest_of_serving(model) -> dict:
-    """Phase 10 on the bf16 base model (see the module docstring); returns
-    each kernels-vs-plain path's launches."""
+def phase_rest_of_serving(model, tmp: Path) -> dict:
+    """Phase 10 on the bf16 base model (see the module docstring), its
+    checkpoint written to ``tmp / "ckpt"``; returns each kernels-vs-plain
+    path's launches."""
     from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
     from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
     from sdxl_training_improvements_tpu_torch.pipelines import SDXLPipeline
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        _checkpoint_round_trip(model, Path(tmp) / "ckpt")
-        image = _generate(Path(tmp) / "ckpt", Path(tmp) / "out")
+    _checkpoint_round_trip(model, tmp / "ckpt")
+    image = _generate(tmp / "ckpt", tmp / "out")
     prompt = PROMPTS[:1]
     run = dict(num_inference_steps=STEPS, guidance_scale=5.0, seed=SEED,
                return_latents=True)
@@ -1352,6 +1375,347 @@ def phase_rest_of_serving(model) -> dict:
     _free()
     log(f"phase 10 wall time {time.perf_counter() - t_phase:.1f} s")
     return paths
+
+
+# ------------------------------------- phase 13: the serving entry points
+# images through the graphs and through the eager kernel path (13a), the
+# DeepCache artifact's (13b), requests timed (13c); the graph latents
+# against the eager kernel path at the same seeds
+AOT_IMAGES, AOT_EAGER_IMAGES, AOT_REQUESTS = 20, 3, 5
+AOT_REL_L2_TOL = 1e-3  # the same kernels in the same order: 0 expected
+AOT_KERNELS = ("gn_silu_fwd", "gn_silu_fwd_f32", "flash_fwd")
+
+
+def _graph_nodes(graph) -> Optional[int]:
+    """Nodes of a captured graph, by libcuda's ``cuGraphGetNodes``
+    (``AOTPipeline`` keeps each graph), or None where it cannot be read."""
+    import ctypes
+    try:
+        handle = graph.raw_cuda_graph()
+        n = ctypes.c_size_t(0)
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(handle), None, ctypes.byref(n))
+        return n.value if rc == 0 else None
+    except (AttributeError, OSError, RuntimeError):
+        return None
+
+
+def _p90(values) -> float:
+    """Nearest-rank 90th percentile."""
+    ordered = sorted(values)
+    return ordered[max(0, math.ceil(0.9 * len(ordered)) - 1)]
+
+
+def _profiled(fn, label: str) -> tuple:
+    """(result, wall ms, device busy ms, idle share) of one call under the
+    profiler, its kernel groups logged."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    idle = _log_profile(prof, label, wall)
+    return out, wall, (1 - idle) * wall, idle
+
+
+def _sync_timed(fn, record: dict, kind):
+    """``fn`` with each call's wall ms, between two synchronizes, appended
+    to ``record[kind(args, kwargs)]``."""
+    def wrapper(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        record.setdefault(kind(a, kw), []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+def _step_stats(record: dict) -> str:
+    return "; ".join(f"{k} median {statistics.median(ms):.2f} ms, p90 "
+                     f"{_p90(ms):.2f} ms over {len(ms)} calls"
+                     for k, ms in sorted(record.items()))
+
+
+def _aot_case(label: str, model, root: Path, n_images: int, **pipe_kw):
+    """Export at SERVE_SIZE^2, b1, STEPS steps, guidance 5, then
+    ``AOTPipeline.load`` with capture: ``n_images`` images through the
+    graphs and AOT_EAGER_IMAGES through the eager kernel path, UNet steps
+    timed, one image of each profiled; the graph latents against the
+    eager ones and against the plain versions, the decode graph against
+    the eager decode.  Returns (metrics, the
+    AOTPipeline)."""
+    from sdxl_training_improvements_tpu_torch.aot import (
+        AOTPipeline, export_text2img)
+    from sdxl_training_improvements_tpu_torch.pipelines import SDXLPipeline
+    from sdxl_training_improvements_tpu_torch.training.validation import (
+        latents_to_images)
+    prompt = PROMPTS[:1]
+    pipe = SDXLPipeline.from_model(model, **pipe_kw)
+    art = export_text2img(pipe, root / label.split()[0], batch=1,
+                          height=SERVE_SIZE, width=SERVE_SIZE,
+                          num_inference_steps=STEPS, guidance_scale=5.0)
+    _free()
+    torch.cuda.synchronize()
+    reserved, allocated = (torch.cuda.memory_reserved(),
+                           torch.cuda.memory_allocated())
+    _zero_launches()
+    t0 = time.perf_counter()
+    aot = AOTPipeline.load(art, model, pipe.tokenizers, device=DEVICE)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    pool_gib = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    held_gib = (torch.cuda.memory_allocated() - allocated) / 2 ** 30
+    nodes = {name: _graph_nodes(g) for name, g in aot.graphs.items()}
+    log(f"phase 13 {label}: export + AOTPipeline.load {capture_s:.2f} s "
+        f"(one eager warm-up and one capture a graph); {len(aot.graphs)} "
+        f"graphs, nodes {nodes}; pool {pool_gib:.3f} GiB reserved, "
+        f"{held_gib:.3f} GiB held by the static tensors; launches per "
+        f"capture {aot.captured_launches}; the wrappers' counts over "
+        f"warm-up and capture {_launches(AOT_KERNELS)}")
+    unets = [g for g in aot.graphs if g.startswith("unet")]
+    want = {"encode", "decode"} | ({"unet_deep", "unet_shallow"}
+                                   if pipe.deep_cache > 1 else {"unet"})
+    check(set(aot.graphs) == want, f"phase 13 {label}: graphs "
+          f"{sorted(aot.graphs)}, want {sorted(want)}")
+    for g in unets:  # the shallow stages of SDXL hold no attention
+        check(all(aot.captured_launches[g].get(k, 0) > 0
+                  for k in ("gn_silu_fwd",) + (
+                      () if g == "unet_shallow" else ("flash_fwd",))),
+              f"phase 13 {label}: {g} captured {aot.captured_launches[g]}")
+    decode = aot.captured_launches.get("decode", {})
+    check(decode.get("gn_silu_fwd_f32", 0) > 0,
+          f"phase 13 {label}: decode captured {decode}")
+    # through the graphs: images, then the compared latents
+    steps, per_image = {}, []
+    with mock.patch.object(aot, "_unet", _sync_timed(
+            aot._unet, steps, lambda a, kw: a[0])):
+        for i in range(n_images):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images = aot(prompt, seed=SEED + i)
+            torch.cuda.synchronize()
+            per_image.append(time.perf_counter() - t0)
+            check(images[0].shape == (SERVE_SIZE, SERVE_SIZE, 3)
+                  and images[0].dtype == np.uint8,
+                  f"phase 13 {label}: image {images[0].shape} "
+                  f"{images[0].dtype}")
+    graph_lat = [aot.generate_latents(prompt, seed=SEED + i)
+                 for i in range(AOT_EAGER_IMAGES)]
+    _, g_wall, g_busy, g_idle = _profiled(
+        lambda: aot.generate_latents(prompt, seed=SEED),
+        f"phase 13 {label} graphs, one image's latents")
+    launches = {k: aot.kernel_launches().get(k, 0) for k in AOT_KERNELS}
+    # through the eager kernel path, the same seeds
+    t2i = dict(height=SERVE_SIZE, width=SERVE_SIZE,
+               num_inference_steps=STEPS, guidance_scale=5.0)
+    e_steps, e_image, eager_lat = {}, [], []
+    with mock.patch.object(model, "unet_apply", _sync_timed(
+            model.unet_apply, e_steps,
+            lambda a, kw: "shallow" if kw.get("deep_cache") is not None
+            else "deep" if kw.get("return_deep") else "full")):
+        for i in range(AOT_EAGER_IMAGES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lat = pipe(prompt, seed=SEED + i, return_latents=True, **t2i)
+            with torch.inference_mode():
+                latents_to_images(model.decode_latents(lat))
+            torch.cuda.synchronize()
+            e_image.append(time.perf_counter() - t0)
+            eager_lat.append(lat)
+    _, e_wall, e_busy, e_idle = _profiled(
+        lambda: pipe(prompt, seed=SEED, return_latents=True, **t2i),
+        f"phase 13 {label} eager, one image's latents")
+    rels = [((g - e).norm() / e.norm()).item()
+            for g, e in zip(graph_lat, eager_lat)]
+    equal = [torch.equal(g, e) for g, e in zip(graph_lat, eager_lat)]
+    with _plain_ops():
+        plain = pipe(prompt, seed=SEED, return_latents=True, **t2i)
+    rel_plain = ((graph_lat[0] - plain).norm() / plain.norm()).item()
+    finite = all(bool(torch.isfinite(g).all()) for g in graph_lat)
+    # the decode graph against the eager decode of the same latents, and
+    # the fp32 decode finite before the uint8 cast
+    with torch.inference_mode():
+        decoded = model.decode_latents(graph_lat[0].float()).float()
+    dec_finite = bool(torch.isfinite(decoded).all())
+    eager_img = latents_to_images(decoded)[0]
+    graph_img = aot.decode(graph_lat[0])[0]
+    dec_step = int(np.abs(graph_img.astype(np.int16)
+                          - eager_img.astype(np.int16)).max())
+    log(f"phase 13 {label}: UNet wall per step, graphs {_step_stats(steps)}"
+        f"; eager {_step_stats(e_steps)}; s per image (decode included, "
+        f"a synchronize around each UNet call): graphs median "
+        f"{statistics.median(per_image):.3f} p90 {_p90(per_image):.3f} over "
+        f"{len(per_image)}, eager median {statistics.median(e_image):.3f} "
+        f"over {len(e_image)}; one image's latents profiled: graphs wall "
+        f"{g_wall:.2f} ms, device busy {g_busy:.2f} ms ({g_busy / STEPS:.2f}"
+        f" a step), idle {g_idle:.3f}; eager wall {e_wall:.2f} ms, busy "
+        f"{e_busy:.2f} ms ({e_busy / STEPS:.2f} a step), idle {e_idle:.3f}")
+    log(f"phase 13 {label}: graph latents vs the eager kernel path (same "
+        f"seeds) rel L2 {rels} (tol {AOT_REL_L2_TOL:g}), torch.equal "
+        f"{equal}; vs the plain versions {rel_plain:.3e} (tol "
+        f"{SLICE_REL_L2_TOL:g}); finite {finite}; replays "
+        f"{dict(aot.replays)}; launches (per capture x replays) {launches}")
+    log(f"phase 13 {label}: decode graph vs the eager decode of the same "
+        f"latents: max {dec_step} uint8 steps (bar 1), np.array_equal "
+        f"{bool(np.array_equal(graph_img, eager_img))}; fp32 decode finite "
+        f"{dec_finite}")
+    check(finite, f"phase 13 {label}: graph latents not finite")
+    check(dec_finite, f"phase 13 {label}: the decode is not finite")
+    check(graph_img.shape == eager_img.shape and dec_step <= 1,
+          f"phase 13 {label}: decode graph vs eager decode {dec_step} steps")
+    check(max(rels) <= AOT_REL_L2_TOL, f"phase 13 {label}: graph vs eager "
+          f"rel L2 {rels}")
+    check(rel_plain <= SLICE_REL_L2_TOL, f"phase 13 {label}: graph vs "
+          f"plain rel L2 {rel_plain}")
+    for k in AOT_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the phase "
+              f"13 {label} path")
+    return dict(launches=launches, capture_s=capture_s, pool_gib=pool_gib,
+                nodes=nodes, steps=steps, eager_steps=e_steps), aot
+
+
+def _http(url: str, payload=None) -> tuple:
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"},
+        method="GET" if payload is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _served_case(aot, root: Path) -> dict:
+    """13c: ``serve.build_server`` on port 0 in a thread over 13a's
+    artifact: /healthz, two concurrent requests with different seeds (the
+    PNGs read back by ``png.read_png`` equal to ``AOTPipeline``'s images),
+    a 400 on a batch mismatch, AOT_REQUESTS requests timed."""
+    import base64
+    import threading
+    from sdxl_training_improvements_tpu_torch.png import read_png
+    from sdxl_training_improvements_tpu_torch.serve import build_server
+    server = build_server(aot, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    url = f"http://{host}:{port}"
+    before = aot.kernel_launches()
+    try:
+        status, body = _http(url + "/healthz")
+        check(status == 200 and body["ok"] and body["meta"]["batch"] == 1,
+              f"phase 13 serve: /healthz {status} {body}")
+        results = {}
+
+        def hit(seed):
+            results[seed] = _http(url + "/generate",
+                                  {"prompts": [PROMPTS[1]], "seed": seed})
+
+        seeds = (SEED + 100, SEED + 101)
+        threads = [threading.Thread(target=hit, args=(s,)) for s in seeds]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        served = {}
+        for s in seeds:
+            status, body = results[s]
+            check(status == 200 and body["seed"] == s,
+                  f"phase 13 serve: seed {s}: {status}")
+            path = root / f"served_{s}.png"
+            path.write_bytes(base64.b64decode(body["images"][0]))
+            served[s] = read_png(path)
+        status, body = _http(url + "/generate", {"prompts": ["a", "b"]})
+        check(status == 400 and body["artifact_batch"] == 1,
+              f"phase 13 serve: batch mismatch gave {status} {body}")
+        latency = []
+        for i in range(AOT_REQUESTS):
+            t0 = time.perf_counter()
+            status, _ = _http(url + "/generate",
+                              {"prompts": [PROMPTS[2]], "seed": i})
+            latency.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"phase 13 serve: request {i}: {status}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    after = aot.kernel_launches()
+    launches = {k: after.get(k, 0) - before.get(k, 0) for k in AOT_KERNELS}
+    # the references, called directly, after the served path's count
+    equal = {s: bool(np.array_equal(img, aot([PROMPTS[1]], seed=s)[0]))
+             for s, img in served.items()}
+    log(f"phase 13 serve: /healthz ok; two concurrent requests' PNGs equal "
+        f"to AOTPipeline's images {equal}; batch mismatch 400; request "
+        f"latency median {statistics.median(latency):.2f} ms over "
+        f"{len(latency)} ({[round(v, 2) for v in latency]}); launches "
+        f"{launches}")
+    check(all(equal.values()), f"phase 13 serve: served PNGs differ {equal}")
+    for k in AOT_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the phase "
+              "13 serve path")
+    return dict(launches=launches, latency_ms=latency)
+
+
+def _generate_aot(ckpt: Path, out: Path) -> None:
+    """13d: ``generate.main`` with ``--export-aot`` then ``--aot`` on phase
+    10's checkpoint; a conflicting ``--steps`` (the parser's default,
+    passed explicitly) exits before anything loads."""
+    from sdxl_training_improvements_tpu_torch import generate
+    from sdxl_training_improvements_tpu_torch.png import read_png
+    art = out / "artifact"
+    args = ["--model", str(ckpt), "--prompt", PROMPTS[0], "--seed",
+            str(SEED)]
+    size = ["--height", str(SERVE_SIZE), "--width", str(SERVE_SIZE),
+            "--steps", str(STEPS)]
+    for extra in (size + ["--export-aot", str(art)],
+                  ["--aot", str(art), "--out", str(out / "aot")]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = generate.main(args + extra)
+        torch.cuda.synchronize()
+        log(f"phase 13 generate.main {' '.join(extra[-2:])}: rc {rc}, "
+            f"{time.perf_counter() - t0:.2f} s (the checkpoint load and, "
+            "for --aot, the capture included)")
+        check(rc == 0, f"generate.main {extra}: rc {rc}")
+        _free()
+    img = read_png(out / "aot" / "000.png")
+    check(img.shape == (SERVE_SIZE, SERVE_SIZE, 3) and img.dtype == np.uint8,
+          f"generate.main --aot PNG {img.shape} {img.dtype}")
+    try:
+        generate.main(args + ["--aot", str(art), "--steps", "28"])
+        exited = None
+    except SystemExit as e:
+        exited = str(e)
+    log(f"phase 13 generate.main --aot --steps 28 (artifact {STEPS}): "
+        f"{exited}")
+    check(exited is not None and "conflicts" in exited,
+          "generate.main --aot accepted a conflicting --steps")
+
+
+def phase_serving_entry_points(model, tmp: Path) -> dict:
+    """Phase 13 on phase 10's bf16 base and its checkpoint in ``tmp``
+    (module docstring); returns each path's launches."""
+    t_phase = time.perf_counter()
+    root = tmp / "aot"
+    euler, aot = _aot_case("euler", model, root, AOT_IMAGES)
+    served = _served_case(aot, root)
+    del aot
+    _free()
+    cached, aot = _aot_case("dpmpp_2m deep-cache 2", model, root,
+                            AOT_IMAGES, sampler="dpmpp_2m", deep_cache=2)
+    del aot
+    _free()
+    _generate_aot(tmp / "ckpt", root)
+    log(f"phase 13 wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"euler (phase 13a)": euler["launches"],
+            "dpmpp_2m deep-cache 2 (phase 13b)": cached["launches"],
+            "serve.py (phase 13c)": served["launches"]}
 
 
 def _train_batch(model, n: int, gen, size: int = SIZE) -> dict:
@@ -2900,7 +3264,9 @@ def main() -> None:
         f"{time.perf_counter() - t0:.2f} s")
     phase_unet(model)
     serving = phase_slice(model)
-    rest = phase_rest_of_serving(model)
+    with tempfile.TemporaryDirectory() as tmp:
+        rest = phase_rest_of_serving(model, Path(tmp))
+        entry_points = phase_serving_entry_points(model, Path(tmp))
     profile_unet_step(model)
     train = phase_train(model, cfg)
     phase_train_parity(model, cfg)
@@ -2915,6 +3281,7 @@ def main() -> None:
     paths = {"serving (phase 5)": serving["launches"],
              **{f"rest of serving (phase 10): {k}": v
                 for k, v in rest.items()},
+             **{f"aot {k}": v for k, v in entry_points.items()},
              "training (phase 6)": train["launches"],
              "fp16 (phase 8)": fp16["launches"],
              "fp32 training (phase 9)": fp32["train"]["launches"],

@@ -18,14 +18,19 @@ generate.py``:
     # two-stage base -> refiner ensemble
     ... --refiner /path/to/refiner_checkpoint --denoising-frac 0.8
 
+    # write a text-to-image artifact (meta.json), then run it: its CUDA
+    # graphs are captured at load (see aot.py)
+    ... --export-aot artifacts/sdxl_28step
+    ... --aot artifacts/sdxl_28step
+
 ``--model`` is a diffusers-layout directory, such as
 ``training.checkpoints.export_diffusers`` writes.  Images are written and
 read as PNG by ``png.py`` (no Pillow); ``--init`` and ``--mask`` also take
-``.npy`` arrays (HxWx3 uint8; HxW, nonzero = repaint).  An init image must
-be ``--height`` x ``--width``: resizing is not ported (ROADMAP queue 1,
-item 12).  ``--device cpu`` runs on the CPU.  Not ported: ``--mesh``
-(ROADMAP queue 1, item 14) and ``--aot`` / ``--export-aot`` (item 5, the
-CUDA-graph capture of ``aot.py``).
+``.npy`` arrays (HxWx3 uint8; HxW, nonzero = repaint).  An init image or
+mask of another size is resized to ``--width`` x ``--height`` as JAX's
+Pillow path does (Lanczos; a mask nearest, before its 127 threshold).
+``--device cpu`` runs on the CPU.  Not ported: ``--mesh`` (ROADMAP queue
+1, item 14).
 """
 from __future__ import annotations
 
@@ -62,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported: serving over several cards")
     p.add_argument("--init", action="append", default=None, metavar="IMAGE",
                    help="img2img init image, PNG or .npy (repeat to match "
-                        "--prompt count; must be --height x --width)")
+                        "--prompt count; resized to --height x --width)")
     p.add_argument("--strength", type=float, default=None,
                    help="edit strength in (0, 1]; defaults to 0.35 for "
                         "img2img, 1.0 (full repaint) for inpainting")
@@ -86,11 +91,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "every K steps and run only the shallow stages "
                         "between (1 = off, 2-3 = typical)")
     p.add_argument("--export-aot", default=None, metavar="DIR",
-                   help="not ported: serialize the text2img program")
-    p.add_argument("--aot-platforms", default="tpu,cpu",
-                   help="not ported (with --export-aot)")
+                   help="instead of sampling, write the text2img artifact "
+                        "to DIR: batch = number of --prompt flags, "
+                        "resolution/steps/sampler from the other flags; "
+                        "its CUDA graphs are captured where it is loaded "
+                        "(see aot.py)")
+    p.add_argument("--aot-platforms", default="cuda,cpu",
+                   help="comma-separated device types the artifact may "
+                        "run on (with --export-aot)")
     p.add_argument("--aot", default=None, metavar="DIR",
-                   help="not ported: run an exported program")
+                   help="run text2img through an artifact (with --model "
+                        "supplying the weights); incompatible with "
+                        "img2img/inpaint/refiner/--mesh")
     p.add_argument("--device", default="cuda",
                    help="torch device (the card unless told otherwise)")
     return p
@@ -102,54 +114,94 @@ def _read(path) -> np.ndarray:
     return np.load(path) if path.suffix == ".npy" else read_png(path)
 
 
-def _check_size(a: np.ndarray, path, height: int, width: int) -> None:
-    if a.shape[:2] != (height, width):
-        raise SystemExit(
-            f"{path}: {a.shape[1]}x{a.shape[0]} is not --width x --height "
-            f"{width}x{height}; resizing is not ported (ROADMAP queue 1, "
-            "item 12): resize it first")
-
-
 def _load_images(paths, height, width):
-    from sdxl_training_improvements_tpu_torch.png import to_rgb
+    from sdxl_training_improvements_tpu_torch.png import (
+        resize_lanczos, to_rgb)
     out = []
     for path in paths:
         a = _read(path)
         if a.dtype != np.uint8:
             raise SystemExit(f"{path}: expected uint8 pixels, got {a.dtype}")
         a = to_rgb(a)
-        _check_size(a, path, height, width)
+        if a.shape[:2] != (height, width):
+            a = resize_lanczos(a, width, height)
         out.append(a)
     return out
 
 
 def _load_masks(paths, height, width):
-    from sdxl_training_improvements_tpu_torch.png import to_gray
+    from sdxl_training_improvements_tpu_torch.png import (
+        resize_nearest, to_gray)
     out = []
     for path in paths:
         a = _read(path)
-        # a PNG mask is white = repaint (luma > 127); an .npy one nonzero
-        m = ((to_gray(a) > 127) if Path(path).suffix != ".npy"
-             else (a != 0)).astype(np.uint8)
-        _check_size(m, path, height, width)
-        out.append(m)
+        if Path(path).suffix == ".npy":  # nonzero = repaint
+            a = (a != 0).astype(np.uint8) * 255
+        # white = repaint: luma > 127 after the nearest resize
+        m = to_gray(a)
+        if m.shape != (height, width):
+            m = resize_nearest(m, width, height)
+        out.append((m > 127).astype(np.uint8))
     return out
+
+
+def _run_aot(args, argv) -> int:
+    """``--aot``: text to image through the artifact; a flag passed
+    explicitly that disagrees with its static settings exits."""
+    from sdxl_training_improvements_tpu_torch.aot import (
+        AOTPipeline, read_meta)
+    if args.init or args.mask or args.refiner or args.mesh:
+        raise SystemExit("--aot serves the exported text2img program "
+                         "only (no img2img/inpaint/refiner/--mesh)")
+    # "explicitly passed" by re-parsing argv with every default SUPPRESSed
+    # (absent flags then do not appear), not by comparing with the
+    # parser's defaults: the default value passed against an artifact
+    # made with another one conflicts too
+    sentinel = build_parser()
+    for action in sentinel._actions:
+        action.default = argparse.SUPPRESS
+        action.required = False
+    explicit = vars(sentinel.parse_args(argv))
+    meta = read_meta(args.aot)
+    static = {"steps": "num_inference_steps", "height": "height",
+              "width": "width", "sampler": "sampler",
+              "deep_cache": "deep_cache"}
+    for flag, key in static.items():
+        passed, baked = getattr(args, flag), meta.get(key)
+        if flag in explicit and passed != baked:
+            raise SystemExit(
+                f"--{flag.replace('_', '-')}={passed} conflicts with the "
+                f"AOT artifact ({key}={baked} is static in the exported "
+                "program); drop the flag or re-export")
+    aot = AOTPipeline.from_pretrained(args.aot, args.model, tiny=args.tiny,
+                                      device=args.device)
+    _write(aot(args.prompt, negative_prompts=args.negative, seed=args.seed,
+               guidance_scale=args.guidance), args.out)
+    return 0
+
+
+def _write(images, out) -> None:
+    """The images as ``out/NNN.png``, each path printed."""
+    from sdxl_training_improvements_tpu_torch.png import write_png
+    out_dir = Path(out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(images):
+        path = out_dir / f"{i:03d}.png"
+        write_png(path, img)
+        print(path)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from sdxl_training_improvements_tpu_torch.pipelines import SDXLPipeline
-    from sdxl_training_improvements_tpu_torch.png import write_png
 
+    if args.mask and not args.init:
+        raise SystemExit("--mask requires --init (the image to repaint)")
+    if args.aot:
+        return _run_aot(args, argv)
     if args.mesh:
         raise SystemExit("--mesh: serving over several cards is not ported "
                          "(ROADMAP queue 1, item 14)")
-    if args.aot or args.export_aot:
-        raise SystemExit("--aot/--export-aot: not ported; their "
-                         "counterpart is the CUDA-graph capture of "
-                         "serve.py/aot.py (ROADMAP queue 1, item 5)")
-    if args.mask and not args.init:
-        raise SystemExit("--mask requires --init (the image to repaint)")
     method = None if args.method == "auto" else args.method
     common = dict(tiny=args.tiny, sampler=args.sampler,
                   deep_cache=args.deep_cache, device=args.device)
@@ -157,6 +209,16 @@ def main(argv=None) -> int:
     print(f"sampler method: {pipe.method} ({args.sampler}"
           + (f", deep-cache {args.deep_cache}" if args.deep_cache > 1
              else "") + ")")
+    if args.export_aot:
+        from sdxl_training_improvements_tpu_torch.aot import export_text2img
+        art = export_text2img(
+            pipe, args.export_aot, batch=len(args.prompt),
+            height=args.height, width=args.width,
+            num_inference_steps=args.steps, guidance_scale=args.guidance,
+            aesthetic_score=args.aesthetic_score,
+            platforms=tuple(s for s in args.aot_platforms.split(",") if s))
+        print(f"AOT artifact written to {art}")
+        return 0
     run = dict(num_inference_steps=args.steps, guidance_scale=args.guidance,
                seed=args.seed, negative_prompts=args.negative)
     if args.mask:
@@ -183,12 +245,7 @@ def main(argv=None) -> int:
     else:
         images = pipe(args.prompt, height=args.height, width=args.width,
                       **run)
-    out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for i, img in enumerate(images):
-        path = out_dir / f"{i:03d}.png"
-        write_png(path, img)
-        print(path)
+    _write(images, args.out)
     return 0
 
 

@@ -44,6 +44,7 @@ from contextlib import contextmanager
 from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, \
     Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -52,25 +53,54 @@ DEFAULT_TARGETS = (r"attn\d/(to_q|to_k|to_v|to_out_0)",)
 _BLOCK = re.compile(r"^(down_blocks|up_blocks)_\d+$")
 
 
-def jax_path(name: str) -> str:
-    """The flax path of a port UNet weight or bias
-    ('down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q.weight'
-    -> 'params/down_blocks_1_attentions_0/transformer_blocks_0/attn1/
-    to_q/kernel'); raises where the key map does not take it back."""
-    from sdxl_training_improvements_tpu_torch.models.weights import (
-        _seg_to_key)
-    *parts, leaf = name.split(".")
+def jax_path(name: str, component: str = "unet",
+             module: Optional[nn.Module] = None) -> str:
+    """The flax path of a port weight or bias of ``component`` ("unet",
+    "vae", "clip_l" or "clip_g"): 'down_blocks.1.attentions.0.
+    transformer_blocks.0.attn1.to_q.weight' -> 'params/down_blocks_1_
+    attentions_0/transformer_blocks_0/attn1/to_q/kernel'.  ``module``, the
+    parameter's owner, names the leaf: a norm's weight is 'scale', an
+    embedding's 'embedding', CLIP's position embedding the bare
+    'position_embedding'; without it a weight is a Linear's or Conv2d's
+    'kernel' (LoRA's targets).  Raises where the key map
+    (``models/weights.py``) does not take the path back to ``name``."""
+    from sdxl_training_improvements_tpu_torch.models import weights as W
+    clip = component.startswith("clip")
+    key = name
+    if clip:  # transformers' scopes, which the flax tree does not have
+        for scope in ("text_model.embeddings.", "text_model.encoder.",
+                      "text_model."):
+            if key.startswith(scope):
+                key = key[len(scope):]
+                break
+    *parts, leaf = key.split(".")
     segs = []
     for p in parts:
         if p.isdigit() and segs:
             segs[-1] += "_" + p
         else:
             segs.append(p)
-    if len(segs) > 1 and (_BLOCK.match(segs[0]) or segs[0] == "mid_block"):
-        segs[:2] = [segs[0] + "_" + segs[1]]
-    path = "params/" + "/".join(segs) + "/" + (
-        "bias" if leaf == "bias" else "kernel")
-    if ".".join([_seg_to_key(m) for m in segs] + [leaf]) != name:
+    # a block and its first child are one flax module: the UNet's
+    # 'down_blocks_1_attentions_0', the VAE decoder's 'mid_block_resnets_0'
+    for i, seg in enumerate(segs[:-1]):
+        if _BLOCK.match(seg) or seg == "mid_block":
+            segs[i:i + 2] = [seg + "_" + segs[i + 1]]
+            break
+    if "mlp" in segs[:-1]:  # CLIP's 'mlp_fc1'
+        i = segs.index("mlp")
+        segs[i:i + 2] = ["mlp_" + segs[i + 1]]
+    if leaf == "bias":
+        segs.append("bias")
+    elif isinstance(module, nn.Embedding):
+        if not (clip and segs == ["position_embedding"]):
+            segs.append("embedding")
+    elif module is None or isinstance(module, (nn.Linear, nn.Conv2d)):
+        segs.append("kernel")
+    else:
+        segs.append("scale")
+    path = "params/" + "/".join(segs)
+    back = W._leaf(tuple(path.split("/")), np.zeros((1,)))[0]
+    if (W._clip_key(back) if clip else back) != name:
         raise KeyError(f"{name!r} has no flax path ({path!r} maps back to "
                        "another key)")
     return path

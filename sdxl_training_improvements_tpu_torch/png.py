@@ -1,17 +1,23 @@
 """PNG files with the standard library and numpy.
 
-The card's machine has no Pillow, so ``generate.py`` and the dataset
-write and read PNGs here: ``write_png`` writes 8-bit gray or RGB (filter 0
-on every row, zlib); ``read_png`` reads non-interlaced 8-bit gray,
+The card's machine has no Pillow, so ``generate.py``, ``serve.py`` and
+the dataset write and read PNGs here: ``encode_png`` makes the bytes of an
+8-bit gray or RGB PNG (filter 0 on every row, zlib) and ``write_png``
+writes them; ``read_png`` reads non-interlaced 8-bit gray,
 gray+alpha, RGB and RGBA with any of the five row filters, undone in C++
 (``native.png_unfilter``; ``_unfilter`` is its plain numpy/Python version,
 which the tests hold it against byte for byte); ``read_png_size`` reads
 the size from the IHDR chunk alone.  ``to_rgb`` and ``to_gray`` convert
 as Pillow's ``convert("RGB")`` / ``convert("L")`` do (alpha dropped, not
-composited; ITU-R 601-2 luma in 16-bit fixed point).
+composited; ITU-R 601-2 luma in 16-bit fixed point).  ``resize_lanczos``
+and ``resize_nearest`` give what Pillow's ``Image.resize(size,
+Image.LANCZOS)`` and ``Image.resize(size, Image.NEAREST)`` give, bit for
+bit (``_Resample.c``'s two separable passes with 22-bit fixed-point
+coefficients, ``Geometry.c``'s nearest scaling).
 """
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 from pathlib import Path
@@ -30,21 +36,25 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data)))
 
 
-def write_png(path, image: np.ndarray) -> None:
-    """HxW (gray) or HxWx3 (RGB) uint8 -> an 8-bit PNG at ``path``."""
+def encode_png(image: np.ndarray) -> bytes:
+    """HxW (gray) or HxWx3 (RGB) uint8 -> the bytes of an 8-bit PNG."""
     a = np.asarray(image)
     if a.dtype != np.uint8 or not (a.ndim == 2 or (a.ndim == 3
                                                    and a.shape[2] == 3)):
-        raise ValueError(f"write_png takes HxW or HxWx3 uint8, got "
+        raise ValueError(f"encode_png takes HxW or HxWx3 uint8, got "
                          f"{a.dtype} {a.shape}")
     h, w = a.shape[:2]
     rows = np.ascontiguousarray(a).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if a.ndim == 2 else 2, 0, 0, 0)
-    Path(path).write_bytes(
-        _SIGNATURE + _chunk(b"IHDR", ihdr)
-        + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-        + _chunk(b"IEND", b""))
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path, image: np.ndarray) -> None:
+    """HxW (gray) or HxWx3 (RGB) uint8 -> an 8-bit PNG at ``path``."""
+    Path(path).write_bytes(encode_png(image))
 
 
 def _paeth(a: int, b: int, c: int) -> int:
@@ -155,3 +165,100 @@ def to_gray(a: np.ndarray) -> np.ndarray:
     r, g, b = (a[..., i].astype(np.uint32) for i in range(3))
     return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(
         np.uint8)
+
+
+# Pillow's 8-bit resampling: coefficients in fixed point with this many
+# fraction bits, and the rounding constant every sum starts from
+_PRECISION_BITS = 32 - 8 - 2
+_LANCZOS_SUPPORT = 3.0
+
+
+def _lanczos(x: float) -> float:
+    def sinc(v):
+        if v == 0.0:
+            return 1.0
+        v = v * math.pi
+        return math.sin(v) / v
+
+    return sinc(x) * sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+def _lanczos_coeffs(in_size: int, out_size: int):
+    """(first input index [out], fixed-point weights [out, ksize] int64) of
+    one axis, as ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` make
+    them; weights past a window's end are 0."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = _LANCZOS_SUPPORT * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    kk = np.zeros((out_size, ksize), np.int64)
+    one = 1 << _PRECISION_BITS
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        ss = 1.0 / filterscale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        ww = 0.0
+        for v in w:
+            ww += v
+        for x, v in enumerate(w):
+            v = v / ww if ww != 0.0 else v
+            kk[xx, x] = int(-0.5 + v * one) if v < 0 else int(0.5 + v * one)
+        first[xx] = xmin
+    return first, kk
+
+
+def _resample_axis(a: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One Lanczos pass of uint8 ``a`` along ``axis`` (0 rows, 1 columns),
+    clipped to uint8 as Pillow's ``clip8`` does."""
+    in_size = a.shape[axis]
+    first, kk = _lanczos_coeffs(in_size, out_size)
+    src = a.astype(np.int64)
+    acc = np.full((out_size,) + a.shape[1:] if axis == 0
+                  else (a.shape[0], out_size) + a.shape[2:],
+                  1 << (_PRECISION_BITS - 1), np.int64)
+    shape = [1] * a.ndim
+    shape[axis] = out_size
+    for t in range(kk.shape[1]):
+        idx = np.minimum(first + t, in_size - 1)  # weight 0 past the end
+        acc += np.take(src, idx, axis=axis) * kk[:, t].reshape(shape)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_lanczos(image: np.ndarray, width: int, height: int
+                   ) -> np.ndarray:
+    """HxWx3 (or HxW) uint8 -> height x width, as Pillow's
+    ``Image.resize((width, height), Image.LANCZOS)``: the horizontal pass
+    first, then the vertical, each skipped where that side keeps its
+    size."""
+    a = np.asarray(image)
+    if a.dtype != np.uint8:
+        raise ValueError(f"resize_lanczos takes uint8, got {a.dtype}")
+    if a.shape[1] != width:
+        a = _resample_axis(a, width, axis=1)
+    if a.shape[0] != height:
+        a = _resample_axis(a, height, axis=0)
+    return np.ascontiguousarray(a)
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """Input index of each output pixel along one axis
+    (``ImagingScaleAffine``: a running double sum from the first pixel's
+    center, truncated)."""
+    step = in_size / out_size
+    pos, idx = step * 0.5, np.zeros(out_size, np.int64)
+    for x in range(out_size):
+        idx[x] = int(pos)
+        pos += step
+    return idx
+
+
+def resize_nearest(image: np.ndarray, width: int, height: int
+                   ) -> np.ndarray:
+    """HxW (or HxWxC) uint8 -> height x width, as Pillow's
+    ``Image.resize((width, height), Image.NEAREST)``."""
+    a = np.asarray(image)
+    return a[_nearest_index(a.shape[0], height)][
+        :, _nearest_index(a.shape[1], width)]

@@ -82,19 +82,32 @@ class ValidationSampler:
                       aesthetic_score: float = 6.0,
                       negative_aesthetic_score: float = 2.5):
         """[cond; neg]-ordered encoder output -> CFG-stacked [uncond; cond]
-        prompt embeds, pooled embeds and time ids: [h, w, 0, 0, h, w] for
-        6-id UNets, [h, w, 0, 0, score] for 5-id ones (the refiner; the
-        negative score on the uncond rows)."""
+        prompt embeds, pooled embeds and time ids (``_time_ids``)."""
+        pe, pooled = self._cfg_rows(enc, n)
+        return pe, pooled, self._time_ids(n, height, width, aesthetic_score,
+                                          negative_aesthetic_score, pe.device)
+
+    @staticmethod
+    def _cfg_rows(enc, n: int):
+        """The encoder's [cond; neg] rows as [uncond; cond]: (prompt
+        embeds, pooled embeds)."""
         pe = torch.cat([enc["prompt_embeds"][n:], enc["prompt_embeds"][:n]])
         pooled = torch.cat([enc["pooled_prompt_embeds"][n:],
                             enc["pooled_prompt_embeds"][:n]])
+        return pe, pooled
+
+    def _time_ids(self, n: int, height: int, width: int,
+                  aesthetic_score: float, negative_aesthetic_score: float,
+                  device) -> torch.Tensor:
+        """[2n, ids] fp32: [h, w, 0, 0, h, w] for 6-id UNets, [h, w, 0, 0,
+        score] for 5-id ones (the refiner; the negative score on the
+        uncond rows)."""
         if self.model.unet_config.num_time_ids == 5:
             rows = ([[height, width, 0, 0, negative_aesthetic_score]] * n
                     + [[height, width, 0, 0, aesthetic_score]] * n)
         else:
             rows = [[height, width, 0, 0, height, width]] * (2 * n)
-        time_ids = torch.tensor(rows, dtype=torch.float32, device=pe.device)
-        return pe, pooled, time_ids
+        return torch.tensor(rows, dtype=torch.float32, device=device)
 
     def timestep_index(self, sigma: float) -> int:
         """Nearest trained timestep to ``sigma`` in log space.  sigma = inf
@@ -112,56 +125,82 @@ class ValidationSampler:
             x2 = torch.cat([x2, extra.to(x2.dtype)], dim=1)
         return x2
 
-    def _cfg(self, pred):
+    def _cfg(self, pred, guidance_scale: Optional[float] = None):
+        """The fp32 CFG combine of [uncond; cond] rows, at this sampler's
+        guidance scale unless another is given."""
+        g = self.guidance_scale if guidance_scale is None else guidance_scale
         uncond, cond = pred.float().chunk(2)
-        return uncond + self.guidance_scale * (cond - uncond)
+        return uncond + g * (cond - uncond)
+
+    def _apply(self, kind: str, x, t, prompt_embeds, pooled, time_ids,
+               extra=None, deep=None):
+        """One CFG UNet call on [x; x] at the timestep vector ``t``:
+        "full", "deep" (the full call and its deep feature, DeepCache) or
+        "shallow" (the shallow stages around ``deep``).  ``extra`` ([2B, K,
+        h, w], CFG-stacked already) joins the input's channels: the
+        inpainting mask and masked latents."""
+        args = (self._unet_batch(x, extra), t, prompt_embeds, pooled,
+                time_ids)
+        if kind == "deep":
+            return self.model.unet_apply(*args, return_deep=True)
+        if kind == "shallow":
+            return self.model.unet_apply(*args, deep_cache=deep)
+        return self.model.unet_apply(*args)
+
+    def _unet_call(self, prompt_embeds, pooled, time_ids, extra=None):
+        """The eager ``unet(kind, x, t, deep=None)`` that ``sample_latents``
+        drives: ``t`` is the timestep index, or the float time t in [0, 1]
+        that a flow-matching UNet takes itself."""
+        dtype = (torch.float32 if self.method == "flow_matching"
+                 else torch.int64)
+
+        def unet(kind, x, t, deep=None):
+            tvec = torch.full((2 * x.shape[0],), t, dtype=dtype,
+                              device=x.device)
+            return self._apply(kind, x, tvec, prompt_embeds, pooled,
+                               time_ids, extra, deep)
+
+        return unet
 
     def _denoiser(self, prompt_embeds, pooled, time_ids, extra=None):
         """model_fn(x, sigma): the raw network at t(sigma) on the doubled
-        batch [uncond; cond], combined in fp32 with the guidance scale.
-        ``extra`` ([2B, K, h, w], CFG-stacked already) joins the input's
-        channels every call: the inpainting mask and masked latents."""
-        def fn(x, sigma):
-            t = torch.full((2 * x.shape[0],), self.timestep_index(sigma),
-                           dtype=torch.int64, device=x.device)
-            return self._cfg(self.model.unet_apply(
-                self._unet_batch(x, extra), t, prompt_embeds, pooled,
-                time_ids))
+        batch [uncond; cond], combined in fp32 with the guidance scale."""
+        unet = self._unet_call(prompt_embeds, pooled, time_ids, extra)
+        return lambda x, sigma: self._cfg(
+            unet("full", x, self.timestep_index(sigma)))
 
-        return fn
-
-    def _cached_denoiser(self, prompt_embeds, pooled, time_ids, extra=None):
-        """DeepCache ``_denoiser``: ``(x, sigma, (step, deep)) ->
-        (cfg_pred, (step + 1, deep'))``.  A step with step % k == 0 runs
-        the full UNet and refreshes the deep feature; the others run the
-        shallow stages around the cached one."""
+    def sample_latents(self, unet, lat_shape, guidance_scale=None, **kw):
+        """This sampler's family run around ``unet(kind, x, t, deep=None)``
+        (``_unet_call``'s, or the replay of a captured graph), combined in
+        fp32 at ``guidance_scale`` (this sampler's unless given); ``kw``
+        goes to the ``schedules`` sampler.  With DeepCache a step with
+        step % k == 0 runs the full UNet and refreshes the deep feature;
+        the others run the shallow stages around the cached one."""
+        g = guidance_scale
+        if self.method == "flow_matching":
+            return S.sample_flow(
+                lambda x, t: self._cfg(unet("full", x, float(t)), g),
+                lat_shape, **kw)
         k = self.deep_cache_interval
-
-        def fn(x, sigma, aux):
-            step, deep = aux
-            t = torch.full((2 * x.shape[0],), self.timestep_index(sigma),
-                           dtype=torch.int64, device=x.device)
-            args = (self._unet_batch(x, extra), t, prompt_embeds, pooled,
-                    time_ids)
-            if step % k == 0:
-                pred, deep = self.model.unet_apply(*args, return_deep=True)
-            else:
-                pred = self.model.unet_apply(*args, deep_cache=deep)
-            return self._cfg(pred), (step + 1, deep)
-
-        return fn
-
-    def _flow_denoiser(self, prompt_embeds, pooled, time_ids, extra=None):
-        """model_fn(x, t) -> CFG velocity; the UNet takes the float time t
-        in [0, 1] itself (the flow-matching training convention)."""
-        def fn(x, t):
-            tvec = torch.full((2 * x.shape[0],), float(t),
-                              dtype=torch.float32, device=x.device)
-            return self._cfg(self.model.unet_apply(
-                self._unet_batch(x, extra), tvec, prompt_embeds, pooled,
-                time_ids))
-
-        return fn
+        if k > 1:
+            def model_fn(x, sigma, aux):
+                step, deep = aux
+                t = self.timestep_index(sigma)
+                if step % k == 0:
+                    pred, deep = unet("deep", x, t)
+                else:
+                    pred = unet("shallow", x, t, deep)
+                return self._cfg(pred, g), (step + 1, deep)
+            # (step, deep): step 0 always refreshes, so no placeholder
+            aux0 = (0, None)
+        else:
+            def model_fn(x, sigma):
+                return self._cfg(unet("full", x, self.timestep_index(sigma)),
+                                 g)
+            aux0 = None
+        sample = (S.sample_dpmpp_2m if self.sampler == "dpmpp_2m"
+                  else S.sample_ztsnr)
+        return sample(model_fn, lat_shape, self.schedule, aux0=aux0, **kw)
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[str],
@@ -216,28 +255,16 @@ class ValidationSampler:
         kw = dict(num_steps=self.num_inference_steps, noise=noise,
                   generator=generator, device=device, init=init_latents,
                   strength=strength)
-        if self.method == "flow_matching":
-            if denoising_start is not None or denoising_end is not None:
+        if denoising_start is not None or denoising_end is not None:
+            if self.method == "flow_matching":
                 raise ValueError("denoising_start/denoising_end (the "
                                  "base->refiner sigma handoff) apply to the "
                                  "sigma-space sampler only, not "
                                  "flow_matching")
-            latents = S.sample_flow(
-                self._flow_denoiser(pe, pooled, time_ids, extra),
-                lat_shape, **kw)
-        else:
-            if self.deep_cache_interval > 1:
-                model_fn = self._cached_denoiser(pe, pooled, time_ids, extra)
-                # (step, deep): step 0 always refreshes, so no placeholder
-                aux0 = (0, None)
-            else:
-                model_fn = self._denoiser(pe, pooled, time_ids, extra)
-                aux0 = None
-            sample = (S.sample_dpmpp_2m if self.sampler == "dpmpp_2m"
-                      else S.sample_ztsnr)
-            latents = sample(model_fn, lat_shape, self.schedule,
-                             denoising_start=denoising_start,
-                             denoising_end=denoising_end, aux0=aux0, **kw)
+            kw.update(denoising_start=denoising_start,
+                      denoising_end=denoising_end)
+        latents = self.sample_latents(
+            self._unet_call(pe, pooled, time_ids, extra), lat_shape, **kw)
         if return_latents:
             return latents
         return latents_to_images(self.model.decode_latents(latents))

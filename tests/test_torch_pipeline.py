@@ -107,6 +107,17 @@ def test_port_imports_no_jax():
         images = SDXLPipeline.from_model(model)(
             ["a cat"], height=32, width=32, num_inference_steps=2)
         assert images[0].shape == (32, 32, 3), images[0].shape
+        import tempfile
+        from sdxl_training_improvements_tpu_torch import aot, serve
+        with tempfile.TemporaryDirectory() as art:
+            pipe = SDXLPipeline.from_model(model)
+            aot.export_text2img(pipe, art, height=32, width=32,
+                                num_inference_steps=2)
+            runner = aot.AOTPipeline.load(art, model, pipe.tokenizers,
+                                          device="cpu")
+            assert runner(["a cat"])[0].shape == (32, 32, 3)
+            server = serve.build_server(runner, port=0)
+            server.server_close()
         cfg = Config()
         cfg.training.batch_size = 1
         opt = make_optimizer(cfg)

@@ -10,8 +10,7 @@
   VAE encode's) by JAX's key splits.  Decoded images must agree within
   1e-3 of their max magnitude at 4-5 steps, where the walk is well
   conditioned (``tests/test_torch_pipeline.py``).
-* The refusals, the tokenizer layout rules (the port refuses a present
-  tokenizer directory: its BPE tokenizer is not ported), and
+* The refusals, the tokenizer layout rules, and
   ``generate.main`` on a tiny checkpoint, its PNG read by Pillow, and a
   Pillow PNG read by the port.
 """
@@ -381,8 +380,8 @@ def test_declared_schedule_and_variants_load(models, tmp_path):
     (("tokenizer",), False, FileNotFoundError),
     (("tokenizer_2",), False, FileNotFoundError),
     (("tokenizer",), True, FileNotFoundError),
-    (("tokenizer", "tokenizer_2"), False, NotImplementedError),
-    (("tokenizer_2",), True, NotImplementedError),
+    (("tokenizer", "tokenizer_2"), False, "no files"),
+    (("tokenizer_2",), True, "no files"),
 ])
 def test_tokenizer_layout_rules(tmp_path, layout, single, want):
     for d in layout:
@@ -395,11 +394,19 @@ def test_tokenizer_layout_rules(tmp_path, layout, single, want):
         for a, b in zip(pair(PROMPTS), jpair(PROMPTS)):
             np.testing.assert_array_equal(a, b)
         return
+    if want == "no files":
+        # a tokenizer directory is read (tests/test_torch_tokenizer_bpe.py):
+        # one without its files raises, naming the file (JAX's fails too)
+        with pytest.raises(FileNotFoundError, match="vocab.json"):
+            load_tokenizers(tmp_path, single_encoder=single)
+        with pytest.raises(Exception):
+            jax_load_tokenizers(tmp_path, single_encoder=single)
+        return
     with pytest.raises(want):
         load_tokenizers(tmp_path, single_encoder=single)
-    if want is FileNotFoundError:  # the same layout faults as JAX
-        with pytest.raises(FileNotFoundError):
-            jax_load_tokenizers(tmp_path, single_encoder=single)
+    # the same layout faults as JAX
+    with pytest.raises(FileNotFoundError):
+        jax_load_tokenizers(tmp_path, single_encoder=single)
 
 
 # -------------------------------------------------------------- generate
@@ -429,12 +436,14 @@ def test_generate_main_and_png(models, tmp_path, capsys):
     for init in (out / "000.png", tmp_path / "init.npy"):
         assert generate.main(common + ["--init", str(init),
                                        "--strength", "0.5"]) == 0
-    with pytest.raises(SystemExit, match="resizing is not ported"):
-        generate.main([a if a != str(SIZE) else "32" for a in common]
-                      + ["--init", str(out / "000.png")])
-    for flag in (["--mesh", "1,1,2"], ["--aot", "x"], ["--export-aot", "x"]):
-        with pytest.raises(SystemExit, match="ROADMAP"):
-            generate.main(common + flag)
+    # an init of another size is resized to --height x --width
+    # (tests/test_torch_image_resize.py holds the resize against Pillow)
+    assert generate.main([a if a != str(SIZE) else "32" for a in common]
+                         + ["--init", str(tmp_path / "init.npy")]) == 0
+    assert png.read_png(out / "000.png").shape == (32, 32, 3)
+    # --aot / --export-aot: tests/test_torch_aot.py
+    with pytest.raises(SystemExit, match="ROADMAP"):
+        generate.main(common + ["--mesh", "1,1,2"])
     with pytest.raises(SystemExit, match="--mask requires --init"):
         generate.main(common + ["--mask", "m.png"])
 
