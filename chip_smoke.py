@@ -132,7 +132,30 @@ Phases, each printing what it found:
    ``--export-aot`` and then ``--aot`` on phase 10's checkpoint, and the
    exit on a conflicting ``--steps``.  Each graph path's launches are its
    launches per capture times its replays (the wrappers count a capture
-   once).
+   once);
+14. the single-card training settings, last, on a seeded full-width
+   model of the default ``Config()`` (bf16, b4 1024^2, remat): (14a)
+   every remat policy of ``models/unet.py``: one forward and backward at
+   fixed noise and timesteps under cuDNN's deterministic algorithms,
+   whose gradients must be ``torch.equal`` to "full"'s (or within phase
+   7's bar, said so), its peak GiB and the GiB of the outputs it keeps,
+   then one profiled train step a policy on one warm train state (device
+   ms, idle share, launches, peak GiB); (14b) the bf16 AdamW under each
+   layout (per-leaf hash and rbg, flat, hybrid, stacked): two steps, the
+   optimizer's ms by CUDA events, kernel #7's launches a step by
+   variant, state and peak GiB; then, the model freed, #7's rbg variant
+   against its plain version on the [10240, 1280] leaf (timed, with its
+   bound) and on the largest flat group, and the stacked layout's launch
+   (one decay amount per row) on the stack of most rows within
+   STACK_CHECK_MAX elements (the plain chain's fp64 temporaries), each
+   ``torch.equal``; (14c) ``main.main`` on
+   ``configs/v5e16_single_chip.yaml`` (int8 moments, shift_host,
+   moments_host) with phase 11's cuts over phase 11's PNGs: 4 steps with
+   the update's ms by CUDA events, the optimizer state on the card
+   (none) and on the host (pinned), peak GiB, launches; the streamed
+   update against the copies alone and the resident update (the share of
+   the copy time hidden); then 1 epoch with the final checkpoint and
+   ``--resume``, ``torch.equal`` to the uninterrupted run.
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (``launches``: the sum over the main paths, ``launches_by_path``:
@@ -338,6 +361,10 @@ for _dt, _sfx in SUFFIX.items():
 KERNELS.update({
     "fused_adamw": ("cuda", SRC + "csrc/fused_adamw.cu",
                     TPU + "fused_adamw.py:53"),
+    # the same kernel reading drawn noise planes (its kPlanes template
+    # instantiation), in place of JAX's XLA chain on rbg planes
+    "fused_adamw_rbg": ("cuda", SRC + "csrc/fused_adamw.cu",
+                        TPU + "fused_adamw.py:53"),
     "probe": ("triton", SRC + "ops/probe.py", TPU + "probe.py:106")})
 # the kernels each main path launches (the VAE's GroupNorm is fp32)
 SERVING_KERNELS = ("gn_silu_fwd", "gn_silu_fwd_f32", "flash_fwd")
@@ -411,9 +438,9 @@ def device_ms(fn, iters: int = 10, tries: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / iters / 1e3
+        total_ms = sum(ms for _, ms in _device_events(prof))
+        if total_ms > 0:
+            return total_ms / iters
     return None
 
 
@@ -935,17 +962,28 @@ def _kernel_group(name: str) -> str:
     return "other"
 
 
+def _device_events(prof) -> list:
+    """(name, ms) of every device event (kernel, copy, set) a profile
+    recorded, read from the profiler's raw events: ``key_averages()``
+    first parses every event into Python objects, tens of seconds for
+    a step of ~500,000 launches."""
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        return [(e.key, e.self_device_time_total / 1e3)
+                for e in prof.key_averages() if e.self_device_time_total > 0]
+    return [(e.name(), e.duration_ns() / 1e6) for e in raw.events()
+            if e.device_type() != torch.autograd.DeviceType.CPU]
+
+
 def _log_profile(prof, what: str, wall_ms: float) -> float:
     """Log device busy time by kernel group and the idle share of a
     profiled window of ``wall_ms``; returns the idle share."""
     groups: dict = {}
     launches = 0
-    for e in prof.key_averages():
-        if e.self_device_time_total <= 0:
-            continue
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
-        launches += e.count
+    for name, ms in _device_events(prof):
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+        launches += 1
     busy = sum(groups.values())
     idle = 1 - busy / wall_ms
     log(f"{what} profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
@@ -1001,7 +1039,10 @@ def _counters() -> dict:
     from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
     from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
     from sdxl_training_improvements_tpu_torch.ops import probe as P
-    counters = {"fused_adamw": lambda: O.fused_adamw_cuda.launches,
+    counters = {"fused_adamw": functools.partial(
+                    O.fused_adamw_cuda.launches_by_noise.__getitem__, "hash"),
+                "fused_adamw_rbg": functools.partial(
+                    O.fused_adamw_cuda.launches_by_noise.__getitem__, "rbg"),
                 "probe": lambda: P.probe_cuda.launches}
     for dt, sfx in SUFFIX.items():
         counters.update({
@@ -1029,6 +1070,7 @@ def _zero_launches() -> None:
         w.launches = 0
     for w in (G.gn_silu_fwd_cuda, G.gn_silu_bwd_cuda):
         w.launches_by_dtype.clear()
+    O.fused_adamw_cuda.launches_by_noise.clear()
     G.gn_silu_bwd_cuda.dy_copies = 0
     for by_dtype in F.LAUNCHERS.values():
         for launcher in by_dtype.values():
@@ -2163,11 +2205,14 @@ def _event_ms(ev: dict) -> dict:
 
 
 def _state_snapshot(state) -> tuple:
-    """(every tensor of the train state on the host, the step and the
-    generators' states)."""
+    """(a host copy of every tensor of the train state, the step and the
+    generators' states); a synchronize first, for the host-streamed
+    state's last copies."""
     from sdxl_training_improvements_tpu_torch.training import checkpoints
+    torch.cuda.synchronize()
     tensors, meta = checkpoints.flatten_train_state(state)
-    return {k: v.detach().cpu() for k, v in tensors.items()}, meta
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in tensors.items()}, meta
 
 
 def _entry_latents_check(model, root: Path) -> dict:
@@ -2272,10 +2317,9 @@ def _entry_conv_cost(model, cfg, batch) -> dict:
                 _loss_and_grads(model, cfg, batch, schedule, params)
                 torch.cuda.synchronize()
         conv = total = 0.0
-        for e in prof.key_averages():
-            ms = max(e.self_device_time_total, 0) / 1e3
+        for name, ms in _device_events(prof):
             total += ms
-            if _kernel_group(e.key) == "convolution":
+            if _kernel_group(name) == "convolution":
                 conv += ms
         res[label] = dict(conv_ms=conv, total_ms=total)
     shape = list(batch["vae_latents"].shape)
@@ -3109,6 +3153,550 @@ def _tiny_resumes() -> dict:
     return res
 
 
+# ------- phase 14: remat policies, optimizer layouts, host-streamed state
+LAYOUT_STEPS = 2  # the same at each optimizer layout
+# (layout, noise) of 14b: the default, its rbg twin and the three packings
+LAYOUTS_14B = (("per_leaf", "hash"), ("per_leaf", "rbg"), ("flat", "hash"),
+               ("hybrid", "hash"), ("stacked", "hash"))
+V5E16_YAML = Path(__file__).resolve().parent / "configs" / \
+    "v5e16_single_chip.yaml"
+HOST_EPOCHS = 2  # 14c run A: 4 steps over the two buckets
+HOST_KERNELS = TRAIN_KERNELS + ("gn_silu_fwd_f32", "probe")
+RBG_CHUNK = 1 << 25  # elements of a flat group's plain chain at a time
+STACK_CHECK_MAX = 1 << 26  # elements of the stack held against plain
+
+
+def _set_policy(model, name: str) -> None:
+    """Put the UNet under remat policy ``name`` (its config and its
+    policies), as ``UNetConfig(remat_policy=name)`` would build it."""
+    import dataclasses
+
+    from sdxl_training_improvements_tpu_torch.models import unet as U
+    model.unet.config = dataclasses.replace(model.unet.config,
+                                            remat_policy=name)
+    model.unet.remat_policies = U.remat_policies(name)
+
+
+def _policy_grads(model, cfg, batch, schedule, params) -> tuple:
+    """One forward and backward under the UNet's current policy, with
+    cuDNN's deterministic algorithms: (loss, gradients, GiB of the
+    outputs the policy kept in the forward)."""
+    from sdxl_training_improvements_tpu_torch.models import unet as U
+    from sdxl_training_improvements_tpu_torch.training import loop
+    from sdxl_training_improvements_tpu_torch.training.methods import (
+        get_method)
+    policies = model.unet.remat_policies
+    kept = {"bytes": 0, "forward": True}
+
+    def counted(policy):
+        if policy is None:
+            return None
+
+        def wrapped(op, args, name):
+            keep = policy(op, args, name)
+            if keep and kept["forward"]:
+                kept["bytes"] += U.out_elements(op, args) * \
+                    args[0].element_size()
+            return keep
+        return wrapped
+
+    model.unet.remat_policies = tuple(counted(p) for p in policies)
+    try:
+        with loop.deterministic_convolutions(torch.device(DEVICE)):
+            loss, _ = get_method(cfg.training.method)(
+                model.unet_apply, batch, None, schedule, cfg.model)
+            kept["forward"] = False
+            grads = torch.autograd.grad(loss, params)
+    finally:
+        model.unet.remat_policies = policies
+    return loss.detach(), grads, kept["bytes"] / 2 ** 30
+
+
+def phase_remat_policies(model, cfg, batch) -> dict:
+    """14a: every remat policy of ``models/unet.py`` on the default
+    ``Config()`` at b4 1024^2.  Per policy: one forward and backward at
+    fixed noise and timesteps (cuDNN deterministic) whose gradients are
+    held against "full"'s (``torch.equal``, or within phase 7's bar when
+    not bit-equal, said so), its peak GiB and the GiB its kept outputs
+    take; then, on one train state after a warm step, one profiled train
+    step a policy (device ms, idle share, launches, peak GiB)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdxl_training_improvements_tpu_torch.models import unet as U
+    from sdxl_training_improvements_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    from sdxl_training_improvements_tpu_torch.training.trainer import (
+        create_train_state, make_train_step)
+    names = ["full"] + sorted(n for n in U.remat_policy_table()
+                              if n != "full")
+    schedule = NoiseSchedule.from_config(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    fixed = dict(batch)
+    shape = tuple(batch["vae_latents"].shape)
+    fixed["noise"] = torch.randn(shape, generator=gen, device=DEVICE)
+    fixed["timesteps"] = torch.tensor([100, 400, 700, 900][:shape[0]],
+                                      device=DEVICE)
+    params = list(model.unet.parameters())
+    rows, ref = {}, None
+    for name in names:
+        _set_policy(model, name)
+        _free()
+        loss, grads, kept_gib = _policy_grads(model, cfg, fixed, schedule,
+                                              params)
+        torch.cuda.synchronize()
+        row = dict(loss=loss.item(), kept_gib=kept_gib,
+                   grad_peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if ref is None:
+            ref = (loss, grads)
+            row.update(equal=True, rel_l2=0.0)
+        else:
+            row["equal"] = bool(torch.equal(loss, ref[0])) and all(
+                torch.equal(a, b) for a, b in zip(grads, ref[1]))
+            num = sum((a.float() - b.float()).square().sum()
+                      for a, b in zip(grads, ref[1]))
+            den = sum(b.float().square().sum() for b in ref[1])
+            row["rel_l2"] = (num / den).sqrt().item()
+        del grads
+        rows[name] = row
+        log(f"phase 14a {name}: loss {row['loss']:.6f}; gradients "
+            f"{'torch.equal to' if row['equal'] else 'NOT bit-equal to'} "
+            f"\"full\"'s (rel L2 {row['rel_l2']:.3e}); kept outputs "
+            f"{kept_gib:.3f} GiB; forward+backward peak "
+            f"{row['grad_peak_gb']:.2f} GiB")
+        check(row["equal"] or row["rel_l2"] <= TRAIN_GRAD_REL_L2_TOL,
+              f"14a {name}: gradients rel L2 {row['rel_l2']}")
+    del ref
+    _set_policy(model, "full")
+    _free()
+    optimizer = make_optimizer(cfg)
+    step = make_train_step(model.unet_apply, schedule, optimizer, cfg)
+    state = create_train_state(model.trainable_params(), optimizer,
+                               seed=cfg.training.seed)
+    _zero_launches()
+    state, _ = step(state, batch)  # warm: the state's first step
+    for name in names:
+        _set_policy(model, name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _launches(TRAIN_KERNELS)
+        ev: dict = {}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, ev)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        after = _launches(TRAIN_KERNELS)
+        check(np.isfinite(metrics["loss"].item()), f"14a {name} step loss")
+        idle = _log_profile(prof, f"phase 14a {name} step", wall_ms)
+        row = rows[name]
+        row.update(wall_ms=wall_ms, idle=idle,
+                   device_ms=(1 - idle) * wall_ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches={k: after[k] - before[k]
+                             for k in TRAIN_KERNELS},
+                   **_event_ms(ev))
+        log(f"phase 14a {name}: step wall {wall_ms:.2f} ms, device "
+            f"{row['device_ms']:.2f} ms (idle {idle:.3f}); forward+backward "
+            f"{row['fwd_bwd_ms']:.2f} ms (events); peak {row['peak_gb']:.2f}"
+            f" GiB; launches {row['launches']}")
+        for k in TRAIN_KERNELS:
+            check(row["launches"][k] > 0, f"14a {name}: {k} not launched")
+    launches = _launches(TRAIN_KERNELS)
+    _set_policy(model, "full")
+    del state, step, optimizer
+    _free()
+    log("phase 14a table (policy: device ms a step | peak GiB | kept GiB | "
+        "gradients vs full): " + "; ".join(
+            f"{n}: {r['device_ms']:.1f} | {r['peak_gb']:.2f} | "
+            f"{r['kept_gib']:.2f} | "
+            f"{'equal' if r['equal'] else 'rel %.2e' % r['rel_l2']}"
+            for n, r in rows.items()) + ".  Under the flash kernel no "
+        "policy keeps S^2 logits: the attention is one operator, as JAX's "
+        "Pallas flash path keeps none")
+    return dict(rows=rows, launches=launches)
+
+
+def _adamw_bf16_of(cfg, layout: str, noise: str):
+    from sdxl_training_improvements_tpu_torch.training.optimizers import (
+        AdamWBF16)
+    oc = cfg.optimizer
+    return AdamWBF16(lr=oc.learning_rate, betas=(oc.beta1, oc.beta2),
+                     eps=oc.epsilon, weight_decay=oc.weight_decay,
+                     layout=layout, noise=noise)
+
+
+def phase_layouts(model, cfg, batch) -> dict:
+    """14b: each (layout, noise) of LAYOUTS_14B through make_train_step ->
+    create_train_state at b4 1024^2, LAYOUT_STEPS steps: the optimizer's
+    ms (CUDA events), kernel #7's launches a step by variant, the state's
+    and the peak GiB.  Returns the rows and the partitions' sizes for the
+    kernel checks."""
+    from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    from sdxl_training_improvements_tpu_torch.training.trainer import (
+        create_train_state, make_train_step)
+    schedule = NoiseSchedule.from_config(cfg)
+    rows = {}
+    _zero_launches()
+    for layout, noise in LAYOUTS_14B:
+        label = f"{layout}/{noise}"
+        _free()
+        opt = _adamw_bf16_of(cfg, layout, noise)
+        step = make_train_step(model.unet_apply, schedule, opt, cfg)
+        state = create_train_state(model.trainable_params(), opt,
+                                   seed=cfg.training.seed)
+        torch.cuda.synchronize()
+        state_gib = _state_gib(state)
+        for i in range(LAYOUT_STEPS):
+            before = dict(O.fused_adamw_cuda.launches_by_noise)
+            ev: dict = {}
+            state, metrics = step(state, batch, ev)
+            torch.cuda.synchronize()
+            after = dict(O.fused_adamw_cuda.launches_by_noise)
+            check(np.isfinite(metrics["loss"].item()),
+                  f"14b {label} step {i + 1} loss")
+        per_step = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+        row = dict(state_gib=state_gib, launches=per_step,
+                   peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   units=len(opt.groups(state.params)), **_event_ms(ev))
+        rows[label] = row
+        log(f"phase 14b {label}: optimizer {row['opt_ms']:.2f} ms (CUDA "
+            f"events, step {LAYOUT_STEPS}); #7 launches a step {per_step}; "
+            f"state {state_gib:.2f} GiB; peak {row['peak_gb']:.2f} GiB; "
+            f"groups {row['units']}")
+        check(sum(per_step.values()) > 0, f"14b {label}: #7 not launched")
+        check(per_step.get(noise, 0) > 0, f"14b {label}: no {noise} launch")
+        if layout == "flat":
+            sizes = [sum(state.params[n].numel() for n in names)
+                     for names in opt.groups(state.params).values()]
+        if layout == "stacked":
+            stacks = [(len(names), state.params[names[0]].numel())
+                      for names in opt.groups(state.params).values()]
+        del state, step, opt
+    launches = _launches(("fused_adamw", "fused_adamw_rbg"))
+    _free()
+    return dict(rows=rows, launches=launches, flat_sizes=sizes,
+                stacks=stacks)
+
+
+def _adamw_rbg_case(shape, gen, flat_g: bool = False) -> dict:
+    """Kernel #7's rbg variant against its plain version on one tensor of
+    ``shape`` (``flat_g``: a flat group's bf16 gradient), planes drawn on
+    the card: ``torch.equal`` in every output; times and bound at
+    [10240, 1280]."""
+    from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
+
+    def randn(scale):
+        return scale * torch.randn(shape, generator=gen, device=DEVICE)
+
+    p = randn(0.05).bfloat16()
+    g = randn(1e-3).to(torch.bfloat16 if flat_g else torch.float32)
+    m = randn(1e-4).bfloat16()
+    v = (1e-8 * randn(1.0).square()).bfloat16()
+    shift = randn(1e-7).bfloat16()
+    planes = O.draw_planes(p.numel(), gen)
+    kw = dict(lr_eff=1e-4 * (1 - 0.999 ** 3) ** 0.5, decay_amt=5.02e-3,
+              seed0=0, seed1=0, planes=planes)
+    if flat_g:  # the plain chain in chunks: exact, as the noise is drawn
+        parts = [O.fused_adamw_reference(
+            *(x[s:s + RBG_CHUNK] for x in (p, g, m, v, shift)),
+            **dict(kw, planes=planes[:, s:s + RBG_CHUNK]))
+            for s in range(0, p.numel(), RBG_CHUNK)]
+        ref = tuple(torch.cat(xs) for xs in zip(*parts))
+        del parts
+    else:
+        ref = O.fused_adamw_reference(p, g, m, v, shift, **kw)
+    got = O.fused_adamw_cuda(p, g, m.clone(), v.clone(), shift.clone(),
+                             **kw)
+    equal = {name: torch.equal(a, r) for name, a, r in
+             zip(("delta", "m", "v", "shift"), got, ref)}
+    err = max((a.float() - r.float()).abs().max().item()
+              for a, r in zip(got, ref))
+    del ref, got
+    res = dict(err=err, equal=all(equal.values()), shape=list(shape))
+    if not flat_g:
+        state = [m.clone(), v.clone(), shift.clone()]
+        res.update(
+            ms=time_ms(lambda: O.fused_adamw_cuda(p, g, *state, **kw)),
+            dev=device_ms(lambda: O.fused_adamw_cuda(p, g, *state, **kw)),
+            plain_ms=time_ms(lambda: O.fused_adamw_reference(
+                p, g, m, v, shift, **kw), warmup=1, iters=3, repeats=3))
+        n = p.numel()
+        # p, m, v, shift, g and the two planes read; delta, m, v, shift
+        res["bound"] = bound(OPS_PER_ELEMENT["fused_adamw"] * n,
+                             (16 + 4 + 8) * n, PEAK_FP32)
+        log(f"phase 14b rbg variant {list(shape)}: kernel {res['ms']:.4f} "
+            f"ms (device {fmt_ms(res['dev'])}), plain {res['plain_ms']:.4f}"
+            f" ms, bound {res['bound'][0]:.4f} ms ({res['bound'][1]})")
+    log(f"phase 14b rbg variant {list(shape)}{' (a flat group)' if flat_g else ''}"
+        f": torch.equal to plain {equal}, max_abs_err {err:.3e}")
+    check(res["equal"], f"14b rbg {list(shape)}: not equal to plain {equal}")
+    return res
+
+
+def _stack_decay_case(k: int, n: int, gen) -> dict:
+    """The stacked layout's launch (#7 with one decay amount per row)
+    against its plain version: ``torch.equal``."""
+    from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
+
+    def randn(scale):
+        return scale * torch.randn((k, n), generator=gen, device=DEVICE)
+
+    p, g, m = randn(0.05).bfloat16(), randn(1e-3).bfloat16(), \
+        randn(1e-4).bfloat16()
+    v, shift = (1e-8 * randn(1.0).square()).bfloat16(), \
+        randn(1e-7).bfloat16()
+    decay = torch.where(torch.arange(k, device=DEVICE) % 2 == 0,
+                        torch.tensor(5.02e-3, device=DEVICE),
+                        torch.tensor(0.0, device=DEVICE)).float()
+    kw = dict(lr_eff=1e-4, decay_amt=0.0, seed0=11, seed1=12, decay=decay)
+    ref = O.fused_adamw_reference(p, g, m, v, shift, **kw)
+    got = O.fused_adamw_cuda(p, g, m.clone(), v.clone(), shift.clone(),
+                             **kw)
+    equal = all(torch.equal(a, r) for a, r in zip(got, ref))
+    log(f"phase 14b stacked launch [{k}, {n}] (decay on every other row): "
+        f"torch.equal to plain {equal}")
+    check(equal, f"14b stacked [{k}, {n}]: not equal to plain")
+    return dict(shape=[k, n], equal=equal)
+
+
+def _host_entry_config(root: Path, name: str, **training) -> Path:
+    """``configs/v5e16_single_chip.yaml`` as the port's reader loads it,
+    with phase 11's cuts (logged by the caller), written to ``root``."""
+    from sdxl_training_improvements_tpu_torch import _yaml
+    raw = _yaml.load_file(V5E16_YAML)
+    raw["model"]["pretrained_model_name"] = str(root / "no-checkpoint")
+    raw["training"].update(gradient_accumulation_steps=1, **training)
+    raw["data"]["train_data_dir"] = [str(root / "images")]
+    raw["global_config"] = {"cache": {"cache_dir": str(root / "cache")},
+                            "logging": {"log_dir": str(root / "logs")}}
+    path = root / f"{name}.yaml"
+    path.write_text(_yaml.dump(raw))
+    return path
+
+
+def _resident_bytes(opt_state) -> tuple:
+    """(GiB of the optimizer state on the card, GiB on the host)."""
+    from sdxl_training_improvements_tpu_torch.training import checkpoints
+    from sdxl_training_improvements_tpu_torch.training.trainer import (
+        TrainState)
+    tensors, _ = checkpoints.flatten_train_state(TrainState(
+        step=0, params={}, opt_state=opt_state,
+        generator=torch.Generator()))
+    on = {"cuda": 0, "cpu": 0}
+    for t in tensors.values():
+        on[t.device.type] += t.numel() * t.element_size()
+    return on["cuda"] / 2 ** 30, on["cpu"] / 2 ** 30
+
+
+def _copy_overlap(trainer) -> dict:
+    """On run A's final state: the streamed update (X), the copies alone
+    through the same pipeline (C) and the same update with the state
+    resident on the card (K), each the second of two calls between two
+    synchronizes; the share of the copy time hidden = (K + C - X) / C."""
+    import dataclasses
+
+    from sdxl_training_improvements_tpu_torch.core import offload
+    from sdxl_training_improvements_tpu_torch.training.optimizers import (
+        AdamWBF16)
+    opt, state = trainer.optimizer, trainer.state
+    params = state.params
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    grads = {k: torch.empty_like(p).normal_(0.0, 1e-3, generator=gen)
+             for k, p in params.items()}  # with the parameters' strides
+
+    def timed(fn):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    streamed = timed(lambda: opt.update(grads, state.opt_state, params))
+    host = _host_tensors(state.opt_state)
+    groups, cur, n = [], [], 0
+    for t in host:
+        cur.append(t)
+        n += t.numel()
+        if n >= opt.stream_group_params:
+            groups.append(cur)
+            cur, n = [], 0
+    if cur:
+        groups.append(cur)
+
+    def store(group, outputs):
+        for h, d in zip(group, outputs):
+            h.copy_(d, non_blocking=True)
+    copies = timed(lambda: offload.stream_groups(
+        groups, lambda g: [offload.to_device(t, DEVICE) for t in g],
+        lambda g, x: x, store, DEVICE))
+    nbytes = sum(t.numel() * t.element_size() for t in host)
+    resident_opt = AdamWBF16(lr=opt.lr, betas=(opt.beta1, opt.beta2),
+                             eps=opt.eps, weight_decay=opt.weight_decay,
+                             moments=opt.moments, noise=opt.noise)
+    st = state.opt_state
+    resident = dataclasses.replace(
+        st, exp_avg=offload.fetch_to_device(st.exp_avg, DEVICE),
+        exp_avg_sq=offload.fetch_to_device(st.exp_avg_sq, DEVICE),
+        shift=offload.fetch_to_device(st.shift, DEVICE))
+    compute = timed(lambda: resident_opt.update(grads, resident, params))
+    del resident, grads
+    hidden = (compute + copies - streamed) / copies
+    log(f"phase 14c copy overlap: streamed update {streamed:.2f} ms; the "
+        f"same update with the state resident {compute:.2f} ms; the copies "
+        f"alone ({nbytes / 2 ** 30:.2f} GiB each way, "
+        f"{2 * nbytes / 2 ** 30 / (copies / 1e3):.1f} GiB/s both ways) "
+        f"{copies:.2f} ms; hidden share of the copy time {hidden:.3f}")
+    return dict(streamed_ms=streamed, resident_ms=compute, copies_ms=copies,
+                copy_gib=nbytes / 2 ** 30, hidden=hidden)
+
+
+def _host_tensors(opt_state) -> list:
+    """The optimizer state's tensors in host memory (the streamed ones)."""
+    out = []
+    for tree in (opt_state.exp_avg, opt_state.exp_avg_sq, opt_state.shift):
+        for v in tree.values():
+            out.extend(t for t in (v.values() if isinstance(v, dict)
+                                   else [v]) if t.device.type == "cpu")
+    return out
+
+
+def phase_host_state() -> dict:
+    """14c: ``main.main`` on ``configs/v5e16_single_chip.yaml`` (int8
+    moments, shift_host and moments_host, micro-batch 1, bf16 gradient
+    accumulator, no remat) at full SDXL-base width with phase 11's cuts,
+    over phase 11's 8 seeded PNGs: run A (HOST_EPOCHS epochs: each step's
+    update ms by CUDA events, the state's GiB on the card and on the host,
+    peak memory, launches), the copy overlap on its final state, then run
+    B (1 epoch with the final checkpoint, ``--resume`` to HOST_EPOCHS),
+    ``torch.equal`` to run A."""
+    import shutil
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_host_"))
+    n_steps = 2 * HOST_EPOCHS
+    try:
+        _entry_images(root / "images")
+        log(f"phase 14c: config {V5E16_YAML.name} (ddpm, v-prediction, "
+            "ZTSNR, adamw_bf16 with moments_8bit, shift_host and "
+            "moments_host, bf16, micro-batch 1, bf16 gradient accumulator, "
+            "no remat) with phase 11's cuts: data, cache, log and output "
+            "paths in a temporary directory; gradient_accumulation_steps "
+            "4 -> 1 (global batch 4 as 4 micro-steps of 1; for time); "
+            "model.pretrained_model_name -> a path that does not exist "
+            f"(seeded weights); num_epochs {HOST_EPOCHS} (run A), 1 then "
+            f"{HOST_EPOCHS} (run B); save_every 0, save_best false and "
+            "save_final_model false except run B's first part; phase 11's "
+            "8 seeded PNGs")
+        no_saves = dict(save_every=0, save_best=False)
+        cfg_a = _host_entry_config(root, "run_a", num_epochs=HOST_EPOCHS,
+                                   save_final_model=False, **no_saves)
+        _zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, steps, _ = _run_main(
+            ["--config", str(cfg_a), "--output-dir", str(root / "out_a"),
+             "--device", DEVICE], events=True)
+        launches = _launches(HOST_KERNELS)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        opt = trainer.optimizer
+        dev_gib, host_gib = _resident_bytes(trainer.state.opt_state)
+        host = _host_tensors(trainer.state.opt_state)
+        pinned = all(t.is_pinned() for t in host)
+        for i, s in enumerate(steps):
+            log(f"phase 14c run A step {i + 1}: latents {s['shape']}, loss "
+                f"{s['loss']:.6f}; forward+backward {s['fwd_bwd_ms']:.2f} + "
+                f"clip {s['clip_ms']:.2f} + update {s['opt_ms']:.2f} ms "
+                "(CUDA events)")
+        log(f"phase 14c run A: {type(opt).__name__} moments {opt.moments}, "
+            f"shift_host {opt.shift_host}, moments_host {opt.moments_host}, "
+            f"stream_group_params {opt.stream_group_params}; optimizer state "
+            f"on the card {dev_gib:.4f} GiB, on the host {host_gib:.2f} GiB "
+            f"({len(host)} tensors, all pinned {pinned}); peak "
+            f"{peak_gb:.2f} GiB; launches {launches}")
+        check(len(steps) == n_steps and trainer.state.step == n_steps,
+              f"14c run A: {len(steps)} steps")
+        check(all(np.isfinite(s["loss"]) for s in steps), "14c: a loss")
+        check(opt.shift_host and opt.moments_host and opt.moments == "int8",
+              "14c: the config's optimizer settings did not reach it")
+        check(dev_gib < 1e-3 and pinned, f"14c: {dev_gib} GiB of state on "
+              f"the card, pinned {pinned}")
+        for k, n in launches.items():
+            check(n > 0, f"kernel {k} was not launched in phase 14c")
+        ref, ref_meta = _state_snapshot(trainer.state)
+        overlap = _copy_overlap(trainer)
+        del trainer
+        _free()
+        cfg_b1 = _host_entry_config(root, "run_b1", num_epochs=1,
+                                    save_final_model=True, **no_saves)
+        _run_main(["--config", str(cfg_b1), "--output-dir",
+                   str(root / "out_b"), "--device", DEVICE])
+        _free()
+        cfg_b2 = _host_entry_config(root, "run_b2", num_epochs=HOST_EPOCHS,
+                                    save_final_model=False, **no_saves)
+        trainer, steps_b2, _ = _run_main(
+            ["--config", str(cfg_b2), "--output-dir", str(root / "out_b"),
+             "--resume", "--device", DEVICE])
+        got, meta = _state_snapshot(trainer.state)
+        restore_s = trainer.restore_seconds
+        del trainer
+        _free()
+        differ = [k for k in ref if not torch.equal(ref[k], got.get(k))]
+        log(f"phase 14c resume vs uninterrupted: restored in "
+            f"{restore_s:.2f} s, {len(ref)} tensors, {len(differ)} differ "
+            f"{differ[:3]}; step and generators equal {meta == ref_meta}")
+        check(set(got) == set(ref) and not differ,
+              f"14c resume: tensors differ {differ[:3]}")
+        check(meta == ref_meta, "14c resume: step or generator states")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 14c wall time {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, steps=steps, peak_gb=peak_gb,
+                device_gib=dev_gib, host_gib=host_gib, overlap=overlap)
+
+
+def phase_training_settings() -> dict:
+    """Phase 14: the default ``Config()`` model (bf16, b4 1024^2, remat)
+    through 14a and 14b, then, that model freed, #7's rbg variant and the
+    stacked launch against plain, then 14c."""
+    from sdxl_training_improvements_tpu_torch.config import Config
+    from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
+    from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
+    t_phase = time.perf_counter()
+    cfg = Config()
+    model = SDXLModel.create(
+        tiny=False, dtype=torch.bfloat16, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        unet_config=UNetConfig.sdxl(remat=True))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    n = cfg.training.batch_size * cfg.training.gradient_accumulation_steps
+    batch = _train_batch(model, n, gen, SIZE)
+    log(f"phase 14a: every remat policy on the default Config() (ddpm, "
+        f"v-prediction, adamw_bf16 per-leaf hash), b{n} at {SIZE}^2, "
+        "seeded weights and latents")
+    remat = phase_remat_policies(model, cfg, batch)
+    log(f"phase 14a wall time {time.perf_counter() - t_phase:.1f} s")
+    t_b = time.perf_counter()
+    layouts = phase_layouts(model, cfg, batch)
+    del model, batch
+    _free()
+    checks = dict(
+        leaf=_adamw_rbg_case(INT8_LEAF, gen),
+        group=_adamw_rbg_case((max(layouts["flat_sizes"]),), gen,
+                              flat_g=True),
+        stack=_stack_decay_case(*max(
+            (s for s in layouts["stacks"] if s[0] * s[1] <= STACK_CHECK_MAX),
+            key=lambda s: s[0]), gen))
+    _free()
+    log(f"phase 14b wall time {time.perf_counter() - t_b:.1f} s")
+    host = phase_host_state()
+    log(f"phase 14 wall time {time.perf_counter() - t_phase:.1f} s")
+    return dict(remat=remat, layouts=layouts, checks=checks, host=host)
+
+
 # operations per element of the elementwise kernels, on the fp32 units
 # (not the tensor cores): the GN forward (Welford statistics; normalise,
 # affine, SiLU), the GN backward (xhat, z, sigmoid, dz and two sums; then
@@ -3231,7 +3819,13 @@ def kernel_report(k: dict, paths: dict) -> dict:
         "[4096, 4096] fp32",
         bound(OPS_PER_ELEMENT["probe"] * probe_n, 8 * probe_n, PEAK_FP32),
         (k["probe"]["library_ms"], "torch.add(1, x, alpha=2)"))
-    device.update({"fused_adamw": adamw["dev"], "probe": k["probe"]["dev"]})
+    rbg = k["adamw_rbg"]
+    measured["fused_adamw_rbg"] = (
+        max(k["adamw_rbg_errs"]), rbg["ms"], rbg["plain_ms"],
+        "[10240, 1280] bf16, fp32 g, rbg planes", rbg["bound"],
+        (None, None))
+    device.update({"fused_adamw": adamw["dev"], "fused_adamw_rbg": rbg["dev"],
+                   "probe": k["probe"]["dev"]})
     library_device["probe"] = k["probe"]["library_dev"]
     return {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": tpu,
@@ -3246,9 +3840,14 @@ def kernel_report(k: dict, paths: dict) -> dict:
 
 
 def main() -> None:
+    t_main = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        log(f"elapsed {time.perf_counter() - t_main:.1f} s after {what}")
     phase_environment()
     phase_build()
     kernels = phase_kernels()
+    elapsed("phase 3")
     from sdxl_training_improvements_tpu_torch.config import Config
     from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
     from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
@@ -3263,20 +3862,34 @@ def main() -> None:
     log(f"SDXLModel.create full width on cuda: "
         f"{time.perf_counter() - t0:.2f} s")
     phase_unet(model)
+    elapsed("phase 4")
     serving = phase_slice(model)
+    elapsed("phase 5")
     with tempfile.TemporaryDirectory() as tmp:
         rest = phase_rest_of_serving(model, Path(tmp))
         entry_points = phase_serving_entry_points(model, Path(tmp))
+        elapsed("phases 10 and 13")
     profile_unet_step(model)
     train = phase_train(model, cfg)
     phase_train_parity(model, cfg)
+    elapsed("phases 6-7")
     del model
     _free()
     fp16 = phase_fp16()
+    elapsed("phase 8")
     fp32 = phase_fp32_training()
+    elapsed("phase 9")
     entry = phase_entry_point()
+    elapsed("phase 11")
     lora = phase_lora_ema()
+    elapsed("phase 12a")
     optimizers = phase_optimizers()
+    elapsed("phases 12b-12e")
+    settings = phase_training_settings()
+    elapsed("phase 14")
+    kernels["adamw_rbg"] = settings["checks"]["leaf"]
+    kernels["adamw_rbg_errs"] = [settings["checks"][c]["err"]
+                                 for c in ("leaf", "group")]
     # each main path's launches, counted from 0 just before it ran
     paths = {"serving (phase 5)": serving["launches"],
              **{f"rest of serving (phase 10): {k}": v
@@ -3291,7 +3904,12 @@ def main() -> None:
              "SOAP (phase 12c)": optimizers["soap"]["launches"],
              "int8 moments (phase 12d)": optimizers["int8"]["launches"],
              "full fine-tune + EMA (phase 12e)":
-                 optimizers["ema"]["launches"]}
+                 optimizers["ema"]["launches"],
+             "remat policies (phase 14a)": settings["remat"]["launches"],
+             "optimizer layouts (phase 14b)":
+                 settings["layouts"]["launches"],
+             "host-streamed state (phase 14c)":
+                 settings["host"]["launches"]}
     log(json.dumps(kernel_report(kernels, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,16 @@
 //
 // with n0 = lowbias32(i ^ seed0), n1 = lowbias32(i ^ seed1) over the
 // element's flat index i in memory order, which is ops/stochastic.py's
-// counter_noise.  The Pallas kernel draws the TPU's hardware random bits
-// instead; this kernel is held to the XLA chain, bit for bit.
+// counter_noise ("hash" noise).  The "rbg" variant (template parameter
+// kPlanes) reads n0 and n1 from two uint32 planes drawn beforehand, n0 =
+// planes[i] and n1 = planes[n + i], as JAX's `_noise_planes` materialises
+// them.  The Pallas kernel draws the TPU's hardware random bits instead;
+// this kernel is held to the XLA chain, bit for bit.
+//
+// Decay: one amount for the whole launch (a leaf, or a flat group of the
+// flat and hybrid layouts), or with `decay_vec` one per slice of
+// `slice_n` elements (the stacked layout's per-leaf decay, which JAX
+// computes outside Pallas: decay = decay_vec[i / slice_n]).
 //
 // Bit-exactness: the three fma() above are where XLA:CPU fuses the JAX
 // chain's a*b+c forms (ops/fused_adamw.py says how that was measured), and
@@ -28,7 +36,8 @@
 // --use_fast_math.
 //
 // Bound: pure HBM streaming.  Per element it reads p, m, v, shift (bf16)
-// and g (fp32, or bf16), 12 bytes, and writes delta, m, v, shift (bf16),
+// and g (fp32, or bf16), 12 bytes (10 with a bf16 g; the rbg variant
+// reads 8 more for the planes), and writes delta, m, v, shift (bf16),
 // 8 bytes.  m, v and shift are updated in place.  A grid-stride loop with
 // one element per thread per iteration; the noise is computed in registers
 // and never touches memory.
@@ -83,21 +92,31 @@ __device__ __forceinline__ float load_g<uint16_t>(const uint16_t* g,
   return bf16_to_f32(g[i]);
 }
 
-template <typename G>
+template <typename G, bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
 fused_adamw_kernel(const uint16_t* __restrict__ p, const G* __restrict__ g,
                    uint16_t* __restrict__ m, uint16_t* __restrict__ v,
                    uint16_t* __restrict__ sh, uint16_t* __restrict__ delta,
-                   int64_t n, float neg_lr_eff, float decay, uint32_t seed0,
-                   uint32_t seed1, float beta1, float one_minus_beta1,
-                   float beta2, float one_minus_beta2, float eps) {
+                   int64_t n, float neg_lr_eff, float decay_all,
+                   const float* __restrict__ decay_vec, int64_t slice_n,
+                   uint32_t seed0, uint32_t seed1,
+                   const uint32_t* __restrict__ planes, float beta1,
+                   float one_minus_beta1, float beta2, float one_minus_beta2,
+                   float eps) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n; i += stride) {
-    const uint32_t idx = static_cast<uint32_t>(i);
-    const uint32_t n0 = lowbias32(idx ^ seed0);
-    const uint32_t n1 = lowbias32(idx ^ seed1);
+    uint32_t n0, n1;
+    if constexpr (kPlanes) {
+      n0 = planes[i];
+      n1 = planes[n + i];
+    } else {
+      const uint32_t idx = static_cast<uint32_t>(i);
+      n0 = lowbias32(idx ^ seed0);
+      n1 = lowbias32(idx ^ seed1);
+    }
+    const float decay = decay_vec ? decay_vec[i / slice_n] : decay_all;
     const float g32 = load_g<G>(g, i);
     const float p32 = bf16_to_f32(p[i]);
 
@@ -138,42 +157,68 @@ fused_adamw_kernel(const uint16_t* __restrict__ p, const G* __restrict__ g,
   }
 }
 
-template <typename G>
+template <typename G, bool kPlanes>
 int launch(const void* p, const void* g, void* m, void* v, void* sh,
            void* delta, int64_t n, float neg_lr_eff, float decay,
-           uint32_t seed0, uint32_t seed1, float beta1,
+           const void* decay_vec, int64_t slice_n, uint32_t seed0,
+           uint32_t seed1, const void* planes, float beta1,
            float one_minus_beta1, float beta2, float one_minus_beta2,
            float eps, cudaStream_t stream) {
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond that
   if (blocks < 1) blocks = 1;
-  fused_adamw_kernel<G><<<static_cast<unsigned>(blocks), kThreads, 0,
-                          stream>>>(
+  fused_adamw_kernel<G, kPlanes><<<static_cast<unsigned>(blocks), kThreads,
+                                   0, stream>>>(
       static_cast<const uint16_t*>(p), static_cast<const G*>(g),
       static_cast<uint16_t*>(m), static_cast<uint16_t*>(v),
       static_cast<uint16_t*>(sh), static_cast<uint16_t*>(delta), n,
-      neg_lr_eff, decay, seed0, seed1, beta1, one_minus_beta1, beta2,
-      one_minus_beta2, eps);
+      neg_lr_eff, decay, static_cast<const float*>(decay_vec), slice_n,
+      seed0, seed1, static_cast<const uint32_t*>(planes), beta1,
+      one_minus_beta1, beta2, one_minus_beta2, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename G>
+int launch_noise(const void* planes, const void* p, const void* g, void* m,
+                 void* v, void* sh, void* delta, int64_t n, float neg_lr_eff,
+                 float decay, const void* decay_vec, int64_t slice_n,
+                 uint32_t seed0, uint32_t seed1, float beta1,
+                 float one_minus_beta1, float beta2, float one_minus_beta2,
+                 float eps, cudaStream_t st) {
+  if (planes) {
+    return launch<G, true>(p, g, m, v, sh, delta, n, neg_lr_eff, decay,
+                           decay_vec, slice_n, seed0, seed1, planes, beta1,
+                           one_minus_beta1, beta2, one_minus_beta2, eps, st);
+  }
+  return launch<G, false>(p, g, m, v, sh, delta, n, neg_lr_eff, decay,
+                          decay_vec, slice_n, seed0, seed1, planes, beta1,
+                          one_minus_beta1, beta2, one_minus_beta2, eps, st);
 }
 
 }  // namespace
 
-// g_is_bf16: 0 for an fp32 gradient, 1 for a bf16 gradient.
+// g_is_bf16: 0 for an fp32 gradient, 1 for a bf16 gradient.  planes: null
+// for the hash noise of (seed0, seed1), else 2 x n uint32 ("rbg").
+// decay_vec: null for one decay amount, else one fp32 amount per slice of
+// slice_n elements.
 extern "C" int fused_adamw_bf16(const void* p, const void* g, int g_is_bf16,
                                 void* m, void* v, void* sh, void* delta,
                                 int64_t n, float neg_lr_eff, float decay,
-                                uint32_t seed0, uint32_t seed1, float beta1,
+                                const void* decay_vec, int64_t slice_n,
+                                uint32_t seed0, uint32_t seed1,
+                                const void* planes, float beta1,
                                 float one_minus_beta1, float beta2,
                                 float one_minus_beta2, float eps,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (g_is_bf16) {
-    return launch<uint16_t>(p, g, m, v, sh, delta, n, neg_lr_eff, decay,
-                            seed0, seed1, beta1, one_minus_beta1, beta2,
-                            one_minus_beta2, eps, st);
+    return launch_noise<uint16_t>(planes, p, g, m, v, sh, delta, n,
+                                  neg_lr_eff, decay, decay_vec, slice_n,
+                                  seed0, seed1, beta1, one_minus_beta1,
+                                  beta2, one_minus_beta2, eps, st);
   }
-  return launch<float>(p, g, m, v, sh, delta, n, neg_lr_eff, decay, seed0,
-                       seed1, beta1, one_minus_beta1, beta2,
-                       one_minus_beta2, eps, st);
+  return launch_noise<float>(planes, p, g, m, v, sh, delta, n, neg_lr_eff,
+                             decay, decay_vec, slice_n, seed0, seed1, beta1,
+                             one_minus_beta1, beta2, one_minus_beta2, eps,
+                             st);
 }

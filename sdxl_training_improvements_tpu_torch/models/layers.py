@@ -10,9 +10,21 @@ the weights' dtype (bf16 for the UNet, fp32 for the VAE).
 Parameter names follow diffusers (``conv1``, ``time_emb_proj``, ``attn1``,
 ``ff.net.0.proj``, ``to_out.0`` ...), so a diffusers state dict, or one
 converted from the JAX package (``models/weights.py``), loads strictly.
+
+Names for the selective remat policies (JAX ``layers.py:159-172``,
+``:223``): ``checkpoint_name(name)`` is a context in which the operator
+that produces a value runs, and the policy (``models/unet.py``) reads the
+name while that operator dispatches.  A resnet names its two GN+SiLU
+outputs ``gn_silu`` and the outputs of ``conv1`` and ``conv2``
+``res_conv`` (not ``conv_shortcut``'s); attention names its core
+``attn_core`` (self) or ``attn_core_cross`` (cross).  The forward and the
+recomputation run the same code, so both see the same names.  Outside a
+checkpoint the names do nothing.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -25,6 +37,26 @@ from sdxl_training_improvements_tpu_torch.ops.attention import (
 from sdxl_training_improvements_tpu_torch.ops.groupnorm import (
     group_norm_bf16, group_norm_f32, groupnorm_silu, norm_arith_bf16_enabled,
     normalize_bf16)
+
+
+_CHECKPOINT_NAME = contextvars.ContextVar("sdxl_checkpoint_name",
+                                          default=None)
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Within the block, the operator that produces a value carries
+    ``name`` for the remat policy (JAX ``jax.ad_checkpoint.
+    checkpoint_name``)."""
+    tok = _CHECKPOINT_NAME.set(name)
+    try:
+        yield
+    finally:
+        _CHECKPOINT_NAME.reset(tok)
+
+
+def current_checkpoint_name() -> Optional[str]:
+    return _CHECKPOINT_NAME.get()
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -118,10 +150,16 @@ class ResnetBlock2D(nn.Module):
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x, emb=None):
-        h = self.conv1(self.norm1(x))
+        with checkpoint_name("gn_silu"):
+            h = self.norm1(x)
+        with checkpoint_name("res_conv"):
+            h = self.conv1(h)
         if emb is not None:
             h = h + self.time_emb_proj(F.silu(emb))[:, :, None, None]
-        h = self.conv2(self.norm2(h))
+        with checkpoint_name("gn_silu"):
+            h = self.norm2(h)
+        with checkpoint_name("res_conv"):
+            h = self.conv2(h)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -148,7 +186,9 @@ class Attention(nn.Module):
         q = self.to_q(x).view(b, s, self.num_heads, self.head_dim)
         k = self.to_k(ctx).view(b, t, self.num_heads, self.head_dim)
         v = self.to_v(ctx).view(b, t, self.num_heads, self.head_dim)
-        out = dot_product_attention(q, k, v)
+        with checkpoint_name("attn_core" if context is None
+                             else "attn_core_cross"):
+            out = dot_product_attention(q, k, v)
         return self.to_out[0](out.reshape(b, s, -1))
 
 

@@ -8,12 +8,29 @@ held as ``channels_last``; attention and the resblock GroupNorm+SiLU go to
 the hand-written kernels on the card, forward and backward.
 
 Remat: with ``remat`` (and a gradient being recorded) every resnet and
-transformer block runs under ``torch.utils.checkpoint`` (non-reentrant), so
-only block inputs are saved and the backward recomputes each block: JAX's
-``nn.remat`` with the "full" policy.  The selective policies (``dots*``)
-are not ported.  ``norm_bf16_arith`` (None: the value of ``remat``) sets
-``ops.groupnorm.norm_arith_bf16`` for the forward and for every
-recomputation, as JAX's ``SDXLUNet.__call__`` sets it for its trace.
+transformer block runs under ``torch.utils.checkpoint`` (non-reentrant):
+JAX's ``nn.remat``.  Under "full" only block inputs are saved and the
+backward recomputes each block.  The selective policies (JAX ``:38-109``,
+the table at ``:382-508``) run each block under PyTorch's selective
+checkpointing, which asks the policy operator by operator, as it
+dispatches, whether to keep the output; a kept output is not recomputed.
+JAX's primitives map to aten operators:
+
+* ``dot_general`` -> ``aten.mm`` / ``aten.addmm`` (``F.linear``; no batch
+  dimensions) and ``aten.bmm`` / ``aten.baddbmm`` (batched);
+* ``conv_general_dilated`` -> ``aten.convolution``;
+* a ``checkpoint_name`` -> the operator producing the value under the
+  name (``models/layers.py``): ``sdxl::gn_silu``, ``aten.convolution``
+  or ``sdxl::flash_attn``.
+
+The flash attention is one operator, not a product, so no policy keeps
+the S^2 logits: JAX's Pallas flash path keeps none either.  Unlike XLA's
+remat, eager recomputation does not skip the operators that only feed a
+kept output: a kept convolution is not run again, the GN+SiLU before it
+is (unless it is kept too).  ``norm_bf16_arith`` (None: the value of
+``remat``) sets ``ops.groupnorm.norm_arith_bf16`` for the forward and for
+every recomputation, under every policy, as JAX's ``SDXLUNet.__call__``
+sets it for its trace.
 
 DeepCache (arXiv 2312.00858, inference only): ``return_deep=True``
 returns the tensor entering the last up stage beside the prediction;
@@ -23,18 +40,180 @@ up stage and the head around it.  The deep tensor is NCHW
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from sdxl_training_improvements_tpu_torch.models.layers import (
     Downsample2D, GroupNormSiLU, ResnetBlock2D, TimestepEmbedding,
-    Transformer2DModel, Upsample2D, timestep_embedding)
+    Transformer2DModel, Upsample2D, current_checkpoint_name,
+    timestep_embedding)
 from sdxl_training_improvements_tpu_torch.ops.groupnorm import (
     norm_arith_bf16)
+
+# policy(op, args, name) -> keep the op's output?  ``name`` is the
+# checkpoint name the op runs under (None outside one)
+Policy = Callable[[object, tuple, Optional[str]], bool]
+
+_aten = torch.ops.aten
+NOBATCH_DOTS = (_aten.mm.default, _aten.addmm.default)
+BATCHED_DOTS = (_aten.bmm.default, _aten.baddbmm.default)
+CONVOLUTIONS = (_aten.convolution.default,)
+# the operators that produce a named value (models/layers.py)
+NAMED_OPS = (torch.ops.sdxl.gn_silu.default, _aten.convolution.default,
+             torch.ops.sdxl.flash_attn.default)
+
+
+def out_elements(op, args) -> int:
+    """Elements of the output of ``op`` from its inputs (the policy runs
+    before the op does)."""
+    if op is _aten.mm.default:
+        return args[0].shape[0] * args[1].shape[1]
+    if op is _aten.addmm.default:
+        return args[1].shape[0] * args[2].shape[1]
+    if op in BATCHED_DOTS:
+        a, b = args[-2], args[-1]
+        return a.shape[0] * a.shape[1] * b.shape[2]
+    if op is _aten.convolution.default:
+        x, w = args[0], args[1]
+        stride, padding, dilation = args[3], args[4], args[5]
+        out = x.shape[0] * w.shape[0]
+        for i, size in enumerate(x.shape[2:]):
+            k = w.shape[2 + i]
+            out *= (size + 2 * padding[i] - dilation[i] * (k - 1) - 1
+                    ) // stride[i] + 1
+        return out
+    return args[0].numel()  # gn_silu, flash_attn: shaped like input 0
+
+
+def dots_saveable(op, args, name) -> bool:
+    """JAX ``dots_saveable``: every product and convolution."""
+    return op in NOBATCH_DOTS or op in BATCHED_DOTS or op in CONVOLUTIONS
+
+
+def dots_with_no_batch_dims_saveable(op, args, name) -> bool:
+    """JAX ``dots_with_no_batch_dims_saveable``: products without batch
+    dimensions only (``F.linear``'s); never a batched product."""
+    return op in NOBATCH_DOTS
+
+
+def save_only_these_names(*names: str) -> Policy:
+    """JAX ``save_only_these_names``."""
+    def policy(op, args, name) -> bool:
+        return name in names and op in NAMED_OPS
+    return policy
+
+
+def save_from_both_policies(a: Policy, b: Policy) -> Policy:
+    """JAX ``save_from_both_policies``."""
+    def policy(op, args, name) -> bool:
+        return a(op, args, name) or b(op, args, name)
+    return policy
+
+
+def _small_dots_policy(max_out_elements: int = 8 * 1024 * 1024) -> Policy:
+    """JAX ``_small_dots_policy``: keep the output of a product without
+    batch dimensions when it has at most ``max_out_elements`` elements."""
+    def policy(op, args, name) -> bool:
+        return op in NOBATCH_DOTS and out_elements(op, args) \
+            <= max_out_elements
+    return policy
+
+
+def _small_saves_policy(max_out_elements: int = 8 * 1024 * 1024,
+                        small_names: Tuple[str, ...] = (),
+                        always_names: Tuple[str, ...] = (),
+                        names_max_out_elements: Optional[int] = None,
+                        dots: bool = True,
+                        name_thresholds: Optional[dict] = None) -> Policy:
+    """JAX ``_small_saves_policy``: small products as
+    ``_small_dots_policy`` (unless ``dots`` is False), and named values
+    by their element count: under ``name_thresholds[name]``, else under
+    ``names_max_out_elements`` (default ``max_out_elements``) for a name
+    in ``small_names``; a name in ``always_names`` always."""
+    dots_policy = _small_dots_policy(max_out_elements) if dots else None
+    names_max = names_max_out_elements or max_out_elements
+
+    def policy(op, args, name) -> bool:
+        if name is not None and op in NAMED_OPS:
+            if name in always_names:
+                return True
+            cap = (name_thresholds or {}).get(
+                name, names_max if name in small_names else None)
+            return cap is not None and out_elements(op, args) <= cap
+        return dots_policy is not None and dots_policy(op, args, name)
+    return policy
+
+
+_CONV_NAMES = ("res_conv", "gn_silu", "attn_core")
+_MIB = 1024 * 1024
+
+
+def remat_policy_table() -> Dict[str, Optional[Policy]]:
+    """JAX ``SDXLUNet._blocks``' table: name -> the policy of every
+    remat'd block (None: full remat).  Each entry's reason is at JAX
+    ``models/unet.py:382-461``."""
+    return {
+        "full": None,
+        "dots": dots_saveable,
+        "dots_nobatch": dots_with_no_batch_dims_saveable,
+        "dots_small": _small_dots_policy(),
+        "dots_small_attn": save_from_both_policies(
+            _small_dots_policy(), save_only_these_names("attn_core")),
+        "dots_small_conv": _small_saves_policy(small_names=_CONV_NAMES),
+        "dots_small_conv_wide": _small_saves_policy(
+            small_names=_CONV_NAMES, names_max_out_elements=12 * _MIB),
+        "dots_small_conv_mid": _small_saves_policy(small_names=_CONV_NAMES),
+        "dots_small_conv_attnwide": _small_saves_policy(
+            small_names=_CONV_NAMES,
+            name_thresholds={"attn_core": 12 * _MIB}),
+        "dots_small_conv10": _small_saves_policy(
+            max_out_elements=10 * _MIB + 512 * 1024,
+            small_names=_CONV_NAMES),
+        "dots_small_conv10_128": _small_saves_policy(
+            max_out_elements=10 * _MIB + 512 * 1024,
+            small_names=_CONV_NAMES,
+            name_thresholds={"res_conv": 22 * _MIB, "gn_silu": 22 * _MIB}),
+    }
+
+
+def remat_policies(name: str) -> Tuple[Optional[Policy], Optional[Policy]]:
+    """(policy of every block, policy of the mid block's transformer) for
+    ``remat_policy`` ``name``, with JAX's mid-block rules (``:471-507``);
+    an unknown name raises ``ValueError`` listing the policies."""
+    table = remat_policy_table()
+    if name not in table:
+        raise ValueError(f"Unknown remat_policy {name!r}; "
+                         f"one of {sorted(table)}")
+    policy = mid = table[name]
+    if name == "dots_small_attn":
+        mid = save_only_these_names("attn_core")
+    if name in ("dots_small_conv_wide", "dots_small_conv_mid"):
+        mid = _small_saves_policy(
+            small_names=_CONV_NAMES,
+            names_max_out_elements=(12 * _MIB
+                                    if name == "dots_small_conv_wide"
+                                    else None),
+            dots=False)
+    if name in ("dots_small", "dots_small_conv", "dots_small_conv_attnwide",
+                "dots_small_conv10", "dots_small_conv10_128"):
+        mid = None
+    return policy, mid
+
+
+def selective_checkpoint_context(policy: Policy):
+    """``context_fn`` for ``torch.utils.checkpoint``: keep what
+    ``policy`` keeps, with the current checkpoint name."""
+    def sac(ctx, op, *args, **kwargs):
+        keep = policy(op, args, current_checkpoint_name())
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(sac)
 
 
 @dataclass(frozen=True)
@@ -58,17 +237,14 @@ class UNetConfig:
     norm_num_groups: int = 32
     # recompute each resnet/transformer block in the backward
     remat: bool = True
-    # only "full" is ported; the JAX package's selective dots* policies
-    # are in ROADMAP queue 1
+    # a name of remat_policy_table(): "full" or a selective dots* policy
     remat_policy: str = "full"
     # bf16 norm interior; None = on iff remat (JAX unet.py:519-522)
     norm_bf16_arith: Optional[bool] = None
 
     def __post_init__(self):
-        if self.remat and self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {self.remat_policy!r} is not ported; only "
-                "'full' (ROADMAP queue 1, the selective remat policies)")
+        if self.remat:
+            remat_policies(self.remat_policy)  # an unknown name raises
 
     @classmethod
     def sdxl(cls, **kw) -> "UNetConfig":
@@ -339,13 +515,21 @@ class SDXLUNet(nn.Module):
 
         self.conv_norm_out = GroupNormSiLU(b0, g, 1e-5)
         self.conv_out = nn.Conv2d(b0, cfg.out_channels, 3, padding=1)
+        # (every block's policy, the mid transformer's); a test may set
+        # policies of its own here
+        self.remat_policies = (remat_policies(cfg.remat_policy)
+                               if cfg.remat else (None, None))
 
-    def _block(self, block, *args):
-        """Run one resnet or transformer block, under the full remat
-        policy when a gradient is being recorded."""
+    def _block(self, block, *args, mid: bool = False):
+        """Run one resnet or transformer block, under the remat policy
+        when a gradient is being recorded (``mid``: the mid block's
+        transformer, which has its own policy)."""
         if self.config.remat and torch.is_grad_enabled():
+            policy = self.remat_policies[1 if mid else 0]
+            kw = {} if policy is None else {"context_fn": functools.partial(
+                selective_checkpoint_context, policy)}
             return checkpoint(self._recomputable, block, *args,
-                              use_reentrant=False)
+                              use_reentrant=False, **kw)
         return block(*args)
 
     def _recomputable(self, block, *args):
@@ -409,7 +593,7 @@ class SDXLUNet(nn.Module):
             mid = self.mid_block
             x = self._block(mid.resnets[0], x, emb)
             if hasattr(mid, "attentions"):
-                x = self._block(mid.attentions[0], x, ctx)
+                x = self._block(mid.attentions[0], x, ctx, mid=True)
             x = self._block(mid.resnets[1], x, emb)
             for block in self.up_blocks[:-1]:
                 x = self._up_block(block, x, skips, emb, ctx)

@@ -11,8 +11,9 @@ key names, so ``load_state_dict(..., strict=True)`` takes the result.
 * Norm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``
 
 A gradient tree maps the same way.  ``from_jax_opt_state`` maps the JAX
-optimizer states (``AdamWBF16State`` per-leaf with bf16 or int8 moments,
-``EMAState``, ``ScheduleFreeKahanState``, ``SOAPState``) onto the port's,
+optimizer states (``AdamWBF16State`` of every layout with bf16 or int8
+moments, ``EMAState``, ``ScheduleFreeKahanState``, ``SOAPState``) onto
+the port's,
 and ``from_jax_lora`` a LoRA tree onto the port's, so both packages can
 start from the same state.
 
@@ -89,6 +90,47 @@ def _leaf(path: Tuple[str, ...], value) -> Tuple[str, torch.Tensor]:
     return ".".join(keys + [name]), _to_torch(arr)
 
 
+# port segments joined onto an indexed block's flax segment:
+# down_blocks.1.attentions.0 -> down_blocks_1_attentions_0
+_BLOCK_PARTS = ("resnets", "attentions", "downsamplers", "upsamplers")
+
+
+def flax_path(name: str, ndim: int) -> Tuple[str, ...]:
+    """The flax path of the port's parameter ``name`` (of ``ndim``
+    dimensions), the inverse of ``_leaf`` for the UNet's keys:
+    ``down_blocks.1.attentions.0.transformer_blocks.0.attn1.to_q.weight``
+    -> ``("down_blocks_1_attentions_0", "transformer_blocks_0", "attn1",
+    "to_q", "kernel")``.  A LoRA tree's ``<module>.down`` / ``.up`` ->
+    (the flax kernel path joined by "/", "down" / "up"), JAX's LoRA keys.
+    Sorting by it gives the flatten order of the JAX tree."""
+    *mods, leaf = name.split(".")
+    if leaf in ("down", "up"):
+        return ("/".join(flax_path(".".join(mods + ["weight"]), 2)), leaf)
+    segs: List[str] = []
+    for tok in mods:
+        last = segs[-1] if segs else ""
+        if tok.isdigit() or (tok in _BLOCK_PARTS and (
+                last == "mid_block" or last.startswith(("down_blocks_",
+                                                        "up_blocks_")))):
+            segs[-1] = f"{last}_{tok}"
+        else:
+            segs.append(tok)
+    if leaf == "weight":
+        leaf = "kernel" if ndim >= 2 else "scale"
+    return tuple(segs) + (leaf,)
+
+
+def jax_shape(name: str, shape) -> Tuple[int, ...]:
+    """The JAX leaf's shape of the port's parameter: a Linear weight
+    [out, in] is a kernel [in, out], a Conv weight OIHW one HWIO."""
+    shape = tuple(shape)
+    if name.endswith(".weight") and len(shape) == 2:
+        return shape[::-1]
+    if name.endswith(".weight") and len(shape) == 4:
+        return (shape[2], shape[3], shape[1], shape[0])
+    return shape
+
+
 def _clip_key(key: str) -> str:
     """CLIP keys get transformers' ``text_model.``/``embeddings.`` scope."""
     if key.startswith("text_projection"):
@@ -152,11 +194,65 @@ def _state_leaves(tree, path=()):
             yield path + (str(k),), v
 
 
+def _flat_layout_trees(state, like, optimizer, lora: bool):
+    """The bf16 AdamW's flat, hybrid or stacked trees (keys ``flat_{g}``,
+    ``stack_{j}``, ``leaf_{i}``) -> the port's: ``leaf_{i}`` is the i-th
+    parameter in the JAX flatten order, keyed by its name; a group is cut
+    into its parameters (``optimizer.groups(like)``), each mapped to the
+    port's layout, laid out like its parameter and concatenated (a stack:
+    stacked) in memory order."""
+    from sdxl_training_improvements_tpu_torch.training.optimizers.adamw_bf16 \
+        import flax_order
+    from sdxl_training_improvements_tpu_torch.ops.fused_adamw import (
+        memory_order)
+    names = flax_order(like)
+    groups = optimizer.groups(like)
+
+    def port_leaf(name, arr):
+        path = flax_path(name, like[name].dim())
+        if lora:
+            t = _to_torch(_lora_layout(path[-1], np.asarray(arr)))
+        else:
+            t = _leaf(path, arr)[1]
+        return torch.empty_like(like[name], dtype=t.dtype).copy_(
+            t.reshape(like[name].shape))
+
+    def tree(t):
+        out = {}
+        for k, v in t.items():
+            if k.startswith("leaf_"):
+                name = names[int(k[len("leaf_"):])]
+                out[name] = port_leaf(name, v)
+                continue
+            members, arr = groups[k], np.asarray(v)
+            pieces, off = [], 0
+            for j, name in enumerate(members):
+                shape = jax_shape(name, like[name].shape)
+                if k.startswith("stack_"):
+                    piece = arr[j]
+                else:
+                    size = int(np.prod(shape))
+                    piece, off = arr[off:off + size].reshape(shape), \
+                        off + size
+                pieces.append(memory_order(port_leaf(name, piece)))
+            out[k] = (torch.stack if k.startswith("stack_")
+                      else torch.cat)(pieces)
+        return out
+
+    acc = {}
+    for k, v in state.accumulated_decay.items():
+        key = names[int(k[len("leaf_"):])] if k.startswith("leaf_") else k
+        t = _to_torch(np.asarray(v)).float()
+        acc[key] = t if k.startswith("stack_") else t.reshape(())
+    return (tree(state.exp_avg), tree(state.exp_avg_sq), tree(state.shift),
+            acc)
+
+
 def from_jax_opt_state(state, like: Optional[Mapping[str, torch.Tensor]] = None,
                        generator: Optional[torch.Generator] = None,
-                       lora: bool = False):
+                       lora: bool = False, optimizer=None):
     """A JAX optimizer state (its trees as numpy arrays) -> the port's:
-    ``AdamWBF16State`` (per-leaf, bf16 or int8 moments), ``EMAState``
+    ``AdamWBF16State`` (every layout, bf16 or int8 moments), ``EMAState``
     (recursively), ``ScheduleFreeKahanState`` and ``SOAPState``.  Trees
     shaped like the parameters go through the parameters' key and layout
     mapping (``lora=True``: the LoRA tree's, ``from_jax_lora``); int8
@@ -165,7 +261,11 @@ def from_jax_opt_state(state, like: Optional[Mapping[str, torch.Tensor]] = None,
     re-keyed.  ``like`` (the port's parameters by name) gives each tensor
     shaped like a parameter that parameter's device and strides, as the
     port's ``init`` lays it out.  ``generator`` (a CPU generator, seeded
-    with 0 when None) draws the port's next per-leaf seeds."""
+    with 0 when None) draws the port's next per-leaf seeds.  The flat,
+    hybrid and stacked layouts (``flat_{g}``, ``stack_{j}``, ``leaf_{i}``
+    keys) need ``like`` and the port's ``optimizer`` (an ``AdamWBF16`` of
+    that layout: its partition, and its noise generator under rbg); the
+    per-leaf state takes its layout from ``optimizer`` too when given."""
     from sdxl_training_improvements_tpu_torch.training import optimizers as O
     kind = type(state).__name__
 
@@ -205,7 +305,8 @@ def from_jax_opt_state(state, like: Optional[Mapping[str, torch.Tensor]] = None,
         state.step))
     if kind == "EMAState":
         return O.EMAState(
-            inner=from_jax_opt_state(state.inner, like, generator, lora),
+            inner=from_jax_opt_state(state.inner, like, generator, lora,
+                                     getattr(optimizer, "inner", optimizer)),
             ema={k: v.float() for k, v in tree(state.ema).items()},
             count=int(np.asarray(state.count)))
     if kind == "ScheduleFreeKahanState":
@@ -218,13 +319,27 @@ def from_jax_opt_state(state, like: Optional[Mapping[str, torch.Tensor]] = None,
                            gg=rekeyed(state.gg), q=rekeyed(state.q))
     if kind != "AdamWBF16State":
         raise TypeError(f"no port counterpart for JAX state {kind}")
-    acc = {_key(path, lora): _to_torch(np.asarray(v)).float().reshape(())
-           for path, v in _leaves(state.accumulated_decay)}
+    noise_gen = None
+    if optimizer is not None and optimizer.noise == "rbg":
+        device = next(iter(like.values())).device if like else "cpu"
+        noise_gen = torch.Generator(device=device).manual_seed(0)
+    layout = optimizer.layout if optimizer is not None else "per_leaf"
+    if any(str(k).startswith(("flat_", "stack_", "leaf_"))
+           for k in state.exp_avg):
+        if like is None or optimizer is None:
+            raise ValueError("a flat, hybrid or stacked JAX state needs "
+                             "like= and optimizer=")
+        m, v, shift, acc = _flat_layout_trees(state, like, optimizer, lora)
+    else:
+        m, v, shift = (tree(state.exp_avg), tree(state.exp_avg_sq),
+                       tree(state.shift))
+        acc = {_key(path, lora): _to_torch(np.asarray(v)).float().reshape(())
+               for path, v in _leaves(state.accumulated_decay)}
     return O.AdamWBF16State(
-        step=step, exp_avg=tree(state.exp_avg),
-        exp_avg_sq=tree(state.exp_avg_sq), shift=tree(state.shift),
+        step=step, exp_avg=m, exp_avg_sq=v, shift=shift,
         accumulated_decay=acc,
-        generator=generator or torch.Generator().manual_seed(0))
+        generator=generator or torch.Generator().manual_seed(0),
+        layout=layout, noise_generator=noise_gen)
 
 
 # ------------------------------------------------------ safetensors files

@@ -3,10 +3,9 @@
 Port of ``sdxl_training_improvements_tpu/ops/attention.py``.  On the card
 the hand-written flash kernels are the UNet's attention at every ``attn1``
 / ``attn2`` site, forward and backward (``ops/flash_attention.py::
-FlashAttention``); on the CPU the plain path runs, differentiable by
-autograd.  The JAX module's
-``chunked`` path (a bounded-memory XLA workaround) has no port: the flash
-kernel never materialises the scores.
+flash_attn_op``); on the CPU the same operator runs the plain path.  The
+JAX module's ``chunked`` path (a bounded-memory XLA workaround) has no
+port: the flash kernel never materialises the scores.
 
 Layout: [B, S, H, D]; softmax in fp32 whatever the input dtype.
 """
@@ -34,10 +33,7 @@ def dot_product_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
-    """The flash kernels for CUDA tensors, the plain path for CPU
-    tensors; both carry the gradient."""
-    if q.device.type == "cpu":
-        return dot_product_attention_reference(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"dot_product_attention: no kernel for {q.device}")
+    """Attention through the operator ``sdxl::flash_attn``: the flash
+    kernels for CUDA tensors, the plain path for CPU tensors (the same
+    values and gradients as ``dot_product_attention_reference``)."""
     return flash_attention(q, k, v)

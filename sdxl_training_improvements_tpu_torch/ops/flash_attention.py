@@ -22,8 +22,11 @@ keep fp32's accuracy (their shared tiles, splitting pass and products:
   Both recompute the probabilities from (q, k, lse), read their inputs
   through TMA tensor maps and multiply with wgmma; Delta = rowsum(dO * O)
   is a plain torch op, as JAX forms it outside Pallas.
-* ``FlashAttention`` saves (q, k, v, out, lse) in the forward, as
-  ``_flash_core_fwd`` does, and runs the two backward kernels.
+* ``flash_attn_op`` — the operator ``sdxl::flash_attn`` (``torch.library.
+  custom_op``): the forward kernel for CUDA tensors, the plain version for
+  CPU tensors; its autograd saves (q, k, v, out, lse), as
+  ``_flash_core_fwd`` does, and runs the two backward kernels (CPU: the
+  plain attention's VJP).
 
 Each launcher (``LAUNCHERS[kind][dtype]``) counts its launches; each
 wrapper counts its own over all dtypes.
@@ -404,29 +407,71 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout,
     return dq, dk, dv
 
 
-class FlashAttention(torch.autograd.Function):
-    """out = softmax(q k^T * scale) v through the flash kernels; the
-    forward saves (q, k, v, out, lse) as ``_flash_core_fwd`` does.  The
-    kernel functions are looked up at call time, so a test can put the
-    plain versions in their place."""
+def _uses_kernel(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU tensor (the
+    plain versions); any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"flash_attention: no kernel for {x.device}")
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_attention_fwd_cuda(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+@torch.library.custom_op("sdxl::flash_attn", mutates_args=())
+def flash_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention as one operator: (out [B, S, H, D], lse [B, H, S] fp32).
+    A CUDA tensor launches the forward kernel (``flash_attention_fwd_cuda``,
+    looked up at call time, so a test can put the plain version in its
+    place), a CPU tensor takes the plain version.  One operator is what a
+    remat policy can name and save (``models/unet.py``): a launch through
+    ctypes is invisible to it."""
+    if _uses_kernel(q):
+        return flash_attention_fwd_cuda(q, k, v, scale)
+    return flash_attention_fwd_reference(q, k, v, scale)
+
+
+@flash_attn_op.register_fake
+def _(q, k, v, scale):
+    b, s, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, s), dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.scale = scale
+    ctx.set_materialize_grads(False)  # no zero gradient for lse
+
+
+def _flash_backward(ctx, dout, _dlse):
+    """The two backward kernels for CUDA tensors (saved q, k, v, out and
+    lse, as ``_flash_core_fwd`` saves them); for CPU tensors the VJP of
+    the plain attention (``ops/attention.py``), recomputed here, so the
+    CPU gradients are autograd's through the plain ops."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if _uses_kernel(q):
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, dout,
                                               ctx.scale)
-        return dq, dk, dv, None
+    else:
+        from sdxl_training_improvements_tpu_torch.ops.attention import (
+            dot_product_attention_reference)
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_() for t in (q, k, v)]
+            y = dot_product_attention_reference(*xs, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(y, xs, dout)
+    return dq, dk, dv, None
+
+
+torch.library.register_autograd("sdxl::flash_attn", _flash_backward,
+                                setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
-    """q [B, S, H, D]; k, v [B, T, H, D] -> [B, S, H, D], differentiable."""
-    return FlashAttention.apply(q, k, v,
-                                q.shape[-1] ** -0.5 if scale is None
-                                else scale)
+    """q [B, S, H, D]; k, v [B, T, H, D] -> [B, S, H, D], differentiable,
+    through ``flash_attn_op``; a device other than CUDA or the CPU
+    raises."""
+    _uses_kernel(q)
+    return flash_attn_op(q, k, v, q.shape[-1] ** -0.5 if scale is None
+                         else float(scale))[0]

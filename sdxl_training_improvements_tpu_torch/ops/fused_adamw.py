@@ -10,10 +10,17 @@ that kernel draws the TPU's hardware random bits and rounds ``g`` to bf16.
 
 * ``adamw_bf16_chain`` — the plain chain on given noise planes (the tests
   hand it zero planes to meet the Pallas kernel's interpret mode).
-* ``fused_adamw_reference`` — the chain with the counter-hash planes: the
-  CPU path and the oracle of the kernel.
-* ``fused_adamw_cuda`` — the kernel's wrapper.
+* ``fused_adamw_reference`` — the chain with the counter-hash planes of
+  two seeds ("hash"), or with two drawn uint32 planes (``planes``,
+  "rbg"): the CPU path and the oracle of the kernel.
+* ``fused_adamw_cuda`` — the kernel's wrapper; ``planes`` selects the rbg
+  variant (a template parameter of the same kernel).
 * ``fused_adamw_update`` — the dispatcher by device.
+* ``draw_planes`` — the rbg planes of n elements from a generator.
+
+``decay`` (a [k] fp32 tensor) replaces ``decay_amt`` with one amount per
+slice of ``numel // k`` elements in memory order: the stacked layout's
+per-leaf decay.
 
 All take p, m, v, shift in bf16 and g in fp32 (the gradient accumulator)
 or bf16, and return ``(delta, m, v, shift)`` with ``delta = bf16(p' - p)``:
@@ -32,6 +39,7 @@ other operation with its own rounding.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Sequence, Tuple
@@ -62,12 +70,35 @@ def noise_planes(seed0: int, seed1: int, n: int, device=None):
     return n0, n0 >> 16, n1, n1 >> 16
 
 
-def adamw_bf16_chain(p, g, m, v, shift, lr_eff: float, decay_amt: float,
+def draw_planes(n: int, generator: torch.Generator) -> torch.Tensor:
+    """Two planes of n uniform 32-bit words ("rbg" noise), [2, n] int32,
+    drawn on the generator's device."""
+    return torch.randint(-2 ** 31, 2 ** 31, (2, n), dtype=torch.int32,
+                         generator=generator, device=generator.device)
+
+
+def plane_noise(planes: torch.Tensor):
+    """The four 16-bit noise planes (JAX ``_noise_planes``, "rbg") of two
+    uint32 planes, [2, n] int32 or int64: (n0, n0 >> 16, n1, n1 >> 16) as
+    values in [0, 2**32) held in int64."""
+    n0, n1 = (x.to(torch.int64) & 0xFFFFFFFF for x in planes)
+    return n0, n0 >> 16, n1, n1 >> 16
+
+
+def _per_element(decay, n: int):
+    """A [k] per-slice decay as one amount per element of n."""
+    if not isinstance(decay, torch.Tensor):
+        return decay
+    return decay.float().repeat_interleave(n // decay.numel())
+
+
+def adamw_bf16_chain(p, g, m, v, shift, lr_eff: float, decay_amt,
                      noise: Sequence[torch.Tensor], beta1: float = 0.9,
                      beta2: float = 0.999, eps: float = 1e-8) -> Quad:
     """The per-element chain of ``bf16_update`` in JAX's order.
     ``lr_eff = lr * sqrt(1 - beta2**t)``; ``decay_amt`` is the accumulated
-    decay when it fires this step, else 0."""
+    decay when it fires this step, else 0 (a float, or a tensor of one
+    amount per element)."""
     g32 = g.float()
     m_scaled = (m.float() * beta1).to(torch.bfloat16)
     m = add_stochastic_bits(m_scaled, g32, noise[0], alpha=1.0 - beta1)
@@ -86,11 +117,17 @@ def adamw_bf16_chain(p, g, m, v, shift, lr_eff: float, decay_amt: float,
 
 def fused_adamw_reference(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                           seed0: int, seed1: int, beta1: float = 0.9,
-                          beta2: float = 0.999, eps: float = 1e-8) -> Quad:
+                          beta2: float = 0.999, eps: float = 1e-8,
+                          planes=None, decay=None) -> Quad:
     """Plain version of the kernel: the chain with the counter-hash noise
-    over each element's memory position.  Returns new tensors."""
+    over each element's memory position, or with ``planes`` ([2, n]) in
+    its place; ``decay`` ([k]) as in the module docstring.  Returns new
+    tensors."""
     flat = [memory_order(x) for x in (p, g, m, v, shift)]
-    noise = noise_planes(seed0, seed1, p.numel(), p.device)
+    noise = (plane_noise(planes) if planes is not None
+             else noise_planes(seed0, seed1, p.numel(), p.device))
+    if decay is not None:
+        decay_amt = _per_element(decay, p.numel())
     outs = adamw_bf16_chain(*flat, lr_eff, decay_amt, noise, beta1, beta2,
                             eps)
     shaped = []
@@ -107,7 +144,8 @@ def _library():
     fn = _build.load("fused_adamw").fused_adamw_bf16
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int64]
-                   + [ctypes.c_float] * 2 + [ctypes.c_uint32] * 2
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int64]
+                   + [ctypes.c_uint32] * 2 + [ctypes.c_void_p]
                    + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -120,9 +158,11 @@ def _f32(x: float) -> float:
 
 def fused_adamw_cuda(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                      seed0: int, seed1: int, beta1: float = 0.9,
-                     beta2: float = 0.999, eps: float = 1e-8) -> Quad:
-    """Launch the kernel.  ``m``, ``v`` and ``shift`` are updated in place
-    and returned with a new ``delta``; raises on what it does not take."""
+                     beta2: float = 0.999, eps: float = 1e-8,
+                     planes=None, decay=None) -> Quad:
+    """Launch the kernel (its rbg variant with ``planes``, [2, n] int32 on
+    p's device).  ``m``, ``v`` and ``shift`` are updated in place and
+    returned with a new ``delta``; raises on what it does not take."""
     if p.device.type != "cuda":
         raise ValueError(f"fused AdamW kernel needs CUDA tensors, got "
                          f"{p.device}")
@@ -142,6 +182,19 @@ def fused_adamw_cuda(p, g, m, v, shift, lr_eff: float, decay_amt: float,
     n = p.numel()
     if n >= 2 ** 32:
         raise ValueError(f"{n} elements: the noise index is 32-bit")
+    if planes is not None and (
+            planes.dtype != torch.int32 or planes.shape != (2, n)
+            or planes.device != p.device or not planes.is_contiguous()):
+        raise ValueError("planes must be a contiguous [2, n] int32 tensor "
+                         "on p's device")
+    slice_n = 0
+    if decay is not None:
+        if (decay.dtype != torch.float32 or decay.dim() != 1
+                or decay.device != p.device or n % decay.numel()
+                or not decay.is_contiguous()):
+            raise ValueError("decay must be a contiguous [k] fp32 tensor "
+                             "on p's device with k dividing numel")
+        slice_n = n // decay.numel()
     delta = torch.empty_like(p)
     fn = _library()
     with torch.cuda.device(p.device):
@@ -149,26 +202,33 @@ def fused_adamw_cuda(p, g, m, v, shift, lr_eff: float, decay_amt: float,
         rc = fn(p.data_ptr(), g.data_ptr(), int(g.dtype == torch.bfloat16),
                 m.data_ptr(), v.data_ptr(), shift.data_ptr(),
                 delta.data_ptr(), n, _f32(-lr_eff), _f32(decay_amt),
+                decay.data_ptr() if decay is not None else None, slice_n,
                 int(seed0) & 0xFFFFFFFF, int(seed1) & 0xFFFFFFFF,
+                planes.data_ptr() if planes is not None else None,
                 _f32(beta1), _f32(1.0 - beta1), _f32(beta2),
                 _f32(1.0 - beta2), _f32(eps), stream)
     if rc != 0:
         raise RuntimeError(f"fused_adamw launch failed: cudaError_t {rc}")
     fused_adamw_cuda.launches += 1
+    fused_adamw_cuda.launches_by_noise["hash" if planes is None
+                                       else "rbg"] += 1
     return delta, m, v, shift
 
 
+# launches in all, and of each noise's variant ("hash", "rbg")
 fused_adamw_cuda.launches = 0
+fused_adamw_cuda.launches_by_noise = collections.Counter()
 
 
 def fused_adamw_update(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                        seed0: int, seed1: int, beta1: float = 0.9,
-                       beta2: float = 0.999, eps: float = 1e-8) -> Quad:
+                       beta2: float = 0.999, eps: float = 1e-8,
+                       planes=None, decay=None) -> Quad:
     """The plain chain for CPU tensors, the kernel for CUDA tensors."""
     args = (p, g, m, v, shift, lr_eff, decay_amt, seed0, seed1, beta1,
             beta2, eps)
     if p.device.type == "cpu":
-        return fused_adamw_reference(*args)
+        return fused_adamw_reference(*args, planes=planes, decay=decay)
     if p.device.type != "cuda":
         raise ValueError(f"fused_adamw_update: no kernel for {p.device}")
-    return fused_adamw_cuda(*args)
+    return fused_adamw_cuda(*args, planes=planes, decay=decay)

@@ -16,11 +16,12 @@ Port of ``sdxl_training_improvements_tpu/ops/groupnorm.py``:
   ``_gn_apply_kernel`` (``:161``), and returns the statistics too.  The
   backward has no Pallas counterpart: JAX's ``_fused_bwd`` (``:251``) is
   ``jax.vjp`` of the plain reference.
-* ``GroupNormSiLU`` — the ``torch.autograd.Function`` around the kernels:
-  the forward saves (x, scale, bias, mean, rstd), the backward launches
-  the backward kernel.
-* ``groupnorm_silu`` — the dispatcher: a CPU tensor goes to the plain
-  version, differentiable by autograd; a CUDA tensor to the Function.
+* ``gn_silu_op`` — the operator ``sdxl::gn_silu`` (``torch.library.
+  custom_op``): the forward kernel for a CUDA tensor, the plain version
+  for a CPU tensor, returning (y, mean, rstd); its autograd saves (x,
+  scale, bias, mean, rstd) and runs the backward kernel (a CPU tensor:
+  the plain version's VJP).
+* ``groupnorm_silu`` — the entry point over channels-last [B, ..., C].
 * ``norm_arith_bf16`` — the trace-time switch of the JAX module: with it
   on, a bf16 input keeps the normalize/affine arithmetic in bf16 in the
   plain versions (here and in ``models/layers.py``); the UNet sets it from
@@ -58,6 +59,7 @@ import contextlib
 import contextvars
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -327,37 +329,76 @@ gn_silu_bwd_cuda.launches_by_dtype = collections.Counter()
 gn_silu_bwd_cuda.dy_copies = 0
 
 
-class GroupNormSiLU(torch.autograd.Function):
-    """GN+SiLU on [B, S, C] through the two kernels: the forward saves
-    (x, scale, bias) and the kernel's mean and rstd, the backward launches
-    the backward kernel.  ``gn_silu_fwd_cuda`` and ``gn_silu_bwd_cuda``
-    are looked up at call time, so a test can put the plain versions
-    (``gn_silu_fwd_reference``, ``groupnorm_silu_backward_reference``) in
-    their places."""
+def _uses_kernel(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU tensor (the
+    plain versions); any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"groupnorm_silu: no kernel for {x.device}")
 
-    @staticmethod
-    def forward(ctx, x3, scale, bias, num_groups, eps):
-        y, mean, rstd = gn_silu_fwd_cuda(x3, scale, bias, num_groups, eps)
-        ctx.save_for_backward(x3, scale, bias, mean, rstd)
-        ctx.num_groups = num_groups
-        return y
 
-    @staticmethod
-    def backward(ctx, dy):
-        dx, dscale, dbias = gn_silu_bwd_cuda(dy, *ctx.saved_tensors,
+@torch.library.custom_op("sdxl::gn_silu", mutates_args=())
+def gn_silu_op(x3: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float, bf16_interior: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GN+SiLU of [B, S, C] as one operator: (y, mean, rstd [B, G] fp32).
+    A CUDA tensor launches the forward kernel (``gn_silu_fwd_cuda``, looked
+    up at call time, so a test can put the plain version in its place); a
+    CPU tensor takes the plain version, with the bf16 interior when
+    ``bf16_interior`` (the caller's ``norm_arith_bf16``).  Being one
+    operator is what lets a remat policy save y (``models/unet.py``): the
+    policy sees each operator as it dispatches, and a launch through
+    ctypes is none."""
+    if _uses_kernel(x3):
+        return gn_silu_fwd_cuda(x3, scale, bias, num_groups, eps)
+    with norm_arith_bf16(bf16_interior):
+        y = groupnorm_silu_reference(x3, scale, bias, num_groups, eps)
+    return (y, *group_stats_reference(x3, num_groups, eps))
+
+
+@gn_silu_op.register_fake
+def _(x3, scale, bias, num_groups, eps, bf16_interior):
+    stats = x3.new_empty((x3.shape[0], num_groups), dtype=torch.float32)
+    return torch.empty_like(x3), stats, torch.empty_like(stats)
+
+
+def _gn_silu_setup(ctx, inputs, output):
+    x3, scale, bias, num_groups, eps, bf16_interior = inputs
+    ctx.save_for_backward(x3, scale, bias, output[1], output[2])
+    ctx.set_materialize_grads(False)  # no zero gradients for mean, rstd
+    ctx.num_groups, ctx.eps, ctx.bf16_interior = (num_groups, eps,
+                                                  bf16_interior)
+
+
+def _gn_silu_backward(ctx, dy, _dmean, _drstd):
+    """The backward kernel for CUDA tensors; for CPU tensors the VJP of
+    the plain version (what JAX's ``_fused_bwd`` is), recomputed here, so
+    the CPU gradients are autograd's through the plain ops."""
+    x3, scale, bias, mean, rstd = ctx.saved_tensors
+    if _uses_kernel(x3):
+        dx, dscale, dbias = gn_silu_bwd_cuda(dy, x3, scale, bias, mean, rstd,
                                              ctx.num_groups)
-        return dx, dscale, dbias, None, None
+    else:
+        with torch.enable_grad(), norm_arith_bf16(ctx.bf16_interior):
+            xs = [t.detach().requires_grad_() for t in (x3, scale, bias)]
+            y = groupnorm_silu_reference(*xs, ctx.num_groups, ctx.eps)
+            dx, dscale, dbias = torch.autograd.grad(y, xs, dy)
+    return dx, dscale, dbias, None, None, None
+
+
+torch.library.register_autograd("sdxl::gn_silu", _gn_silu_backward,
+                                setup_context=_gn_silu_setup)
 
 
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """Dispatcher over channels-last [B, ..., C]: the plain version for a
-    CPU tensor, the CUDA kernels (through ``GroupNormSiLU``) for a CUDA
-    tensor; both carry the gradient."""
-    if x.device.type == "cpu":
-        return groupnorm_silu_reference(x, scale, bias, num_groups, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"groupnorm_silu: no kernel for {x.device}")
+    """GN+SiLU over channels-last [B, ..., C] through ``gn_silu_op``: the
+    kernels for a CUDA tensor, the plain version for a CPU tensor; both
+    carry the gradient; any other device raises."""
+    _uses_kernel(x)
     x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-    return GroupNormSiLU.apply(x3, scale, bias, num_groups,
-                               eps).reshape(x.shape)
+    y, _, _ = gn_silu_op(x3, scale, bias, num_groups, eps,
+                         norm_arith_bf16_enabled())
+    return y.reshape(x.shape)

@@ -240,7 +240,8 @@ def _flatten_opt(opt, prefix: str, tensors: Dict[str, torch.Tensor]
     (``<prefix>.<field>.<name>``), an int8 moment's codes and scale
     (``...<name>.q`` / ``.s``) or a tuple of matrices (``...<name>.<i>``,
     SOAP's, (0, 0) placeholders included); a dataclass field (EMA's inner
-    state) nests; generators and ints go to the JSON."""
+    state) nests; generators (a missing one as null), ints and strings
+    (the bf16 AdamW's layout) go to the JSON."""
     fields = {}
     for f in dataclasses.fields(opt):
         value = getattr(opt, f.name)
@@ -263,7 +264,7 @@ def _flatten_opt(opt, prefix: str, tensors: Dict[str, torch.Tensor]
                               "fields": _flatten_opt(value, key, tensors)}
         elif isinstance(value, torch.Generator):
             fields[f.name] = {"generator": _generator_state(value)}
-        elif isinstance(value, int):
+        elif isinstance(value, (int, str)) or value is None:
             fields[f.name] = value
         else:
             raise TypeError(f"optimizer state field {f.name!r} of type "
@@ -287,6 +288,20 @@ def flatten_train_state(state) -> Tuple[Dict[str, torch.Tensor], dict]:
     return tensors, meta
 
 
+def _layouts(opt, fields: dict, where: str = "opt"):
+    """The first (saved, run's) pair of differing ``layout`` fields, with
+    where they are, or None."""
+    for name, value in fields.items():
+        if isinstance(value, dict) and "fields" in value:
+            inner = _layouts(getattr(opt, name, None), value["fields"],
+                             f"{where}.{name}")
+            if inner:
+                return inner
+        elif name == "layout" and value != getattr(opt, name, None):
+            return value, getattr(opt, name, None), f"{where}.{name}"
+    return None
+
+
 def _restore_fields(opt, fields: dict) -> None:
     for name, value in fields.items():
         if isinstance(value, dict) and "fields" in value:
@@ -298,6 +313,11 @@ def _restore_fields(opt, fields: dict) -> None:
             _restore_fields(inner, value["fields"])
         elif isinstance(value, dict):
             _set_generator_state(getattr(opt, name), value["generator"])
+        elif value is None or getattr(opt, name) is None:
+            if (value is None) != (getattr(opt, name) is None):
+                raise ValueError(f"checkpoint optimizer field {name!r} is "
+                                 f"{value!r}, the run's "
+                                 f"{getattr(opt, name)!r}")
         else:
             setattr(opt, name, value)
 
@@ -317,6 +337,14 @@ def _write_state(ckpt_dir: Path, tensors: Mapping[str, torch.Tensor],
     shutil.rmtree(old, ignore_errors=True)
 
 
+def _settle_host_copies() -> None:
+    """Wait for the card's asynchronous copies into host memory (the
+    host-streamed optimizer state's, ``core/offload.py``) before the host
+    reads or writes those tensors."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
 def save_train_state(ckpt_dir, state, config=None,
                      blocking: bool = True) -> int:
     """Save ``state`` (a ``TrainState``) under ``ckpt_dir/state``; returns
@@ -329,6 +357,7 @@ def save_train_state(ckpt_dir, state, config=None,
     ``wait_for_saves`` before reading the checkpoint back or exiting."""
     ckpt_dir = Path(ckpt_dir).absolute()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
+    _settle_host_copies()
     tensors, meta = flatten_train_state(state)
     nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
     if config is not None:
@@ -353,9 +382,18 @@ def restore_train_state(ckpt_dir, template_state):
     tensor of the template must be in the file with its shape and dtype,
     and nothing else."""
     wait_for_saves()  # a just-issued save of this directory commits first
+    _settle_host_copies()
     sdir = Path(ckpt_dir).absolute() / "state"
     meta = json.loads((sdir / STATE_META).read_text())
     tensors, _ = flatten_train_state(template_state)
+    layouts = _layouts(template_state.opt_state,
+                       meta.get("optimizer_fields", {}))
+    if layouts:
+        raise ValueError(
+            f"{sdir} holds optimizer state of layout {layouts[0]!r} "
+            f"({layouts[2]}); this run's is {layouts[1]!r} "
+            "(tpu.flat_optimizer): a state does not resume under another "
+            "layout")
     saved = W.read_safetensors(sdir / STATE_TENSORS)
     if set(saved) != set(tensors) or meta["optimizer"] != type(
             template_state.opt_state).__name__:

@@ -4,16 +4,18 @@ Port of ``sdxl_training_improvements_tpu/training/optimizers/__init__.py``
 (``make_optimizer``, ``_make_base``):
 
 * ``adamw_bf16``                -> bf16 AdamW with stochastic rounding
-  (per-leaf layout, hash noise; bf16 or int8 moments)
+  (per-leaf or flat layout, hash or rbg noise, bf16 or int8 moments,
+  resident or host-streamed state)
 * ``adamw_schedule_free_kahan`` -> schedule-free AdamW with Kahan summation
 * ``soap``                      -> SOAP (Adam in Shampoo's eigenbasis)
 * ``adamw``                     -> plain ``optax.adamw`` (fp32 baseline)
 
 ``training.ema_decay`` wraps any of them in the fp32 weight EMA, except
-schedule-free, which is refused as in JAX.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP item: the host-streamed state
-(``shift_host`` / ``moments_host``), ``sr_noise="rbg"`` and
-``tpu.flat_optimizer="on"``.
+schedule-free, which is refused as in JAX.  ``tpu.flat_optimizer``
+resolves as JAX's ``resolve_flat_state`` does ("auto" and "off": per-leaf,
+"on": flat, refused under model sharding), and ``tpu.sr_noise`` picks the
+noise (None without a ``tpu`` section: JAX's per-layout default).
+Host-streamed state is refused under ``tpu.shard_params``, as in JAX.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ __all__ = ["AdamW", "AdamWState", "AdamWBF16", "AdamWBF16State",
            "AdamWScheduleFreeKahan", "ScheduleFreeKahanState", "SOAP",
            "SOAPState", "EMA", "EMAState", "DECAY_THRESHOLD",
            "ema_eval_params", "unwrap_ema", "with_ema",
-           "schedule_free_eval_params", "make_optimizer"]
+           "schedule_free_eval_params", "make_optimizer",
+           "resolve_flat_state"]
 
 
 def make_optimizer(config):
@@ -57,8 +60,36 @@ def make_optimizer(config):
             "(its x sequence is the shipped model, recovered at export); an "
             "EMA of the y training iterate would shadow that recovery with "
             "ill-defined weights. Disable one of the two.")
+    if (getattr(oc, "shift_host", False)
+            or getattr(oc, "moments_host", False)) and getattr(
+            tpu, "shard_params", False):
+        raise ValueError(
+            "optimizer.shift_host/moments_host cannot be combined with "
+            "tpu.shard_params: host-streamed state is a single-chip 16 GB "
+            "memory plan; on a sharded mesh the optimizer state is already "
+            "ZeRO-partitioned across chips. Disable one of the two.")
     base = _make_base(oc, tpu, kind)
     return with_ema(base, decay=ema_decay) if ema_decay else base
+
+
+def resolve_flat_state(tpu_cfg) -> bool:
+    """JAX ``resolve_flat_state``: ``tpu.flat_optimizer`` "on" (or
+    "true") is the flat layout, "auto" and "off" per-leaf; "on" is refused
+    under model sharding (``tpu.shard_params`` or a tensor mesh axis)."""
+    if tpu_cfg is None:
+        return False
+    choice = str(getattr(tpu_cfg, "flat_optimizer", "off")).lower()
+    if choice not in ("on", "true"):
+        return False
+    mesh_shape = getattr(tpu_cfg, "mesh_shape", None)
+    tensor_sharded = bool(mesh_shape) and len(mesh_shape) >= 3 \
+        and mesh_shape[2] > 1
+    if getattr(tpu_cfg, "shard_params", False) or tensor_sharded:
+        raise ValueError(
+            "tpu.flat_optimizer=on cannot be combined with model sharding "
+            "(tpu.shard_params / a tensor mesh axis): the per-leaf sharding "
+            "rules do not apply to flat buffers.")
+    return True
 
 
 def _make_base(oc, tpu, kind: str):
@@ -78,20 +109,7 @@ def _make_base(oc, tpu, kind: str):
                     precondition_1d=oc.precondition_1d,
                     normalize_grads=oc.normalize_grads,
                     correct_bias=oc.correct_bias)
-    if oc.shift_host or oc.moments_host:
-        raise NotImplementedError(
-            "optimizer.shift_host/moments_host: host-streamed optimizer "
-            "state is a 16 GB-chip memory plan with no counterpart on the "
-            "80 GB card (ROADMAP, not ported)")
-    if tpu is not None and str(tpu.flat_optimizer).lower() in ("on", "true"):
-        raise NotImplementedError(
-            "tpu.flat_optimizer (the flat/stacked/hybrid layouts) is not "
-            "ported yet (ROADMAP queue 1, item 7)")
-    # JAX's per-leaf layout draws "rbg" planes unless tpu.sr_noise says
-    noise = tpu.sr_noise if tpu is not None else "rbg"
-    if noise != "hash":
-        raise NotImplementedError(
-            f"sr_noise {noise!r} is not ported yet (ROADMAP queue 1, "
-            "item 7)")
-    return AdamWBF16(**common,
-                     moments="int8" if oc.moments_8bit else "bf16")
+    return AdamWBF16(**common, flat_state=resolve_flat_state(tpu),
+                     noise=getattr(tpu, "sr_noise", None),
+                     moments="int8" if oc.moments_8bit else "bf16",
+                     shift_host=oc.shift_host, moments_host=oc.moments_host)

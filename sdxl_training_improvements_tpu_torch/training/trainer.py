@@ -23,8 +23,10 @@ argument of the step, not part of the state: its tensors are set to
 ``requires_grad=False``, are not copied and have no optimizer state; the
 step hands them to ``unet_apply(params, *args, base_params=...,
 seed=...)``, whose first argument is the trainable tree (LoRA's pairs)
-and ``seed`` the micro-batch's seed (LoRA's dropout masks).  Not ported
-here: meshes and host-streamed state (ROADMAP queue 1).
+and ``seed`` the micro-batch's seed (LoRA's dropout masks).  The
+host-streamed optimizer state lives in the optimizer
+(``optimizers/adamw_bf16.py``).  Not ported here: meshes (ROADMAP queue
+1, item 14).
 """
 from __future__ import annotations
 

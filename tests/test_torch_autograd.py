@@ -1,15 +1,16 @@
 """PyTorch port: gradients flow through the kernel paths.
 
 The kernels' outputs are fresh tensors written through ctypes or Triton;
-without a ``torch.autograd.Function`` around them the graph is cut and
-``backward`` leaves the attention projections and every GroupNorm+SiLU
-weight without a gradient, silently.  Here the two Functions run on CPU
-tensors with the plain versions in the kernels' places (monkeypatched in
-the test; the package has no switch) and their gradients are held against
-autograd through the plain path in fp32: rtol 2e-4 / atol 2e-5.  Then every
-UNet parameter of the tiny model gets a finite gradient through one
+without an autograd formula around them the graph is cut and ``backward``
+leaves the attention projections and every GroupNorm+SiLU weight without a
+gradient, silently.  Here the two operators (``sdxl::flash_attn``,
+``sdxl::gn_silu``) take their kernel branch on CPU tensors, with the plain
+versions in the kernels' places (both monkeypatched in the test; the
+package has no switch), and their gradients are held against autograd
+through the plain path in fp32: rtol 2e-4 / atol 2e-5.  Then every UNet
+parameter of the tiny model gets a finite gradient through one
 ``ddpm_loss`` backward, with and without remat, and with the UNet's
-attention and GroupNorm+SiLU sites routed through the two Functions as on
+attention and GroupNorm+SiLU sites on the operators' kernel branches as on
 the card; remat changes no gradient.  Last, the bf16 norm interior
 (``norm_arith_bf16``) against the JAX package's, at bf16 precision.
 """
@@ -50,12 +51,20 @@ def _grads(fn, leaves, cot):
     return out
 
 
-@pytest.mark.parametrize("s,t", [(64, 64), (50, 77)])
-def test_flash_function_gradients_match_plain_autograd(monkeypatch, s, t):
+def _flash_plain_kernels(monkeypatch):
+    """The flash operator's kernel branch on CPU tensors, with the plain
+    versions in the kernels' places, looked up at call time as on the
+    card."""
+    monkeypatch.setattr(TF, "_uses_kernel", lambda x: True)
     monkeypatch.setattr(TF, "flash_attention_fwd_cuda",
                         TF.flash_attention_fwd_reference)
     monkeypatch.setattr(TF, "flash_attention_bwd_cuda",
                         TF.flash_attention_bwd_reference)
+
+
+@pytest.mark.parametrize("s,t", [(64, 64), (50, 77)])
+def test_flash_function_gradients_match_plain_autograd(monkeypatch, s, t):
+    _flash_plain_kernels(monkeypatch)
     leaves = _leaves((2, s, 3, 16), (2, t, 3, 16), (2, t, 3, 16))
     cot = torch.randn(2, s, 3, 16, generator=torch.Generator().manual_seed(1))
     got = _grads(TF.flash_attention, leaves, cot)
@@ -65,8 +74,10 @@ def test_flash_function_gradients_match_plain_autograd(monkeypatch, s, t):
 
 
 def _gn_plain_kernels(monkeypatch):
-    """The GN+SiLU Function's two kernels replaced by their plain
-    versions, looked up at call time as on the card."""
+    """The GN+SiLU operator's kernel branch on CPU tensors, its two
+    kernels replaced by their plain versions, looked up at call time as on
+    the card."""
+    monkeypatch.setattr(TG, "_uses_kernel", lambda x: True)
     monkeypatch.setattr(TG, "gn_silu_fwd_cuda", TG.gn_silu_fwd_reference)
     monkeypatch.setattr(TG, "gn_silu_bwd_cuda",
                         TG.groupnorm_silu_backward_reference)
@@ -76,7 +87,7 @@ def test_gn_silu_function_gradients_match_plain_autograd(monkeypatch):
     _gn_plain_kernels(monkeypatch)
     x, scale, bias = _leaves((2, 48, 64), (64,), (64,), seed=2)
     cot = torch.randn(2, 48, 64, generator=torch.Generator().manual_seed(3))
-    got = _grads(lambda *a: TG.GroupNormSiLU.apply(*a, 32, 1e-5),
+    got = _grads(lambda *a: TG.groupnorm_silu(*a, 32, 1e-5),
                  [x, scale, bias], cot)
     ref = _grads(lambda *a: TG.groupnorm_silu_reference(*a, 32, 1e-5),
                  [x, scale, bias], cot)
@@ -89,7 +100,7 @@ def test_gn_silu_function_gradients_match_plain_autograd(monkeypatch):
                                          ((2, 16, 320), torch.bfloat16)])
 def test_gn_silu_function_through_both_plain_versions(monkeypatch, shape,
                                                       dtype):
-    """The Function with the forward's plain (y, mean, rstd) and the
+    """The operator with the forward's plain (y, mean, rstd) and the
     closed-form backward in the kernels' places gives autograd's
     gradients of the fp32 plain version (a bf16 x: dx rounded to bf16,
     within 2e-2 of max |dx|)."""
@@ -98,7 +109,7 @@ def test_gn_silu_function_through_both_plain_versions(monkeypatch, shape,
     x, scale, bias = _leaves(shape, (c,), (c,), seed=6)
     cot = torch.randn(shape, generator=torch.Generator().manual_seed(7))
     xd = x.detach().to(dtype).requires_grad_()
-    got = _grads(lambda *a: TG.GroupNormSiLU.apply(*a, 32, 1e-5).float(),
+    got = _grads(lambda *a: TG.groupnorm_silu(*a, 32, 1e-5).float(),
                  [xd, scale, bias], cot)
     ref = _grads(lambda *a: TG.groupnorm_silu_reference(*a, 32, 1e-5),
                  [xd.detach().float().requires_grad_(), scale, bias], cot)
@@ -111,20 +122,11 @@ def test_gn_silu_function_through_both_plain_versions(monkeypatch, shape,
 
 
 def _through_functions(monkeypatch):
-    """Route the UNet's kernel sites through the autograd Functions, as a
-    CUDA tensor is, with the plain versions in the kernels' places."""
-    monkeypatch.setattr(TF, "flash_attention_fwd_cuda",
-                        TF.flash_attention_fwd_reference)
-    monkeypatch.setattr(TF, "flash_attention_bwd_cuda",
-                        TF.flash_attention_bwd_reference)
+    """Route the UNet's kernel sites through the operators' kernel
+    branches, as a CUDA tensor is, with the plain versions in the kernels'
+    places."""
+    _flash_plain_kernels(monkeypatch)
     _gn_plain_kernels(monkeypatch)
-    monkeypatch.setattr(TL, "dot_product_attention", TF.flash_attention)
-
-    def gn_silu(x, scale, bias, groups, eps):
-        x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-        return TG.GroupNormSiLU.apply(x3, scale, bias, groups,
-                                      eps).reshape(x.shape)
-    monkeypatch.setattr(TL, "groupnorm_silu", gn_silu)
 
 
 def _tiny_loss_grads(remat: bool):

@@ -132,7 +132,8 @@ def test_adamw_chain_bit_exact_vs_jax_hash():
     params_np, grads_np = _leaves()
     jparams = _jax_tree(params_np)
     jstate = jopt.init(jparams)
-    port = AdamWBF16(lr=kw["lr"], weight_decay=kw["weight_decay"])
+    port = AdamWBF16(lr=kw["lr"], weight_decay=kw["weight_decay"],
+                     noise="hash")
     tstate = from_jax_opt_state(jax.tree_util.tree_map(
         np.asarray, jstate._replace(key=None)))
     tparams = {f"{k}.bias": _bf16(v) if k.endswith("bf16")
@@ -272,31 +273,35 @@ def test_channels_last_leaf_noise_follows_memory_order():
 @pytest.mark.parametrize("section,key,value,builds", [
     ("optimizer", "optimizer_type", "soap", SOAP),
     ("optimizer", "moments_8bit", True, AdamWBF16),
-    ("optimizer", "shift_host", True, NotImplementedError),
+    ("optimizer", "shift_host", True, AdamWBF16),
     ("training", "ema_decay", 0.999, EMA),
-    ("tpu", "sr_noise", "rbg", NotImplementedError),
-    ("tpu", "flat_optimizer", "on", NotImplementedError),
+    ("tpu", "sr_noise", "rbg", AdamWBF16),
+    ("tpu", "flat_optimizer", "on", AdamWBF16),
     ("optimizer", "optimizer_type", "adamw_schedule_free_kahan",
      AdamWScheduleFreeKahan),
-    ("optimizer", "moments_host", True, NotImplementedError),
+    ("optimizer", "moments_host", True, AdamWBF16),
 ])
 def test_make_optimizer_refuses_what_is_not_ported(section, key, value,
                                                    builds):
-    """What is not ported raises naming its ROADMAP item; SOAP, int8
-    moments, EMA and schedule-free, refused until they were ported, now
-    build (each a positive case in its old place)."""
+    """Every setting that was refused until it was ported now builds, each
+    a positive case in its old place: SOAP, int8 moments, EMA and
+    schedule-free, and (since the layouts, the rbg noise and the
+    host-streamed state were ported) shift_host, moments_host,
+    sr_noise rbg and flat_optimizer on."""
     cfg = Config()
     setattr(getattr(cfg, section), key, value)
-    if builds is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_optimizer(cfg)
-        return
     opt = make_optimizer(cfg)
     assert type(opt) is builds
     if key == "moments_8bit":
         assert opt.moments == "int8"
     if key == "ema_decay":
         assert opt.decay == 0.999 and type(opt.inner) is AdamWBF16
+    if key in ("shift_host", "moments_host"):
+        assert getattr(opt, key) and opt.layout == "per_leaf"
+    if key == "sr_noise":
+        assert opt.noise == "rbg"
+    if key == "flat_optimizer":
+        assert opt.layout == "flat" and opt.noise == "hash"
 
 
 @pytest.mark.parametrize("kind", ["adamw_bf16", "int8", "adamw",

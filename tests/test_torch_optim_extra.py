@@ -233,7 +233,7 @@ def test_int8_moments_adamw_bf16_matches_jax_hash():
     jparams = _jax_tree(params_np)
     jstate = jopt.init(jparams)
     port = AdamWBF16(lr=kw["lr"], weight_decay=kw["weight_decay"],
-                     moments="int8")
+                     moments="int8", noise="hash")
     tparams = _port_tree(params_np)
     tstate = from_jax_opt_state(_host(jstate._replace(key=None)))
     fresh = port.init(tparams)
@@ -355,7 +355,7 @@ def test_ema_matches_jax(inner):
     params_np, grads_np = _leaves(seed=3)
     if inner == "adamw_bf16":
         jinner = jax_adamw_bf16(lr=1e-3, weight_decay=0.5, noise="hash")
-        tinner = AdamWBF16(lr=1e-3, weight_decay=0.5)
+        tinner = AdamWBF16(lr=1e-3, weight_decay=0.5, noise="hash")
     else:
         params_np = {k.replace("bf16", "f32x"): v
                      for k, v in params_np.items()}
