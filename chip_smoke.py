@@ -18,7 +18,11 @@ Phases, each printing what it found:
    second launch bit-equal to the first; each serving attention site
    reported in the kernel line's ``sites``), the flash backward (dq and
    dk/dv, bit-equal on a second launch), the fused bf16-SR AdamW
-   (``torch.equal`` to plain) and the startup probe; the flash kernels of
+   (``torch.equal`` to plain; also the second half of a [10240, 1280]
+   leaf at element base n/2, a ZeRO chunk, under hash and rbg noise,
+   ``torch.equal`` to the whole leaf's second half, and timed) and the
+   startup
+   probe; the flash kernels of
    the other precisions, fp16 (the Hopper kernels' second instantiation)
    and fp32 (``csrc/flash_f32.cu`` forward, ``csrc/flash_bwd_f32.cu``
    backward, both split-TF32 wgmma), at the four serving sites and, for
@@ -39,7 +43,9 @@ Phases, each printing what it found:
    1024^2, adamw_bf16 with hash noise, remat "full") through
    ``make_optimizer`` -> ``make_train_step`` -> ``create_train_state`` ->
    3 steps on the full-width UNet, with the loss, grad norm, step-time
-   split, peak memory, one profiled step and the kernels' launches;
+   split, peak memory, one profiled step and the kernels' launches; its
+   batch, losses, grad norms and parameter digests are kept for phase
+   15;
 7. training parity: one forward and backward at batch 1, 1024^2, through
    the kernels and through the plain versions: loss and the relative L2
    of all gradients;
@@ -77,7 +83,7 @@ Phases, each printing what it found:
    step's loss read after the run, steps 3-4 timed as one window between
    two synchronizes, steps 5-6 profiled for device time and idle share,
    peak memory, launches); then, on run A's model, the precompute's rate
-   over 256 PNGs through the trainer's own precompute, one image of each
+   over 64 PNGs through the trainer's own precompute, one image of each
    size through the fp32 VAE kernels against plain, a b1 forward and
    backward on the 1216x832 bucket's cache entry through the kernels
    against plain, and the convolutions' device time with cuDNN's
@@ -138,9 +144,10 @@ Phases, each printing what it found:
    every remat policy of ``models/unet.py``: one forward and backward at
    fixed noise and timesteps under cuDNN's deterministic algorithms,
    whose gradients must be ``torch.equal`` to "full"'s (or within phase
-   7's bar, said so), its peak GiB and the GiB of the outputs it keeps,
-   then one profiled train step a policy on one warm train state (device
-   ms, idle share, launches, peak GiB); (14b) the bf16 AdamW under each
+   7's bar, said so), the UNet kernels launched in it, its peak GiB and
+   the GiB of the outputs it keeps, then one profiled train step for
+   "full", "dots" and "dots_small" on one warm train state (device ms,
+   idle share, launches, peak GiB); (14b) the bf16 AdamW under each
    layout (per-leaf hash and rbg, flat, hybrid, stacked): two steps, the
    optimizer's ms by CUDA events, kernel #7's launches a step by
    variant, state and peak GiB; then, the model freed, #7's rbg variant
@@ -155,7 +162,22 @@ Phases, each printing what it found:
    (none) and on the host (pinned), peak GiB, launches; the streamed
    update against the copies alone and the resident update (the share of
    the copy time hidden); then 1 epoch with the final checkpoint and
-   ``--resume``, ``torch.equal`` to the uninterrupted run.
+   ``--resume``, ``torch.equal`` to the uninterrupted run;
+15. training over several cards, after phase 14: W ranks (the cards
+   shown, 1, 2 or 4), each a process of this script (``--phase15-rank
+   DIR``) joined through JAX's env triple on NCCL: (15a)
+   ``parallel/dryrun.dryrun_multichip(W)`` at tiny shapes; (15b) the
+   default ``Config()`` model on mesh [W,1,1] and on [1,W,1] with
+   ``shard_params``, 3 steps each on phase 6's batch (one card: losses,
+   grad norms and parameter digests equal to phase 6's; more: JAX's
+   bars), with each rank's step device ms, NCCL kernels' device ms,
+   peak and optimizer-state GiB and #7 launches a step beside the
+   card's name and power limit; (15c) ``main.main`` on phase 11's recipe
+   and cuts with the partitioned cache, mesh [1,W,1], ``shard_params``
+   and W-row micro-batches: 2 epochs, then 1 with the final checkpoint
+   and ``--resume``, ``torch.equal`` to the uninterrupted run on the
+   card, each rank's cache under ``host-NNN`` (one rank: the plain cache,
+   as JAX's).
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (``launches``: the sum over the main paths, ``launches_by_path``:
@@ -814,6 +836,68 @@ def _adamw_case(shape, channels_last, g_dtype, fires, gen):
     return res
 
 
+def _adamw_base_case(gen) -> dict:
+    """Kernel #7 on the second half of a [10240, 1280] leaf at element base
+    n/2 (the chunk that rank 1 of an fsdp axis of 2 updates): under hash
+    and rbg noise, ``torch.equal`` in every output to the second half of
+    the whole leaf's plain update and to its own plain version at that
+    base (rbg: the second half of the leaf's planes)."""
+    from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
+    shape = (10240, 1280)
+
+    def randn(scale):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    p, g, m = randn(0.05).bfloat16(), randn(1e-3), randn(1e-4).bfloat16()
+    v = (1e-8 * randn(1.0).square()).bfloat16()
+    shift = randn(1e-7).bfloat16()
+    n = p.numel()
+    half = n // 2
+    planes = O.draw_planes(n, gen)
+
+    def part(x):
+        return x.reshape(-1)[half:]
+    res = {}
+    for noise in ("hash", "rbg"):
+        kw = dict(lr_eff=1e-4 * (1 - 0.999 ** 3) ** 0.5, decay_amt=5.02e-3,
+                  seed0=0x9E3779B9, seed1=0x7F4A7C15,
+                  planes=planes if noise == "rbg" else None)
+        whole = [part(x) for x in O.fused_adamw_reference(
+            p, g, m, v, shift, **kw)]
+        ckw = dict(kw, base=half, planes=(
+            planes[:, half:].contiguous() if noise == "rbg" else None))
+        plain = O.fused_adamw_reference(*map(part, (p, g, m, v, shift)),
+                                        **ckw)
+        got = O.fused_adamw_cuda(part(p), part(g), part(m).clone(),
+                                 part(v).clone(), part(shift).clone(), **ckw)
+        names = ("delta", "m", "v", "shift")
+        equal = {k: torch.equal(a, w) and torch.equal(a, b)
+                 for k, a, w, b in zip(names, got, whole, plain)}
+        err = max((a.float() - w.float()).abs().max().item()
+                  for a, w in zip(got, whole))
+        # the chunk's launch times the instantiation with the base (hash:
+        # its own, ``kBase``); bytes as _adamw_case's, rbg + 8 of planes
+        chunk = [part(x).clone() for x in (m, v, shift)]
+        args = (part(p), part(g), *chunk)
+        moved = (16 + 4 + (8 if noise == "rbg" else 0)) * (n - half)
+        res[noise] = dict(
+            equal=all(equal.values()), err=err,
+            ms=time_ms(lambda: O.fused_adamw_cuda(*args, **ckw)),
+            device_ms=device_ms(lambda: O.fused_adamw_cuda(*args, **ckw)),
+            bound_ms=bound(OPS_PER_ELEMENT["fused_adamw"] * (n - half),
+                           moved, PEAK_FP32)[0])
+        log(f"fused_adamw {noise} at base n/2 (the second half of "
+            f"{list(shape)}): torch.equal to the whole leaf's update and to "
+            f"plain {equal}, max_abs_err {err:.3e}; kernel "
+            f"{res[noise]['ms']:.4f} ms (device "
+            f"{fmt_ms(res[noise]['device_ms'])}; bound "
+            f"{res[noise]['bound_ms']:.4f} ms)")
+        check(res[noise]["equal"], f"fused_adamw {noise} at base n/2: "
+              f"not equal {equal}")
+        del whole, plain, got, chunk, args
+    return res
+
+
 def _probe_case():
     from sdxl_training_improvements_tpu_torch.ops import probe as P
     res = P.run_probe()
@@ -848,6 +932,7 @@ def phase_kernels() -> dict:
         flash_bwd=[_flash_bwd_case(*shape, gen)
                    for shape in FLASH_BWD_SHAPES + ENTRY_FLASH_SITES],
         adamw=[_adamw_case(*case, gen) for case in ADAMW_SHAPES],
+        adamw_base=_adamw_base_case(gen),
         probe=_probe_case())
     for dt in FLASH_DTYPES:
         res["flash" + SUFFIX[dt]] = [
@@ -949,6 +1034,7 @@ def _kernel_group(name: str) -> str:
                                                    "flash_f32_dkv")),
                         ("fused_adamw (hand CUDA)", ("fused_adamw",)),
                         ("gn_silu (hand CUDA)", ("gn_silu",)),
+                        ("nccl", ("nccl",)),
                         ("convolution", ("conv", "fprop", "implicit",
                                          "nhwc", "dgrad", "wgrad")),
                         ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
@@ -1785,11 +1871,31 @@ WATCHED = ("mid_block.attentions.0.transformer_blocks.0.attn1.to_q.weight",
            "down_blocks.0.resnets.0.norm1.weight", "conv_norm_out.bias")
 
 
-def phase_train(model, cfg, kernels=TRAIN_KERNELS, size: int = SIZE) -> dict:
+def param_digest(params) -> torch.Tensor:
+    """[leaves, 2] int64 on the host: per leaf (in order), the sum of its
+    elements' bit patterns and their sum weighted by position (1..65521,
+    repeating), over its contiguous copy; two runs that hold the same
+    values hold the same digest."""
+    rows = []
+    for p in params.values():
+        p = p.detach().contiguous()
+        bits = p.view({2: torch.int16, 4: torch.int32}[p.element_size()]
+                      ).reshape(-1).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        rows.append(torch.stack([bits.sum(), (bits * w).sum()]))
+        del bits, w
+    return torch.stack(rows).cpu()
+
+
+def phase_train(model, cfg, kernels=TRAIN_KERNELS, size: int = SIZE,
+                record: Optional[dict] = None) -> dict:
     """The training slice as the JAX entry drives it: ``make_optimizer`` ->
     ``make_train_step`` -> ``create_train_state`` -> ``TRAIN_STEPS`` steps
     at ``cfg``; the last step runs under the profiler.  Every kernel in
-    ``kernels`` must launch in every step."""
+    ``kernels`` must launch in every step.  ``record`` receives what
+    phase 15b holds its mesh steps to: the batch (on the host), the
+    parameters' digests before and after, each step's loss and grad
+    norm."""
     from torch.profiler import ProfilerActivity, profile
 
     from sdxl_training_improvements_tpu_torch.training.optimizers import (
@@ -1821,6 +1927,9 @@ def phase_train(model, cfg, kernels=TRAIN_KERNELS, size: int = SIZE) -> dict:
         f"{state.probe['ms']:.4f} ms, {state.probe['gbps']:.1f} GB/s); "
         f"launches {setup_launches}")
     watched = {k: state.params[k].detach().clone() for k in WATCHED}
+    if record is not None:
+        record.update(batch={k: v.cpu() for k, v in batch.items()},
+                      initial=param_digest(state.params))
     steps = []
     for i in range(TRAIN_STEPS):
         before = _launches(names)
@@ -1866,6 +1975,10 @@ def phase_train(model, cfg, kernels=TRAIN_KERNELS, size: int = SIZE) -> dict:
         f"leaves {changed}")
     check(all(changed.values()), f"parameters did not change: {changed}")
     check(setup_launches["probe"] > 0, "the startup probe did not launch")
+    if record is not None:
+        record.update(final=param_digest(state.params),
+                      losses=[r["loss"] for r in steps],
+                      grad_norms=[r["grad_norm"] for r in steps])
     launches = {k: setup_launches[k] + sum(r["launches"][k] for r in steps)
                 for k in names}
     from sdxl_training_improvements_tpu_torch.ops import groupnorm as G
@@ -2063,9 +2176,10 @@ ENTRY_LATENT_REL_L2_TOL = 1e-3
 ENTRY_EPOCHS = 3  # run A: steps 1-2 meet each bucket shape first
 ENTRY_TIMED = (3, 4)  # run A's steps timed as one window (warm)
 ENTRY_PROFILED = (5, 6)  # and the steps profiled as another
-# the precompute's rate: 16 seeded PNGs (8 at each bucket) copied to 16
-# paths each, every path its own cache entry
-ENTRY_BULK_UNIQUE, ENTRY_BULK_COPIES = 16, 16
+# the precompute's rate: 16 seeded PNGs (8 at each bucket) copied to 4
+# paths each, every path its own cache entry (16 batches of 4; 16 paths
+# each until the script outgrew its time limit)
+ENTRY_BULK_UNIQUE, ENTRY_BULK_COPIES = 16, 4
 
 
 def _entry_config(root: Path, name: str, images: str = "images",
@@ -3155,6 +3269,10 @@ def _tiny_resumes() -> dict:
 
 # ------- phase 14: remat policies, optimizer layouts, host-streamed state
 LAYOUT_STEPS = 2  # the same at each optimizer layout
+# 14a's policies that also take a profiled train step (every policy takes
+# the gradient check): the default, the one that keeps the most, and the
+# one that keeps the least
+PROFILED_14A = ("full", "dots", "dots_small")
 # (layout, noise) of 14b: the default, its rbg twin and the three packings
 LAYOUTS_14B = (("per_leaf", "hash"), ("per_leaf", "rbg"), ("flat", "hash"),
                ("hybrid", "hash"), ("stacked", "hash"))
@@ -3217,9 +3335,10 @@ def phase_remat_policies(model, cfg, batch) -> dict:
     ``Config()`` at b4 1024^2.  Per policy: one forward and backward at
     fixed noise and timesteps (cuDNN deterministic) whose gradients are
     held against "full"'s (``torch.equal``, or within phase 7's bar when
-    not bit-equal, said so), its peak GiB and the GiB its kept outputs
-    take; then, on one train state after a warm step, one profiled train
-    step a policy (device ms, idle share, launches, peak GiB)."""
+    not bit-equal, said so), the UNet kernels' launches in it, its peak
+    GiB and the GiB its kept outputs take; then, on one train state after
+    a warm step, one profiled train step for each of ``PROFILED_14A``
+    (device ms, idle share, launches, peak GiB)."""
     from torch.profiler import ProfilerActivity, profile
 
     from sdxl_training_improvements_tpu_torch.models import unet as U
@@ -3239,13 +3358,18 @@ def phase_remat_policies(model, cfg, batch) -> dict:
     fixed["timesteps"] = torch.tensor([100, 400, 700, 900][:shape[0]],
                                       device=DEVICE)
     params = list(model.unet.parameters())
+    unet_kernels = [k for k in TRAIN_KERNELS if k != "fused_adamw"]
     rows, ref = {}, None
     for name in names:
         _set_policy(model, name)
         _free()
+        before = _launches(unet_kernels)
         loss, grads, kept_gib = _policy_grads(model, cfg, fixed, schedule,
                                               params)
         torch.cuda.synchronize()
+        after = _launches(unet_kernels)
+        for k in unet_kernels:
+            check(after[k] > before[k], f"14a {name}: {k} not launched")
         row = dict(loss=loss.item(), kept_gib=kept_gib,
                    grad_peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
         if ref is None:
@@ -3276,7 +3400,7 @@ def phase_remat_policies(model, cfg, batch) -> dict:
                                seed=cfg.training.seed)
     _zero_launches()
     state, _ = step(state, batch)  # warm: the state's first step
-    for name in names:
+    for name in PROFILED_14A:
         _set_policy(model, name)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3310,8 +3434,9 @@ def phase_remat_policies(model, cfg, batch) -> dict:
     _free()
     log("phase 14a table (policy: device ms a step | peak GiB | kept GiB | "
         "gradients vs full): " + "; ".join(
-            f"{n}: {r['device_ms']:.1f} | {r['peak_gb']:.2f} | "
-            f"{r['kept_gib']:.2f} | "
+            (f"{n}: {r['device_ms']:.1f} | {r['peak_gb']:.2f} | "
+             if "device_ms" in r else f"{n}: not profiled | - | ")
+            + f"{r['kept_gib']:.2f} | "
             f"{'equal' if r['equal'] else 'rel %.2e' % r['rel_l2']}"
             for n, r in rows.items()) + ".  Under the flash kernel no "
         "policy keeps S^2 logits: the attention is one operator, as JAX's "
@@ -3697,6 +3822,330 @@ def phase_training_settings() -> dict:
     return dict(remat=remat, layouts=layouts, checks=checks, host=host)
 
 
+# ---------------------------------------------------------------- phase 15
+# the ranks of phase 15: the cards the machine shows, at most this many
+MULTI_MAX_RANKS = 4
+MULTI_TIMEOUT_S = 600  # a rank that has not finished by then fails it
+MULTI_EPOCHS = 2  # 15c run A; run B takes 1, saves, and resumes for 1
+# JAX's bars for a world of more than one rank (tests/test_trainer.py)
+MULTI_LOSS_RTOL, MULTI_PARAM_ATOL = 2e-4, 2e-4
+
+
+def _nccl_ms(prof) -> float:
+    """Device ms of NCCL's kernels in a profiled window."""
+    return sum(ms for name, ms in _device_events(prof)
+               if "nccl" in name.lower())
+
+
+def _opt_state_gib(state) -> float:
+    from sdxl_training_improvements_tpu_torch.training import checkpoints
+    tensors, _ = checkpoints.flatten_train_state(state)
+    return sum(t.numel() * t.element_size() for k, t in tensors.items()
+               if k.startswith("opt.")) / 2 ** 30
+
+
+def _mesh_steps(model, start, ref, shape, shard, smi) -> dict:
+    """Phase 15b on this rank: the default ``Config()`` on mesh ``shape``
+    from the seeded parameters ``start``, ``TRAIN_STEPS`` steps on phase
+    6's batch; the last under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdxl_training_improvements_tpu_torch.config import Config
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    from sdxl_training_improvements_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from sdxl_training_improvements_tpu_torch.training.schedules import (
+        NoiseSchedule)
+    from sdxl_training_improvements_tpu_torch.training.trainer import (
+        create_train_state, make_train_step, shard_train_state)
+    rank = M.process_index()
+    cfg = Config()
+    cfg.tpu.mesh_shape, cfg.tpu.shard_params = list(shape), shard
+    with torch.no_grad():
+        for k, p in model.trainable_params().items():
+            p.copy_(start[k])
+    batch = {k: v.to(DEVICE) for k, v in ref["batch"].items()}
+    names = TRAIN_KERNELS + ("probe",)
+    _zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = M.create_mesh(shape, device_type=DEVICE)
+    opt = make_optimizer(cfg)
+    step = make_train_step(model.unet_apply, NoiseSchedule.from_config(cfg),
+                           opt, cfg, mesh=mesh)
+    state = shard_train_state(create_train_state(
+        model.trainable_params(), opt, seed=cfg.training.seed), mesh, shard)
+    opt_gib = _opt_state_gib(state)
+    rows = []
+    for i in range(TRAIN_STEPS):
+        before = _launches(names)
+        events: dict = {}
+        profiled = i == TRAIN_STEPS - 1
+        with ExitStack() as stack:
+            if profiled:
+                prof = stack.enter_context(
+                    profile(activities=[ProfilerActivity.CUDA]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, events)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        after = _launches(names)
+        row = dict(loss=metrics["loss"].item(),
+                   grad_norm=metrics["grad_norm"].item(), wall_ms=wall_ms,
+                   step_ms=events["start"].elapsed_time(events["update"]),
+                   launches={k: after[k] - before[k] for k in names})
+        if profiled:
+            row["device_ms"] = sum(ms for _, ms in _device_events(prof))
+            row["nccl_ms"] = _nccl_ms(prof)
+        rows.append(row)
+    launches = _launches(names)
+    out = dict(
+        mesh=list(shape), shard_params=shard,
+        sharded_leaves=len(state.zero.chunks), opt_state_gib=opt_gib,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        losses=[r["loss"] for r in rows],
+        grad_norms=[r["grad_norm"] for r in rows],
+        step_ms=[r["step_ms"] for r in rows],
+        wall_ms=[r["wall_ms"] for r in rows],
+        device_ms=rows[-1]["device_ms"], nccl_ms=rows[-1]["nccl_ms"],
+        adamw_launches_per_step=rows[-1]["launches"]["fused_adamw"],
+        launches=launches)
+    log(f"[rank {rank}] phase 15b mesh {list(shape)} shard_params {shard} "
+        f"({smi}): sharded leaves {out['sharded_leaves']}; step ms (CUDA "
+        f"events) {[round(x, 2) for x in out['step_ms']]}; profiled step "
+        f"device {out['device_ms']:.2f} ms, NCCL kernels "
+        f"{out['nccl_ms']:.3f} ms; #7 launches a step "
+        f"{out['adamw_launches_per_step']}; optimizer state "
+        f"{opt_gib:.3f} GiB; peak {out['peak_gib']:.2f} GiB; losses "
+        f"{out['losses']}; grad norms {out['grad_norms']}")
+    world = M.process_count()
+    if world == 1:  # bit for bit phase 6's meshless steps
+        check(out["losses"] == ref["losses"]
+              and out["grad_norms"] == ref["grad_norms"],
+              f"15b {list(shape)}: losses {out['losses']} / grad norms "
+              f"{out['grad_norms']} are not phase 6's {ref['losses']} / "
+              f"{ref['grad_norms']}")
+        check(torch.equal(param_digest(state.params), ref["final"]),
+              f"15b {list(shape)}: parameters differ from phase 6's")
+    else:  # JAX's bars (tests/test_trainer.py:268-274)
+        for a, b in zip(out["losses"], ref["losses"]):
+            check(abs(a - b) <= MULTI_LOSS_RTOL * abs(b),
+                  f"15b {list(shape)}: loss {a} vs phase 6's {b}")
+    for k in TRAIN_KERNELS + ("probe",):
+        check(launches[k] > 0, f"15b {list(shape)}: kernel {k} was not "
+              "launched")
+    out["params"] = ({k: p.detach().clone() for k, p in state.params.items()}
+                     if world > 1 else None)
+    del state, step, opt
+    return out
+
+
+def _phase15b(work: Path, smi: str) -> dict:
+    """Phase 15b on this rank: the full-width default model, mesh [W,1,1]
+    then [1,W,1] with ``shard_params``."""
+    from sdxl_training_improvements_tpu_torch.config import Config
+    from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
+    from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    world = M.process_count()
+    ref = torch.load(work / "phase6.pt")
+    cfg = Config()
+    model = SDXLModel.create(
+        tiny=False, dtype=torch.bfloat16, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        unet_config=UNetConfig.sdxl(remat=cfg.tpu.remat,
+                                    remat_policy=cfg.tpu.remat_policy))
+    check(torch.equal(param_digest(model.trainable_params()), ref["initial"]),
+          "15b: the seeded parameters differ from phase 6's")
+    start = {k: p.detach().clone()
+             for k, p in model.trainable_params().items()}
+    dp = _mesh_steps(model, start, ref, (world, 1, 1), False, smi)
+    dp_params = dp.pop("params")
+    zero = _mesh_steps(model, start, ref, (1, world, 1), True, smi)
+    zero_params = zero.pop("params")
+    if world > 1:
+        for a, b in zip(zero["losses"], dp["losses"]):
+            check(abs(a - b) <= MULTI_LOSS_RTOL * abs(b),
+                  f"15b: [1,W,1] loss {a} vs [W,1,1] {b}")
+        worst = max((zero_params[k].float() - dp_params[k].float()).abs()
+                    .max().item() for k in dp_params)
+        log(f"[rank {M.process_index()}] 15b [1,{world},1] against "
+            f"[{world},1,1]: max parameter difference {worst:.3e}")
+        check(worst <= MULTI_PARAM_ATOL, f"15b parameters differ by {worst}")
+    del model, start, dp_params, zero_params
+    _free()
+    return dict(dp=dp, zero=zero)
+
+
+def _multi_entry(work: Path, name: str, epochs: int, resume: bool = False,
+                 save: bool = False) -> tuple:
+    """One 15c ``main.main`` run over the ranks: (trainer, steps)."""
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    world = M.process_count()
+    cfg = work / f"{name}.yaml"
+    if M.is_main_process() and not cfg.exists():
+        _entry_config(work, name, num_epochs=epochs, save_every=0,
+                      save_best=False, save_final_model=save, log_every=1)
+        from sdxl_training_improvements_tpu_torch import _yaml
+        raw = _yaml.load_file(cfg)
+        raw["global_config"]["cache"]["partitioned"] = True
+        # phase 11's micro-batches of one row become one row per rank
+        raw["tpu"] = dict(raw.get("tpu") or {}, mesh_shape=[1, world, 1],
+                          shard_params=True, micro_batch_size=world)
+        cfg.write_text(_yaml.dump(raw))
+    M.barrier(f"15c config {name}")
+    argv = ["--config", str(cfg), "--output-dir", str(work / name),
+            "--device", DEVICE]
+    if resume:
+        argv += ["--resume"]
+    trainer, steps, _ = _run_main(argv)
+    return trainer, steps
+
+
+def _phase15c(work: Path, smi: str) -> dict:
+    """Phase 15c on this rank: ``main.main`` on phase 11's recipe and cuts
+    with the partitioned cache over the ranks, mesh [1,W,1] with
+    ``shard_params``: run A ``MULTI_EPOCHS`` epochs; run B 1 epoch with
+    the final checkpoint, then ``--resume`` to the same epoch count."""
+    from sdxl_training_improvements_tpu_torch.core.logging import (
+        cleanup_logging)
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    from sdxl_training_improvements_tpu_torch.training import checkpoints
+    rank, world = M.process_index(), M.process_count()
+    names = ENTRY_KERNELS
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    a, a_steps = _multi_entry(work, "multi_a", MULTI_EPOCHS)
+    launches = _launches(names)
+    ds = a.dataset
+    cache_dir = Path(ds.cache.cache_dir)
+    images = sum(len(v) for v in ds.bucket_indices.values())
+    expect = (work / "cache" / f"host-{rank:03d}" if world > 1
+              else work / "cache")
+    a_tensors, a_meta = checkpoints.flatten_train_state(a.state)
+    a_tensors = {k: v.detach() for k, v in a_tensors.items()}
+    a_step = a.state.step
+    del a
+    cleanup_logging()
+    t1 = time.perf_counter()
+    _multi_entry(work, "multi_b", 1, save=True)
+    cleanup_logging()
+    t2 = time.perf_counter()
+    b, b_steps = _multi_entry(work, "multi_b2", MULTI_EPOCHS, resume=True)
+    t3 = time.perf_counter()
+    b_tensors, b_meta = checkpoints.flatten_train_state(b.state)
+    equal = (set(a_tensors) == set(b_tensors) and a_meta == b_meta
+             and all(torch.equal(a_tensors[k], b_tensors[k])
+                     for k in a_tensors))
+    out = dict(
+        cache_dir=str(cache_dir), images=images,
+        steps=a_step, resumed_losses=[s["loss"] for s in b_steps],
+        losses=[s["loss"] for s in a_steps], resume_equal=equal,
+        launches=launches, run_a_s=t1 - t0, run_b_s=t2 - t1,
+        resume_s=t3 - t2, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"[rank {rank}] phase 15c ({smi}): cache {cache_dir} ({images} "
+        f"images of this rank); run A {a_step} steps in {t1 - t0:.1f} s, "
+        f"losses {out['losses']}; run B 1 epoch + save {t2 - t1:.1f} s, "
+        f"--resume {t3 - t2:.1f} s; resume torch.equal to run A: {equal}; "
+        f"peak {out['peak_gib']:.2f} GiB; run A launches {launches}")
+    check(cache_dir == expect, f"15c: rank {rank}'s cache is {cache_dir}, "
+          f"not {expect}")
+    check(equal, "15c: the resumed run is not torch.equal to run A")
+    for k in names:
+        check(launches[k] > 0, f"15c: kernel {k} was not launched")
+    del b, a_tensors, b_tensors
+    cleanup_logging()
+    _free()
+    return out
+
+
+def _phase15_rank(work: str) -> None:
+    """One rank of phase 15 (``python chip_smoke.py --phase15-rank DIR``
+    under the env triple): 15a, 15b, 15c; its results to
+    ``DIR/rank<r>.json``."""
+    from sdxl_training_improvements_tpu_torch.parallel import dryrun
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    work = Path(work)
+    M.initialize_multihost(DEVICE)
+    rank, world = M.process_index(), M.process_count()
+    smi = (work / "smi.txt").read_text().strip()
+    t0 = time.perf_counter()
+    losses = dryrun.dryrun_multichip(
+        world, DEVICE, log=lambda m: log(f"[rank {rank}] 15a {m}"))
+    t1 = time.perf_counter()
+    steps = _phase15b(work, smi)
+    t2 = time.perf_counter()
+    entry = _phase15c(work, smi)
+    t3 = time.perf_counter()
+    out = dict(rank=rank, world=world, dryrun=losses, **steps, entry=entry,
+               seconds=dict(dryrun=t1 - t0, steps=t2 - t1, entry=t3 - t2))
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    M.barrier("phase 15 done")
+    torch.distributed.destroy_process_group()
+
+
+def phase_multi_card(record: dict, tmp: Path) -> dict:
+    """Phase 15: W ranks (the cards the machine shows, at most
+    ``MULTI_MAX_RANKS``), one process each on NCCL through JAX's env
+    triple: 15a the dry-run matrix, 15b the default ``Config()`` on
+    [W,1,1] and on [1,W,1] with ``shard_params`` (one card:
+    ``torch.equal`` to phase 6), 15c ``main.main`` with the partitioned
+    cache and a bit-equal ``--resume``.  Returns rank 0's results."""
+    import os
+    import socket
+    # a power of two: the global batch of 4 splits evenly over the ranks
+    world = max(w for w in (1, 2, 4) if w <= min(torch.cuda.device_count(),
+                                                  MULTI_MAX_RANKS))
+    work = tmp / "multi"
+    work.mkdir()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    (work / "smi.txt").write_text(smi)
+    torch.save(record, work / "phase6.pt")
+    _entry_images(work / "images")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    log(f"phase 15: {world} rank(s) over NCCL ({smi})")
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}",
+                   SDXL_NUM_PROCESSES=str(world), SDXL_PROCESS_ID=str(r),
+                   LOCAL_RANK=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--phase15-rank",
+             str(work)], env=env))
+    try:
+        for p in procs:
+            left = MULTI_TIMEOUT_S - (time.perf_counter() - t0)
+            p.wait(timeout=max(left, 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    check(all(c == 0 for c in codes), f"phase 15 ranks exited {codes}")
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(world)]
+    for r in ranks:
+        for key in ("dp", "zero"):
+            m = r[key]
+            log(f"phase 15b rank {r['rank']} of {world} mesh {m['mesh']} "
+                f"({smi}): step device {m['device_ms']:.2f} ms, NCCL "
+                f"{m['nccl_ms']:.3f} ms a step, peak {m['peak_gib']:.2f} "
+                f"GiB, optimizer state {m['opt_state_gib']:.3f} GiB, #7 "
+                f"{m['adamw_launches_per_step']} launches a step")
+    log(f"phase 15 wall time {time.perf_counter() - t0:.1f} s (ranks: "
+        f"{[r['seconds'] for r in ranks]})")
+    return ranks[0]
+
+
 # operations per element of the elementwise kernels, on the fp32 units
 # (not the tensor cores): the GN forward (Welford statistics; normalise,
 # affine, SiLU), the GN backward (xhat, z, sigmoid, dz and two sums; then
@@ -3810,7 +4259,8 @@ def kernel_report(k: dict, paths: dict) -> dict:
                     for r in bwd_rows]}
     adamw, adamw_n, probe_n = k["adamw"][1], 10240 * 1280, 4096 * 4096
     measured["fused_adamw"] = (
-        max(r["err"] for r in k["adamw"]), adamw["ms"], adamw["plain_ms"],
+        max([r["err"] for r in k["adamw"]] + [k["adamw_base"]["hash"]["err"]]),
+        adamw["ms"], adamw["plain_ms"],
         "[10240, 1280] bf16, fp32 g",
         bound(OPS_PER_ELEMENT["fused_adamw"] * adamw_n, (16 + 4) * adamw_n,
               PEAK_FP32), (None, None))
@@ -3821,11 +4271,14 @@ def kernel_report(k: dict, paths: dict) -> dict:
         (k["probe"]["library_ms"], "torch.add(1, x, alpha=2)"))
     rbg = k["adamw_rbg"]
     measured["fused_adamw_rbg"] = (
-        max(k["adamw_rbg_errs"]), rbg["ms"], rbg["plain_ms"],
+        max(k["adamw_rbg_errs"] + [k["adamw_base"]["rbg"]["err"]]),
+        rbg["ms"], rbg["plain_ms"],
         "[10240, 1280] bf16, fp32 g, rbg planes", rbg["bound"],
         (None, None))
     device.update({"fused_adamw": adamw["dev"], "fused_adamw_rbg": rbg["dev"],
                    "probe": k["probe"]["dev"]})
+    for name, noise in (("fused_adamw", "hash"), ("fused_adamw_rbg", "rbg")):
+        extra[name] = {"zero_chunk_at_base_n/2": k["adamw_base"][noise]}
     library_device["probe"] = k["probe"]["library_dev"]
     return {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": tpu,
@@ -3870,7 +4323,8 @@ def main() -> None:
         entry_points = phase_serving_entry_points(model, Path(tmp))
         elapsed("phases 10 and 13")
     profile_unet_step(model)
-    train = phase_train(model, cfg)
+    record: dict = {}
+    train = phase_train(model, cfg, record=record)
     phase_train_parity(model, cfg)
     elapsed("phases 6-7")
     del model
@@ -3887,6 +4341,9 @@ def main() -> None:
     elapsed("phases 12b-12e")
     settings = phase_training_settings()
     elapsed("phase 14")
+    with tempfile.TemporaryDirectory() as tmp:
+        multi = phase_multi_card(record, Path(tmp))
+    elapsed("phase 15")
     kernels["adamw_rbg"] = settings["checks"]["leaf"]
     kernels["adamw_rbg_errs"] = [settings["checks"][c]["err"]
                                  for c in ("leaf", "group")]
@@ -3909,7 +4366,12 @@ def main() -> None:
              "optimizer layouts (phase 14b)":
                  settings["layouts"]["launches"],
              "host-streamed state (phase 14c)":
-                 settings["host"]["launches"]}
+                 settings["host"]["launches"],
+             "mesh [W,1,1] (phase 15b, rank 0)": multi["dp"]["launches"],
+             "mesh [1,W,1] + shard_params (phase 15b, rank 0)":
+                 multi["zero"]["launches"],
+             "multi-rank entry point (phase 15c, rank 0)":
+                 multi["entry"]["launches"]}
     log(json.dumps(kernel_report(kernels, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3917,4 +4379,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase15-rank"]:
+        _phase15_rank(sys.argv[2])
+    else:
+        main()

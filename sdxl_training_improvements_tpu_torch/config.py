@@ -156,8 +156,8 @@ class CacheConfig:
     use_cache: bool = True
     cache_latents: bool = True
     cache_text_embeddings: bool = True
-    # one cache per host under <cache_dir>/host-NNN (multi-process runs;
-    # the port runs one process, ROADMAP queue 1 item 14)
+    # one cache per rank under <cache_dir>/host-NNN (multi-process runs:
+    # each rank encodes and reads only its static share of the dataset)
     partitioned: bool = False
 
     @property
@@ -215,9 +215,13 @@ class TagWeightingConfig:
 @dataclass
 class TPUConfig:
     """Device and step settings.  The name and fields are the JAX
-    package's; on the card ``mesh_shape``/``shard_params`` have no
-    counterpart yet (ROADMAP queue 1, item 14: the trainer refuses a mesh
-    of more than one device)."""
+    package's.  On the cards ``mesh_shape`` is [data, fsdp, tensor] over
+    the ranks (one card each, ``parallel/mesh.py``; None: every rank on
+    data) and ``shard_params`` ZeRO-shards the optimizer state, the EMA
+    shadow and the reduced gradients of the large leaves over fsdp
+    (``parallel/zero.py``; the parameters stay whole on every rank, where
+    JAX shards them too).  A tensor axis above 1 is refused (ROADMAP
+    queue 1, item 14b)."""
 
     mesh_shape: Optional[List[int]] = None
     axis_names: List[str] = field(

@@ -1,9 +1,11 @@
 """Unified logging: console + file + wandb + progress + metrics.
 
 A copy of ``sdxl_training_improvements_tpu/core/logging.py`` (numpy and the
-standard library only; the default logger is named ``sdxl_torch`` so the
+standard library; the default logger is named ``sdxl_torch`` so the
 two packages' loggers stay apart in one process), plus one line per
-``log_metrics`` call in the log file (``metrics step=N {json}``, DEBUG).
+``log_metrics`` call in the log file (``metrics step=N {json}``, DEBUG),
+and, in a ``torch.distributed`` process group, warnings only from the
+ranks above 0.
 Functional counterpart of the reference logging stack (``src/core/logging/``
 — ``UnifiedLogger``/``LogManager`` ``core.py:17-333``, ``WandbLogger``
 ``wandb.py:67-322``, ``MetricsTracker`` ``metrics.py``, ``ProgressPredictor``
@@ -28,6 +30,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 # ---------------------------------------------------------------- config
 
@@ -293,20 +296,27 @@ class UnifiedLogger:
         self.logger.handlers.clear()
         self.logger.propagate = False
 
+        # above rank 0 the console shows warnings and errors only, and no
+        # log file or wandb run is written (rank 0 keeps them)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        main = rank == 0
         console = logging.StreamHandler(sys.stderr)
-        console.setLevel(self.config.console_level.upper())
+        level = logging.getLevelName(self.config.console_level.upper())
+        console.setLevel(level if main else max(level, logging.WARNING))
         console.setFormatter(ColoredFormatter(
-            "%(asctime)s | %(levelname)s | %(message)s", "%H:%M:%S"))
+            (f"rank {rank} | " if not main else "")
+            + "%(asctime)s | %(levelname)s | %(message)s", "%H:%M:%S"))
         self.logger.addHandler(console)
 
         log_dir = Path(self.config.log_dir)
         try:
-            log_dir.mkdir(parents=True, exist_ok=True)
-            fh = logging.FileHandler(log_dir / self.config.filename)
-            fh.setLevel(self.config.file_level.upper())
-            fh.setFormatter(logging.Formatter(
-                "%(asctime)s | %(name)s | %(levelname)s | %(message)s"))
-            self.logger.addHandler(fh)
+            if main:
+                log_dir.mkdir(parents=True, exist_ok=True)
+                fh = logging.FileHandler(log_dir / self.config.filename)
+                fh.setLevel(self.config.file_level.upper())
+                fh.setFormatter(logging.Formatter(
+                    "%(asctime)s | %(name)s | %(levelname)s | %(message)s"))
+                self.logger.addHandler(fh)
         except OSError:
             pass
 
@@ -319,7 +329,7 @@ class UnifiedLogger:
         self.wandb = (WandbLogger(self.config.wandb_project,
                                   self.config.wandb_entity,
                                   self.config.wandb_run_name)
-                      if self.config.use_wandb else NullWandb())
+                      if self.config.use_wandb and main else NullWandb())
 
     # standard logger passthrough
     def debug(self, msg, *a, **k): self.logger.debug(msg, *a, **k)

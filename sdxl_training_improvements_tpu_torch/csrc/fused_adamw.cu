@@ -14,9 +14,11 @@
 //   sh = bf16_rn(fma(p', -decay, sh))
 //   delta = bf16_rn(p' - p)
 //
-// with n0 = lowbias32(i ^ seed0), n1 = lowbias32(i ^ seed1) over the
-// element's flat index i in memory order, which is ops/stochastic.py's
-// counter_noise ("hash" noise).  The "rbg" variant (template parameter
+// with n0 = lowbias32(j ^ seed0), n1 = lowbias32(j ^ seed1) over the
+// element's flat index j = base + i in memory order, which is
+// ops/stochastic.py's counter_noise ("hash" noise); base is 0 for a whole
+// leaf and a ZeRO chunk's offset in its leaf, so that the chunks of a
+// sharded leaf draw the whole leaf's noise.  The "rbg" variant (template parameter
 // kPlanes) reads n0 and n1 from two uint32 planes drawn beforehand, n0 =
 // planes[i] and n1 = planes[n + i], as JAX's `_noise_planes` materialises
 // them.  The Pallas kernel draws the TPU's hardware random bits instead;
@@ -92,14 +94,14 @@ __device__ __forceinline__ float load_g<uint16_t>(const uint16_t* g,
   return bf16_to_f32(g[i]);
 }
 
-template <typename G, bool kPlanes>
+template <typename G, bool kPlanes, bool kBase>
 __global__ void __launch_bounds__(kThreads)
 fused_adamw_kernel(const uint16_t* __restrict__ p, const G* __restrict__ g,
                    uint16_t* __restrict__ m, uint16_t* __restrict__ v,
                    uint16_t* __restrict__ sh, uint16_t* __restrict__ delta,
                    int64_t n, float neg_lr_eff, float decay_all,
                    const float* __restrict__ decay_vec, int64_t slice_n,
-                   uint32_t seed0, uint32_t seed1,
+                   uint32_t seed0, uint32_t seed1, uint32_t base,
                    const uint32_t* __restrict__ planes, float beta1,
                    float one_minus_beta1, float beta2, float one_minus_beta2,
                    float eps) {
@@ -112,7 +114,10 @@ fused_adamw_kernel(const uint16_t* __restrict__ p, const G* __restrict__ g,
       n0 = planes[i];
       n1 = planes[n + i];
     } else {
-      const uint32_t idx = static_cast<uint32_t>(i);
+      // a ZeRO chunk hashes the index of its element in the whole leaf
+      // (32-bit arithmetic: the noise index wraps as JAX's uint32 iota)
+      const uint32_t idx =
+          kBase ? static_cast<uint32_t>(i) + base : static_cast<uint32_t>(i);
       n0 = lowbias32(idx ^ seed0);
       n1 = lowbias32(idx ^ seed1);
     }
@@ -161,19 +166,26 @@ template <typename G, bool kPlanes>
 int launch(const void* p, const void* g, void* m, void* v, void* sh,
            void* delta, int64_t n, float neg_lr_eff, float decay,
            const void* decay_vec, int64_t slice_n, uint32_t seed0,
-           uint32_t seed1, const void* planes, float beta1,
+           uint32_t seed1, int64_t base, const void* planes, float beta1,
            float one_minus_beta1, float beta2, float one_minus_beta2,
            float eps, cudaStream_t stream) {
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond that
   if (blocks < 1) blocks = 1;
-  fused_adamw_kernel<G, kPlanes><<<static_cast<unsigned>(blocks), kThreads,
-                                   0, stream>>>(
+  // the add of a chunk's base costs the hash variant 3 registers (35
+  // against 32: 3/4 of the threads resident), so a whole leaf (base 0,
+  // every one-card launch) takes the instantiation without it
+  auto kernel = fused_adamw_kernel<G, kPlanes, false>;
+  if constexpr (!kPlanes) {
+    if (base != 0) kernel = fused_adamw_kernel<G, false, true>;
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const uint16_t*>(p), static_cast<const G*>(g),
       static_cast<uint16_t*>(m), static_cast<uint16_t*>(v),
       static_cast<uint16_t*>(sh), static_cast<uint16_t*>(delta), n,
       neg_lr_eff, decay, static_cast<const float*>(decay_vec), slice_n,
-      seed0, seed1, static_cast<const uint32_t*>(planes), beta1,
+      seed0, seed1, static_cast<uint32_t>(base),
+      static_cast<const uint32_t*>(planes), beta1,
       one_minus_beta1, beta2, one_minus_beta2, eps);
   return static_cast<int>(cudaGetLastError());
 }
@@ -182,17 +194,19 @@ template <typename G>
 int launch_noise(const void* planes, const void* p, const void* g, void* m,
                  void* v, void* sh, void* delta, int64_t n, float neg_lr_eff,
                  float decay, const void* decay_vec, int64_t slice_n,
-                 uint32_t seed0, uint32_t seed1, float beta1,
+                 uint32_t seed0, uint32_t seed1, int64_t base, float beta1,
                  float one_minus_beta1, float beta2, float one_minus_beta2,
                  float eps, cudaStream_t st) {
   if (planes) {
     return launch<G, true>(p, g, m, v, sh, delta, n, neg_lr_eff, decay,
-                           decay_vec, slice_n, seed0, seed1, planes, beta1,
-                           one_minus_beta1, beta2, one_minus_beta2, eps, st);
+                           decay_vec, slice_n, seed0, seed1, base, planes,
+                           beta1, one_minus_beta1, beta2, one_minus_beta2,
+                           eps, st);
   }
   return launch<G, false>(p, g, m, v, sh, delta, n, neg_lr_eff, decay,
-                          decay_vec, slice_n, seed0, seed1, planes, beta1,
-                          one_minus_beta1, beta2, one_minus_beta2, eps, st);
+                          decay_vec, slice_n, seed0, seed1, base, planes,
+                          beta1, one_minus_beta1, beta2, one_minus_beta2,
+                          eps, st);
 }
 
 }  // namespace
@@ -200,13 +214,14 @@ int launch_noise(const void* planes, const void* p, const void* g, void* m,
 // g_is_bf16: 0 for an fp32 gradient, 1 for a bf16 gradient.  planes: null
 // for the hash noise of (seed0, seed1), else 2 x n uint32 ("rbg").
 // decay_vec: null for one decay amount, else one fp32 amount per slice of
-// slice_n elements.
+// slice_n elements.  base: the index of element 0 in the whole leaf (a ZeRO
+// chunk's offset; 0 for a whole leaf), which the hash noise hashes.
 extern "C" int fused_adamw_bf16(const void* p, const void* g, int g_is_bf16,
                                 void* m, void* v, void* sh, void* delta,
                                 int64_t n, float neg_lr_eff, float decay,
                                 const void* decay_vec, int64_t slice_n,
                                 uint32_t seed0, uint32_t seed1,
-                                const void* planes, float beta1,
+                                int64_t base, const void* planes, float beta1,
                                 float one_minus_beta1, float beta2,
                                 float one_minus_beta2, float eps,
                                 void* stream) {
@@ -214,11 +229,11 @@ extern "C" int fused_adamw_bf16(const void* p, const void* g, int g_is_bf16,
   if (g_is_bf16) {
     return launch_noise<uint16_t>(planes, p, g, m, v, sh, delta, n,
                                   neg_lr_eff, decay, decay_vec, slice_n,
-                                  seed0, seed1, beta1, one_minus_beta1,
+                                  seed0, seed1, base, beta1, one_minus_beta1,
                                   beta2, one_minus_beta2, eps, st);
   }
   return launch_noise<float>(planes, p, g, m, v, sh, delta, n, neg_lr_eff,
-                             decay, decay_vec, slice_n, seed0, seed1, beta1,
-                             one_minus_beta1, beta2, one_minus_beta2, eps,
-                             st);
+                             decay, decay_vec, slice_n, seed0, seed1, base,
+                             beta1, one_minus_beta1, beta2, one_minus_beta2,
+                             eps, st);
 }

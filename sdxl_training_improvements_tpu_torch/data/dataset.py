@@ -14,9 +14,10 @@ writes the latent cache, and training batches are pure cache reads
 * ``prepare_image_array`` takes the decoded uint8 RGB array and runs the
   native C++ path (``native/image_ops.cpp``, the JAX package's code) with
   no PIL fallback: a failed build raises;
-* ``create_dataset`` takes ``process_count`` / ``process_index`` (one
-  process here); a ``partitioned`` cache over more than one process is
-  not ported (ROADMAP queue 1, item 14).
+* ``create_dataset`` takes ``process_count`` / ``process_index`` (the
+  ranks, and this one): a ``partitioned`` cache over several ranks puts
+  each rank's cache under ``host-NNN`` and deals it a static share of the
+  dataset (``partition_for_host``).
 
 Batch contract matches the reference trainers (``ddpm_trainer.py:284-296``):
 ``vae_latents`` [B,C,h,w], ``prompt_embeds`` [B,77,2048],
@@ -386,6 +387,47 @@ class AspectBucketDataset:
                                   shuffle=shuffle, seed=seed,
                                   num_shards=num_shards, shard=shard)
 
+    def partition_for_host(self, num_shards: int, shard: int
+                           ) -> "AspectBucketDataset":
+        """Static per-rank partition for the partitioned-cache layout
+        (``global_config.cache.partitioned``; JAX ``dataset.py:410-456``,
+        one rank being JAX's one process).
+
+        Each bucket's index list is truncated to a multiple of
+        ``num_shards`` and dealt round-robin, so every rank holds exactly
+        ``len(bucket) // num_shards`` images per bucket.  The assignment is
+        static across epochs (an image lives where it was precomputed);
+        shuffling happens per epoch within the rank's share.  In place;
+        returns self; a second call with another partition raises."""
+        if num_shards <= 1:
+            return self
+        if getattr(self, "_partition", None) is not None:
+            if self._partition != (num_shards, shard):
+                raise ValueError(
+                    f"dataset already partitioned as {self._partition}, "
+                    f"cannot re-partition as {(num_shards, shard)}")
+            return self
+        if not 0 <= shard < num_shards:
+            raise ValueError(f"shard {shard} not in [0, {num_shards})")
+        dropped = 0
+        new: Dict[Tuple[int, int], List[int]] = {}
+        for key in sorted(self.bucket_indices):
+            idxs = self.bucket_indices[key]
+            keep = (len(idxs) // num_shards) * num_shards
+            dropped += len(idxs) - keep
+            sel = idxs[shard:keep:num_shards]
+            if sel:
+                new[key] = sel
+        self.bucket_indices = new
+        self._partition = (num_shards, shard)
+        if dropped:
+            import logging
+            logging.getLogger(__name__).warning(
+                "partition_for_host: %d images dropped to equalize "
+                "per-host bucket counts across %d hosts", dropped,
+                num_shards)
+        return self
+
 
 def create_dataset(config, cache_manager: Optional[CacheManager] = None,
                    tag_weighter: Optional[TagWeighter] = None,
@@ -402,16 +444,14 @@ def create_dataset(config, cache_manager: Optional[CacheManager] = None,
     * any persistence knob false (the reference's cache-less mode) -> an
       ephemeral per-run temp directory deleted at interpreter exit
       (precompute still runs — see ``CacheConfig.persistent``);
-    * ``partitioned`` true with ``process_count`` > 1 -> not ported
-      (ROADMAP queue 1, item 14: the JAX package's per-host subdirectory
-      and static partition); raises.
+    * ``partitioned`` true with ``process_count`` > 1 -> the rank's own
+      subdirectory ``host-NNN`` (NNN = ``process_index``) and, for the
+      train set, its static share of the dataset (``partition_for_host``),
+      so each rank encodes and reads only its own entries.
     """
     cache_cfg = config.global_config.cache
-    if cache_cfg.partitioned and process_count > 1:
-        raise NotImplementedError(
-            f"global_config.cache.partitioned over {process_count} "
-            f"processes (process {process_index}): the per-host cache "
-            "partition is not ported (ROADMAP queue 1, item 14: multi-GPU)")
+    is_train = data_dir is None
+    partitioned = cache_cfg.partitioned and process_count > 1
     image_paths, captions = load_data_from_directory(
         data_dir if data_dir is not None else config.data.train_data_dir)
     if cache_manager is None:
@@ -432,9 +472,14 @@ def create_dataset(config, cache_manager: Optional[CacheManager] = None,
                 "epoch as the reference's __getitem__ encoding would.",
                 ephemeral)
             cache_root = Path(ephemeral)
+        if partitioned:
+            cache_root = cache_root / f"host-{process_index:03d}"
         cache_manager = CacheManager(cache_root)
     if tag_weighter is None:
         tag_weighter = create_tag_weighter_with_index(config, captions,
                                                       cache_manager)
-    return AspectBucketDataset(config, image_paths, captions, cache_manager,
-                               tag_weighter)
+    ds = AspectBucketDataset(config, image_paths, captions, cache_manager,
+                             tag_weighter)
+    if is_train and partitioned:
+        ds.partition_for_host(process_count, process_index)
+    return ds

@@ -4,9 +4,17 @@ ordered copy to the card.
 Port of ``sdxl_training_improvements_tpu/data/pipeline.py``.  Batches are
 assembled on the host (numpy) in the JAX package's order, then copied to
 the device ahead of the consumer, so the copy overlaps the previous train
-step (JAX: ``jax.device_put`` with the batch sharding).  One process:
-``check_shard_integrity`` keeps the single-process branch only
-(multi-process runs are ROADMAP queue 1, item 14).
+step (JAX: ``jax.device_put`` with the batch sharding).
+
+Several ranks (``parallel/mesh.py``): ``check_shard_integrity`` exchanges
+each rank's batch count and missing cache entries over the host group and
+raises on every rank on a mismatch, and ``prefetch_to_device`` yields the
+global batch on every rank, from which the train step takes the rank's
+rows (``training/trainer.py`` ``shard_batch``): under a shared cache every
+rank iterates the same global sequence; under a partitioned one
+(``local_rows=True``) each rank reads its own rows, global rows
+``[r * B/W, (r + 1) * B/W)`` as JAX's ``make_array_from_process_local_
+data`` places them, and an all-gather over the ranks joins them.
 """
 from __future__ import annotations
 
@@ -17,15 +25,55 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+
+
+def _host_allgather(values) -> np.ndarray:
+    """[ranks, len(values)] of every rank's integers, over the host group."""
+    local = torch.tensor(values, dtype=torch.int64)
+    out = [torch.zeros_like(local) for _ in range(M.process_count())]
+    dist.all_gather(out, local, group=M.host_group())
+    return torch.stack(out).numpy()
 
 
 def check_shard_integrity(dataset, batch_size: int, num_shards: int = 1,
                           shard: int = 0, seed: int = 0) -> int:
-    """The per-epoch batch count (JAX ``check_shard_integrity`` with one
-    process: there is nothing to exchange, and an entry missing from the
-    cache only drops its batch, which ``batches_for_epoch`` logs)."""
-    return len(dataset.make_sampler(batch_size, seed=seed,
-                                    num_shards=num_shards, shard=shard))
+    """The per-epoch batch count; over several ranks an input-integrity
+    gate (JAX ``pipeline.py:23-60``): each rank counts its batches and its
+    bucketed images missing from the cache, the ranks exchange them, and
+    a missing entry anywhere or unequal counts raise on every rank
+    (uneven batch counts would hang a collective instead).  In one
+    process an entry missing from the cache only drops its batch, which
+    ``batches_for_epoch`` logs."""
+    local_batches = len(dataset.make_sampler(batch_size, seed=seed,
+                                             num_shards=num_shards,
+                                             shard=shard))
+    if M.process_count() <= 1:
+        return local_batches
+    missing = 0
+    if dataset.cache is not None:
+        assigned = (i for idxs in dataset.bucket_indices.values()
+                    for i in idxs)
+        missing = sum(
+            1 for i in assigned
+            if not dataset.cache.is_cached(dataset.image_paths[i]))
+    counts = _host_allgather([local_batches, missing])
+    if counts[:, 1].sum() > 0:
+        raise RuntimeError(
+            f"multi-host input integrity: {int(counts[:, 1].sum())} images "
+            f"missing from the latent cache across hosts "
+            f"(per-host: {counts[:, 1].tolist()}). Run precompute to "
+            "completion (or share the cache) before multi-host training — "
+            "on-the-fly drops would desynchronize collectives and hang.")
+    if (counts[:, 0] != counts[0, 0]).any():
+        raise RuntimeError(
+            f"multi-host input integrity: unequal per-host batch counts "
+            f"{counts[:, 0].tolist()} — shards would diverge in step count "
+            "and hang in the gradient all-reduce. Check that every host "
+            "sees the same dataset and equal-count sharding.")
+    return int(counts[0, 0])
 
 
 def batches_for_epoch(dataset, batch_size: int, epoch: int = 0, seed: int = 0,
@@ -93,7 +141,20 @@ def adapt_time_ids_iter(batch_iter, num_time_ids: int,
         yield adapt_batch_time_ids(batch, num_time_ids, aesthetic_score)
 
 
-def prefetch_to_device(batch_iter, device="cuda", prefetch: int = 2
+def _join_rows(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The global batch of every rank's rows, in rank order."""
+    out = {}
+    for k, v in batch.items():
+        v = v.contiguous()
+        full = torch.empty((v.shape[0] * M.process_count(),) + v.shape[1:],
+                           dtype=v.dtype, device=v.device)
+        dist.all_gather_into_tensor(full, v)
+        out[k] = full
+    return out
+
+
+def prefetch_to_device(batch_iter, device="cuda", prefetch: int = 2,
+                       local_rows: bool = False
                        ) -> Iterator[Dict[str, torch.Tensor]]:
     """Device-resident batches, copied up to ``prefetch`` steps ahead.
 
@@ -106,8 +167,11 @@ def prefetch_to_device(batch_iter, device="cuda", prefetch: int = 2
     does not hand its memory to the side stream again while the step
     still reads it.  On the CPU the batch is handed over as tensors.  An
     exception in the worker reaches the consumer; closing the iterator
-    stops the worker.
+    stops the worker.  ``local_rows`` over several ranks: each rank's
+    batch is its own rows, joined into the global batch (module
+    docstring).
     """
+    join = local_rows and M.process_count() > 1
     device = torch.device(device)
     copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
@@ -158,6 +222,6 @@ def prefetch_to_device(batch_iter, device="cuda", prefetch: int = 2
                 stream.wait_event(done)
                 for v in batch.values():
                     v.record_stream(stream)
-            yield batch
+            yield _join_rows(batch) if join else batch
     finally:
         stop.set()

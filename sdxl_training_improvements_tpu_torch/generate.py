@@ -30,7 +30,7 @@ read as PNG by ``png.py`` (no Pillow); ``--init`` and ``--mask`` also take
 mask of another size is resized to ``--width`` x ``--height`` as JAX's
 Pillow path does (Lanczos; a mask nearest, before its 127 threshold).
 ``--device cpu`` runs on the CPU.  Not ported: ``--mesh`` (ROADMAP queue
-1, item 14).
+1, item 14b).
 """
 from __future__ import annotations
 
@@ -201,7 +201,7 @@ def main(argv=None) -> int:
         return _run_aot(args, argv)
     if args.mesh:
         raise SystemExit("--mesh: serving over several cards is not ported "
-                         "(ROADMAP queue 1, item 14)")
+                         "(ROADMAP queue 1, item 14b)")
     method = None if args.method == "auto" else args.method
     common = dict(tiny=args.tiny, sampler=args.sampler,
                   deep_cache=args.deep_cache, device=args.device)

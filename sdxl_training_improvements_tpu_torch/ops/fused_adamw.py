@@ -26,7 +26,11 @@ All take p, m, v, shift in bf16 and g in fp32 (the gradient accumulator)
 or bf16, and return ``(delta, m, v, shift)`` with ``delta = bf16(p' - p)``:
 the optimizer hands back the delta and the train step adds it, as JAX's
 ``optax.apply_updates`` does.  The noise index is the element's position
-in memory, so a channels-last leaf gets the same noise on both paths.
+in memory, so a channels-last leaf gets the same noise on both paths;
+``base`` adds an offset to it, so that a ZeRO chunk (``parallel/zero.py``:
+a contiguous run of a leaf in memory order) draws the noise of its
+elements' places in the whole leaf, and the chunks' updates, joined, are
+the whole leaf's.
 
 Rounding: the JAX chain, jitted by XLA:CPU, computes three of its
 ``a * b + c`` forms as fused multiply-adds (measured against the JAX
@@ -62,11 +66,13 @@ def memory_order(x: torch.Tensor) -> torch.Tensor:
     return y.reshape(-1)
 
 
-def noise_planes(seed0: int, seed1: int, n: int, device=None):
-    """The four 16-bit noise planes of one leaf (JAX ``_noise_planes``,
-    "hash"): (n0, n0 >> 16, n1, n1 >> 16)."""
-    n0 = counter_noise(seed0, n, device)
-    n1 = counter_noise(seed1, n, device)
+def noise_planes(seed0: int, seed1: int, n: int, device=None,
+                 base: int = 0):
+    """The four 16-bit noise planes of one leaf, or of n elements of it
+    from ``base`` on (JAX ``_noise_planes``, "hash"): (n0, n0 >> 16, n1,
+    n1 >> 16)."""
+    n0 = counter_noise(seed0, n, device, base)
+    n1 = counter_noise(seed1, n, device, base)
     return n0, n0 >> 16, n1, n1 >> 16
 
 
@@ -118,14 +124,14 @@ def adamw_bf16_chain(p, g, m, v, shift, lr_eff: float, decay_amt,
 def fused_adamw_reference(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                           seed0: int, seed1: int, beta1: float = 0.9,
                           beta2: float = 0.999, eps: float = 1e-8,
-                          planes=None, decay=None) -> Quad:
+                          planes=None, decay=None, base: int = 0) -> Quad:
     """Plain version of the kernel: the chain with the counter-hash noise
-    over each element's memory position, or with ``planes`` ([2, n]) in
-    its place; ``decay`` ([k]) as in the module docstring.  Returns new
-    tensors."""
+    over each element's memory position plus ``base``, or with ``planes``
+    ([2, n]) in its place; ``decay`` ([k]) as in the module docstring.
+    Returns new tensors."""
     flat = [memory_order(x) for x in (p, g, m, v, shift)]
     noise = (plane_noise(planes) if planes is not None
-             else noise_planes(seed0, seed1, p.numel(), p.device))
+             else noise_planes(seed0, seed1, p.numel(), p.device, base))
     if decay is not None:
         decay_amt = _per_element(decay, p.numel())
     outs = adamw_bf16_chain(*flat, lr_eff, decay_amt, noise, beta1, beta2,
@@ -145,7 +151,7 @@ def _library():
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int64]
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int64]
-                   + [ctypes.c_uint32] * 2 + [ctypes.c_void_p]
+                   + [ctypes.c_uint32] * 2 + [ctypes.c_int64, ctypes.c_void_p]
                    + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -159,10 +165,12 @@ def _f32(x: float) -> float:
 def fused_adamw_cuda(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                      seed0: int, seed1: int, beta1: float = 0.9,
                      beta2: float = 0.999, eps: float = 1e-8,
-                     planes=None, decay=None) -> Quad:
+                     planes=None, decay=None, base: int = 0) -> Quad:
     """Launch the kernel (its rbg variant with ``planes``, [2, n] int32 on
-    p's device).  ``m``, ``v`` and ``shift`` are updated in place and
-    returned with a new ``delta``; raises on what it does not take."""
+    p's device; ``base`` offsets the hash noise's index, as in
+    ``fused_adamw_reference``).  ``m``, ``v`` and ``shift`` are updated in
+    place and returned with a new ``delta``; raises on what it does not
+    take."""
     if p.device.type != "cuda":
         raise ValueError(f"fused AdamW kernel needs CUDA tensors, got "
                          f"{p.device}")
@@ -180,8 +188,9 @@ def fused_adamw_cuda(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                              "and strides")
     memory_order(p)  # dense
     n = p.numel()
-    if n >= 2 ** 32:
-        raise ValueError(f"{n} elements: the noise index is 32-bit")
+    if base < 0 or base + n > 2 ** 32:
+        raise ValueError(f"elements [{base}, {base + n}): the noise index "
+                         "is 32-bit")
     if planes is not None and (
             planes.dtype != torch.int32 or planes.shape != (2, n)
             or planes.device != p.device or not planes.is_contiguous()):
@@ -203,7 +212,7 @@ def fused_adamw_cuda(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                 m.data_ptr(), v.data_ptr(), shift.data_ptr(),
                 delta.data_ptr(), n, _f32(-lr_eff), _f32(decay_amt),
                 decay.data_ptr() if decay is not None else None, slice_n,
-                int(seed0) & 0xFFFFFFFF, int(seed1) & 0xFFFFFFFF,
+                int(seed0) & 0xFFFFFFFF, int(seed1) & 0xFFFFFFFF, int(base),
                 planes.data_ptr() if planes is not None else None,
                 _f32(beta1), _f32(1.0 - beta1), _f32(beta2),
                 _f32(1.0 - beta2), _f32(eps), stream)
@@ -223,12 +232,13 @@ fused_adamw_cuda.launches_by_noise = collections.Counter()
 def fused_adamw_update(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                        seed0: int, seed1: int, beta1: float = 0.9,
                        beta2: float = 0.999, eps: float = 1e-8,
-                       planes=None, decay=None) -> Quad:
+                       planes=None, decay=None, base: int = 0) -> Quad:
     """The plain chain for CPU tensors, the kernel for CUDA tensors."""
     args = (p, g, m, v, shift, lr_eff, decay_amt, seed0, seed1, beta1,
             beta2, eps)
+    kw = dict(planes=planes, decay=decay, base=base)
     if p.device.type == "cpu":
-        return fused_adamw_reference(*args, planes=planes, decay=decay)
+        return fused_adamw_reference(*args, **kw)
     if p.device.type != "cuda":
         raise ValueError(f"fused_adamw_update: no kernel for {p.device}")
-    return fused_adamw_cuda(*args, planes=planes, decay=decay)
+    return fused_adamw_cuda(*args, **kw)

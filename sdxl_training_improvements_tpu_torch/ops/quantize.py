@@ -74,14 +74,18 @@ def _decode_signed(q: torch.Tensor) -> torch.Tensor:
     return torch.where(q < 127, neg, torch.where(q == 127, zero, pos))
 
 
-def quantize_8bit(x: torch.Tensor, signed: bool = True
-                  ) -> Dict[str, torch.Tensor]:
+def quantize_8bit(x: torch.Tensor, signed: bool = True,
+                  absmax_reduce=None) -> Dict[str, torch.Tensor]:
     """``{"q": uint8 codes (x.shape, x's strides), "s": fp32 0-d scale}``:
     nearest code in log space after absmax normalisation; an all-zero
-    input gets scale 1."""
+    input gets scale 1.  ``absmax_reduce`` turns ``x``'s absmax into the
+    whole leaf's when ``x`` is a ZeRO chunk (a MAX over the leaf's
+    shards), so the chunks' codes are the whole leaf's."""
     x32 = x.float()
     finite = torch.isfinite(x32)
     absmax = torch.where(finite, x32, torch.zeros_like(x32)).abs().amax()
+    if absmax_reduce is not None:
+        absmax = absmax_reduce(absmax)
     scale = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
     one = torch.ones_like(x32)
     y = torch.where(finite, x32 / scale, torch.where(x32 < 0, -one, one))

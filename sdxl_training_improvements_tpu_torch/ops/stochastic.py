@@ -30,10 +30,13 @@ def lowbias32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def counter_noise(seed: int, n: int, device=None) -> torch.Tensor:
-    """``lowbias32(i ^ seed)`` for i in [0, n): uniform uint32 values held
-    in int64 (JAX ``counter_noise``)."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+def counter_noise(seed: int, n: int, device=None, base: int = 0
+                  ) -> torch.Tensor:
+    """``lowbias32(i ^ seed)`` for i in [base, base + n): uniform uint32
+    values held in int64 (JAX ``counter_noise``; ``base`` > 0 gives a
+    ZeRO chunk the noise of its place in the whole leaf).  The index is
+    taken mod 2**32, as the kernel's 32-bit index."""
+    i = torch.arange(base, base + n, dtype=torch.int64, device=device) & _M32
     return lowbias32(i ^ (int(seed) & _M32))
 
 

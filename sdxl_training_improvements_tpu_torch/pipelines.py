@@ -18,7 +18,7 @@ checkpoint declares.
 Every draw comes from a generator on the model's device seeded with
 ``seed``, unless the caller passes it (``noise=``, and the VAE encode's
 draws): the VAE encodes first, then the sampler draws its noise.  Mesh
-serving is not ported (ROADMAP queue 1, item 14).
+serving is not ported (ROADMAP queue 1, item 14b).
 """
 from __future__ import annotations
 

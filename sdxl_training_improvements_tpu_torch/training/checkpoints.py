@@ -24,6 +24,12 @@ The generators are part of the state: the train state's draws every
 sample's noise and timestep, the bf16 AdamW's every leaf's rounding
 seeds, so a resume that dropped them would be a different run.
 
+Over several ranks (``parallel/zero.py``) a save gathers the sharded
+optimizer state and rank 0 writes it in the one-card format; a restore
+reads the one-card state on every rank, which ``shard_train_state`` then
+cuts, so a state saved by W ranks resumes on any number of them (Orbax's
+resharding restore in JAX).
+
 LoRA (JAX ``:210-323``): ``export_lora`` writes the adapter as
 ``pytorch_lora_weights.safetensors`` in the peft layout with a
 ``lora_config.json`` sidecar, ``import_lora`` reads it back into the
@@ -44,6 +50,7 @@ import torch
 from torch import nn
 
 from sdxl_training_improvements_tpu_torch.models import weights as W
+from sdxl_training_improvements_tpu_torch.parallel import mesh as M
 
 UNET_FILE = Path("unet") / "diffusion_pytorch_model.safetensors"
 VAE_FILE = Path("vae") / "diffusion_pytorch_model.safetensors"
@@ -354,11 +361,27 @@ def save_train_state(ckpt_dir, state, config=None,
     full train state: parameters and optimizer state), and the files are
     written on a worker thread; the caller may update the state as soon
     as this returns.  At most one save is in flight.  Call
-    ``wait_for_saves`` before reading the checkpoint back or exiting."""
+    ``wait_for_saves`` before reading the checkpoint back or exiting.
+
+    A state placed on a mesh (``state.zero``): every rank calls this (the
+    sharded tensors are gathered over fsdp, onto the host of rank 0), and
+    rank 0 alone writes the one-card format."""
     ckpt_dir = Path(ckpt_dir).absolute()
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    main = M.is_main_process()
+    if main:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
     _settle_host_copies()
     tensors, meta = flatten_train_state(state)
+    zero = getattr(state, "zero", None)
+    if zero is not None:
+        mine = sum(t.numel() * t.element_size() for t in tensors.values())
+        for key, n, how, _, _ in zero.state_fields(state.opt_state):
+            full = zero.gather(n, tensors[key], how)
+            if main:
+                tensors[key] = full.cpu()
+            del full
+        if not main:  # the bytes this rank holds
+            return mine
     nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
     if config is not None:
         (ckpt_dir / "config.json").write_text(
@@ -380,7 +403,11 @@ def restore_train_state(ckpt_dir, template_state):
     """Load ``ckpt_dir/state`` into ``template_state`` in place (its
     tensors keep their device, dtype and layout) and return it.  Every
     tensor of the template must be in the file with its shape and dtype,
-    and nothing else."""
+    and nothing else.  The template is a one-card state (over several
+    ranks: every rank's, before ``shard_train_state``)."""
+    if getattr(template_state, "zero", None) is not None:
+        raise ValueError("restore into the one-card train state, then "
+                         "place it with shard_train_state")
     wait_for_saves()  # a just-issued save of this directory commits first
     _settle_host_copies()
     sdir = Path(ckpt_dir).absolute() / "state"

@@ -7,9 +7,18 @@ validation images and checkpoints at epoch ends, and resumes from a
 checkpoint (``--resume``).  The epoch arithmetic and the checkpoint
 cadence are the JAX package's.  The differences:
 
-* one device, ``device=`` (the card unless the caller asks for the CPU);
-  a ``tpu.mesh_shape`` of more than one device is not ported (ROADMAP
-  queue 1, item 14) and raises;
+* one card per process, ``device=`` (the card unless the caller asks for
+  the CPU); over several processes (torchrun, or JAX's env triple;
+  ``parallel/mesh.py`` ``initialize_multihost``) rank r trains on
+  ``cuda:LOCAL_RANK`` over ``tpu.mesh_shape`` (default: every rank on
+  ``data``), with JAX's multi-process parts (``loop.py:63-78``,
+  ``:325-345``, ``:415-425``, ``:476-499``, ``:549-589``): the
+  micro-batch divisibility check, the pre-train barrier, the partitioned
+  cache's per-rank rows, the validation loss agreed over the ranks (a
+  failure anywhere: None everywhere), every rank calling the saves and
+  rank 0 alone writing ``trainer_state.json``, the exports and the
+  validation images.  A tensor axis above 1 raises (ROADMAP queue 1,
+  item 14b);
 * LoRA (``training.lora.enabled``, JAX ``:97-126``): the trainable tree
   is the pairs (``models/lora.py``), the frozen UNet goes to the step as
   ``const_params``; checkpoints ship the adapter (``export_lora``) and
@@ -54,6 +63,9 @@ from sdxl_training_improvements_tpu_torch.models.lora import (
 from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
 from sdxl_training_improvements_tpu_torch.models.tokenizer import (
     TokenizerPair, load_tokenizers)
+from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+from sdxl_training_improvements_tpu_torch.parallel.zero import (
+    tensor_axis_refusal)
 from sdxl_training_improvements_tpu_torch.training import checkpoints as C
 from sdxl_training_improvements_tpu_torch.training.optimizers import (
     EMAState, ScheduleFreeKahanState, ema_eval_params, make_optimizer,
@@ -61,7 +73,7 @@ from sdxl_training_improvements_tpu_torch.training.optimizers import (
 from sdxl_training_improvements_tpu_torch.training.schedules import (
     NoiseSchedule)
 from sdxl_training_improvements_tpu_torch.training.trainer import (
-    create_train_state, make_train_step)
+    create_train_state, make_train_step, shard_train_state)
 
 COMPONENTS = frozenset({"unet", "vae", "clip_l", "clip_g"})
 
@@ -95,6 +107,12 @@ class SDXLTrainer:
                 "device 'cuda': torch.cuda.is_available() is False (no "
                 "card); pass device='cpu' (--device cpu) to train on the "
                 "CPU")
+        refusal = tensor_axis_refusal(config.tpu.mesh_shape)
+        if refusal:
+            raise NotImplementedError(refusal)
+        M.initialize_multihost(self.device.type)
+        if self.device.type == "cuda" and M.process_count() > 1:
+            self.device = torch.device("cuda", M.local_rank())
         lc = config.global_config.logging
         self.logger = logger or setup_logging(LogConfig(
             log_dir=lc.log_dir, filename=lc.filename,
@@ -103,11 +121,24 @@ class SDXLTrainer:
             wandb_project=lc.wandb_project, wandb_entity=lc.wandb_entity,
             log_every=lc.log_every))
 
-        mesh = config.tpu.mesh_shape
-        if mesh is not None and math.prod(mesh) > 1:
-            raise NotImplementedError(
-                f"tpu.mesh_shape {list(mesh)}: training over several cards "
-                "is not ported (ROADMAP queue 1, item 14: multi-GPU)")
+        shape = config.tpu.mesh_shape
+        self.mesh = None  # one process: the meshless step (JAX use_mesh)
+        if torch.distributed.is_initialized() or (
+                shape is not None and math.prod(shape) > 1):
+            self.mesh = M.mesh_from_config(config, self.device.type)
+            sizes = M.axis_sizes(self.mesh)
+            dp = sizes[M.DATA_AXIS] * sizes[M.FSDP_AXIS]
+            micro = (config.tpu.micro_batch_size
+                     or config.training.batch_size)
+            if micro % dp:
+                raise ValueError(
+                    f"the micro-batch size ({micro} = "
+                    f"tpu.micro_batch_size or training.batch_size) "
+                    f"must be divisible by the data-parallel mesh extent "
+                    f"({dp} = data {sizes[M.DATA_AXIS]} x fsdp "
+                    f"{sizes[M.FSDP_AXIS]}): each micro-batch is "
+                    "sharded over those axes. Raise batch_size or shrink "
+                    "tpu.mesh_shape.")
 
         # ----- model
         if model is None:
@@ -145,7 +176,8 @@ class SDXLTrainer:
             apply_fn = self._apply_fn = self.model.unet_apply
         self.train_step = make_train_step(apply_fn, self.schedule,
                                           self.optimizer, config,
-                                          const_params=step_consts)
+                                          const_params=step_consts,
+                                          mesh=self.mesh)
 
         # ----- state (fresh or resumed)
         state = create_train_state(trainable, self.optimizer,
@@ -180,6 +212,9 @@ class SDXLTrainer:
                         json.loads(meta.read_text())["best_loss"])
                 except (OSError, ValueError, KeyError) as e:
                     self.logger.warning(f"{meta}: best_loss not read: {e}")
+        if self.mesh is not None:  # the one-card state, cut to this rank's
+            state = shard_train_state(state, self.mesh,
+                                      config.tpu.shard_params)
         self.state = state
 
         self.dataset = dataset
@@ -237,7 +272,9 @@ class SDXLTrainer:
     def prepare_data(self) -> AspectBucketDataset:
         """Dataset + latent/embedding precompute through the encoders."""
         if self.dataset is None:
-            self.dataset = create_dataset(self.config)
+            self.dataset = create_dataset(
+                self.config, process_count=M.process_count(),
+                process_index=M.process_index())
         self._precompute_into(self.dataset, label="train")
         return self.dataset
 
@@ -313,8 +350,26 @@ class SDXLTrainer:
         ds = self.dataset or self.prepare_data()
         global_batch = cfg.batch_size * max(1, cfg.gradient_accumulation_steps)
         max_steps = cfg.max_steps
-        val_ds = self.prepare_validation_data()
-        per_epoch = check_shard_integrity(ds, global_batch, seed=cfg.seed)
+        # several ranks: under a shared cache every rank iterates the same
+        # global batches; under a partitioned one each rank reads its
+        # global_batch / ranks rows of every step (data/pipeline.py)
+        nproc = M.process_count()
+        partitioned = (self.config.global_config.cache.partitioned
+                       and nproc > 1)
+        if partitioned:
+            if global_batch % nproc:
+                raise ValueError(
+                    f"partitioned cache: global batch ({global_batch}) must "
+                    f"be divisible by process_count ({nproc}) — each host "
+                    "contributes an equal row block per step.")
+            sampler_batch = global_batch // nproc
+        else:
+            sampler_batch = global_batch
+        val_ds = self.prepare_validation_data()  # per-rank work: pre-barrier
+        # absorb the ranks' skew (precompute, first kernel builds) before
+        # the first collective (parallel/mesh.py::barrier)
+        M.barrier("sdxl-pre-train")
+        per_epoch = check_shard_integrity(ds, sampler_batch, seed=cfg.seed)
         if per_epoch == 0:
             raise ValueError(
                 f"No trainable batches: {len(ds)} images across "
@@ -337,14 +392,15 @@ class SDXLTrainer:
                     break  # e.g. resumed at/over the cap: run NO extra step
                 epoch_losses = []  # device scalars; read at epoch end
                 batch_iter = batches_for_epoch(
-                    ds, global_batch, epoch=epoch, seed=cfg.seed,
+                    ds, sampler_batch, epoch=epoch, seed=cfg.seed,
                     proportion_empty_prompts=cfg.proportion_empty_prompts)
                 if num_time_ids != 6:
                     # refiner fine-tune: 5-id aesthetic-score conditioning
                     batch_iter = adapt_time_ids_iter(
                         batch_iter, num_time_ids,
                         self.config.model.aesthetic_score)
-                for batch in prefetch_to_device(batch_iter, self.device):
+                for batch in prefetch_to_device(batch_iter, self.device,
+                                                local_rows=partitioned):
                     if max_steps and step_count >= max_steps:
                         break  # check BEFORE stepping, not after
                     self.throughput.start_batch()
@@ -365,7 +421,9 @@ class SDXLTrainer:
                     if max_steps and step_count >= max_steps:
                         break
                 # ---- epoch end: checkpointing (reference cadence:
-                # save_every epochs + best loss + final)
+                # save_every epochs + best loss + final).  Every rank takes
+                # the same branches (the losses are averaged over the
+                # ranks): the saves are collectives
                 epoch_loss = (float(torch.stack(epoch_losses).double().mean())
                               if epoch_losses else float("nan"))
                 self.logger.info(f"Epoch {epoch}: mean loss {epoch_loss:.5f}")
@@ -395,6 +453,7 @@ class SDXLTrainer:
         # checkpoint back (or exit the process) immediately
         t0 = time.perf_counter()
         C.wait_for_saves()
+        M.barrier("sdxl-saves-joined")  # rank 0's files are on disk
         if self.last_save:
             self.last_save["join_s"] = time.perf_counter() - t0
             self.logger.info(f"Checkpoints on disk after another "
@@ -405,16 +464,22 @@ class SDXLTrainer:
     def eval_params(self) -> Mapping[str, torch.Tensor]:
         """Weights to evaluate/export.  Precedence: the fp32 EMA shadow
         when ``training.ema_decay`` is on; else schedule-free's averaged x
-        sequence; else the parameters (under LoRA: the pairs)."""
+        sequence; else the parameters (under LoRA: the pairs).  With
+        sharded optimizer state every rank calls it: the sharded leaves
+        are formed on the chunks and gathered."""
         opt_state = self.state.opt_state
+        zero = self.state.zero
+        params = self.state.params
+        view = params if zero is None else zero.views(params)
         # (EMA + schedule-free is refused by make_optimizer)
         if isinstance(opt_state, EMAState):
-            return ema_eval_params(opt_state, self.state.params)
-        if isinstance(opt_state, ScheduleFreeKahanState):
-            return schedule_free_eval_params(
-                opt_state, self.state.params,
-                beta1=self.config.optimizer.beta1)
-        return self.state.params
+            out = ema_eval_params(opt_state, view)
+        elif isinstance(opt_state, ScheduleFreeKahanState):
+            out = schedule_free_eval_params(
+                opt_state, view, beta1=self.config.optimizer.beta1)
+        else:
+            return params
+        return out if zero is None else zero.gather_tensors(out)
 
     @contextmanager
     def evaluated_weights(self):
@@ -455,14 +520,33 @@ class SDXLTrainer:
         from sdxl_training_improvements_tpu_torch.training.validation import (
             validation_loss)
         try:
-            return validation_loss(
+            vloss = validation_loss(
                 self._apply_fn, val_ds, self.schedule, self.config,
                 seed=self.config.training.seed + 17,
                 num_time_ids=self.model.unet_config.num_time_ids,
                 device=self.device)
         except Exception as e:  # never kill training over validation
             self.logger.warning(f"validation loss failed: {e}")
+            vloss = None
+        if M.process_count() == 1:
+            return vloss
+        # several ranks: the value gates a collective best-checkpoint save,
+        # so every rank must hold the same one: a failure anywhere gives
+        # None everywhere, else the mean over the ranks (JAX :476-499)
+        M.barrier("val_loss_exchange")
+        local = torch.tensor([float("nan") if vloss is None
+                              else float(vloss)], dtype=torch.float64)
+        gathered = [torch.zeros_like(local)
+                    for _ in range(M.process_count())]
+        torch.distributed.all_gather(gathered, local, group=M.host_group())
+        values = torch.cat(gathered)
+        if torch.isnan(values).any():
+            if vloss is not None:
+                self.logger.warning(
+                    "validation loss failed on another host; skipping "
+                    "val tracking this epoch on every host")
             return None
+        return float(values.mean())
 
     def run_validation_images(self) -> None:
         """Sample ``data.validation_prompts`` and log images.  No-op
@@ -480,18 +564,22 @@ class SDXLTrainer:
                 f"no image sampler for custom method {method!r}; skipping "
                 "validation images (val loss still runs)")
             return
-        try:
-            sampler = ValidationSampler(
-                self.model, self.tokenizers, self.schedule,
-                num_inference_steps=self.config.training.num_inference_steps,
-                method=method)
-            size = self.config.data.image_size
-            vl = ValidationLogger(sampler, prompts, self.output_dir,
-                                  logger=self.logger, height=size, width=size)
-            with self.evaluated_weights():
+        with self.evaluated_weights():  # a collective with sharded state
+            if not M.is_main_process():
+                return
+            try:
+                sampler = ValidationSampler(
+                    self.model, self.tokenizers, self.schedule,
+                    num_inference_steps=(
+                        self.config.training.num_inference_steps),
+                    method=method)
+                size = self.config.data.image_size
+                vl = ValidationLogger(sampler, prompts, self.output_dir,
+                                      logger=self.logger, height=size,
+                                      width=size)
                 vl.run_validation(int(self.state.step))
-        except Exception as e:  # sampling must never kill training
-            self.logger.warning(f"validation sampling failed: {e}")
+            except Exception as e:  # sampling must never kill training
+                self.logger.warning(f"validation sampling failed: {e}")
 
     # ----------------------------------------------------------- checkpoint
     def save_checkpoint(self, epoch: Optional[int] = None,
@@ -499,7 +587,8 @@ class SDXLTrainer:
         """The train state (for ``--resume``; in the background under
         ``tpu.async_checkpointing``), ``trainer_state.json`` and the
         diffusers export of the current weights.  ``last_save`` holds its
-        sizes and times."""
+        sizes and times.  Every rank calls it (the state's gather and the
+        evaluated weights are collectives); rank 0 writes the files."""
         from sdxl_training_improvements_tpu_torch.training.checkpoints \
             import components
         name = (f"checkpoint-{epoch:04d}" if epoch is not None
@@ -513,24 +602,31 @@ class SDXLTrainer:
         state_bytes = C.save_train_state(path, self.state, config=self.config,
                                          blocking=blocking)
         t2 = time.perf_counter()
-        (path / "trainer_state.json").write_text(json.dumps(
-            {"best_loss": self.best_loss, "step": int(self.state.step)}))
-        if self.lora_apply is not None:
-            # ship the adapter (peft layout) and the merged UNet
-            lcfg = self.config.training.lora
-            C.export_lora(path, self.eval_params(), rank=lcfg.rank,
-                          alpha=lcfg.alpha)
-        export_bytes = C.export_diffusers(
-            path, components(self.model), config=self.config,
-            unet_config=self.model.unet_config,
-            unet_state=self.unet_export_state(),
-            scheduler_config={
-                "prediction_type": self.config.training.prediction_type,
-                "num_train_timesteps": self.config.model.num_timesteps,
-                "sigma_min": self.config.model.sigma_min,
-                "sigma_max": self.config.model.sigma_max,
-                "use_ztsnr": self.config.model.use_ztsnr,
-            })
+        main = M.is_main_process()
+        if main:
+            (path / "trainer_state.json").write_text(json.dumps(
+                {"best_loss": self.best_loss, "step": int(self.state.step)}))
+        lora_tree = (self.eval_params() if self.lora_apply is not None
+                     else None)
+        unet_state = self.unet_export_state()
+        export_bytes = 0
+        if main:
+            if lora_tree is not None:
+                # ship the adapter (peft layout) and the merged UNet
+                lcfg = self.config.training.lora
+                C.export_lora(path, lora_tree, rank=lcfg.rank,
+                              alpha=lcfg.alpha)
+            export_bytes = C.export_diffusers(
+                path, components(self.model), config=self.config,
+                unet_config=self.model.unet_config, unet_state=unet_state,
+                scheduler_config={
+                    "prediction_type": self.config.training.prediction_type,
+                    "num_train_timesteps": self.config.model.num_timesteps,
+                    "sigma_min": self.config.model.sigma_min,
+                    "sigma_max": self.config.model.sigma_max,
+                    "use_ztsnr": self.config.model.use_ztsnr,
+                })
+        del unet_state, lora_tree
         t3 = time.perf_counter()
         gib = 2 ** 30
         self.last_save = {"state_gib": state_bytes / gib,

@@ -69,8 +69,10 @@ class AdamW:
             nu={n: torch.zeros_like(p) for n, p in params.items()})
 
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState,
-               params: Mapping[str, torch.Tensor]
+               params: Mapping[str, torch.Tensor], zero=None
                ) -> Tuple[Dict[str, torch.Tensor], AdamWState]:
+        """One step.  Elementwise, so a ZeRO chunk (``zero``, ignored)
+        updates as its slice of the whole leaf."""
         step = state.step + 1
         b1, b2 = self.beta1, self.beta2
         deltas: Dict[str, torch.Tensor] = {}

@@ -343,15 +343,29 @@ class AdamWBF16:
     def update(self, grads: Mapping[str, torch.Tensor],
                state: AdamWBF16State, params: Mapping[str, torch.Tensor],
                seeds: Optional[torch.Tensor] = None,
-               planes: Optional[Sequence[Optional[torch.Tensor]]] = None
+               planes: Optional[Sequence[Optional[torch.Tensor]]] = None,
+               zero=None
                ) -> Tuple[Dict[str, torch.Tensor], AdamWBF16State]:
         """One step (``seeds`` and ``planes`` as in the module docstring).
         A leaf that is neither bf16 nor fp32 raises before any leaf is
-        updated."""
+        updated.
+
+        ``zero`` (``parallel/zero.py``): the sharded leaves' ``grads``,
+        ``params`` and state are this rank's chunks; each chunk hashes
+        its elements' places in the whole leaf (the kernel's ``base``),
+        takes its slice of the whole leaf's rbg planes (drawn whole, so
+        the stream does not depend on the mesh), and quantizes int8
+        moments with the whole leaf's absmax (a MAX over the shards)."""
         self._validate(params)
         if state.layout != self.layout:
             raise ValueError(f"optimizer state of layout {state.layout!r} "
                              f"given to the {self.layout!r} layout")
+        if zero is not None and zero.chunks and (
+                self.layout != "per_leaf" or self._host):
+            raise ValueError(
+                "sharded optimizer state needs the per-leaf layout with "
+                "resident state (tpu.flat_optimizer=on and host-streamed "
+                "state are refused under tpu.shard_params)")
         step = state.step + 1
         lr_eff = self.lr_eff(step)
         units, f32 = self._units(params)
@@ -371,7 +385,7 @@ class AdamWBF16:
         else:
             for unit, seed, plane in work:
                 self._update_unit(unit, seed, plane, grads, state, params,
-                                  lr_eff, deltas)
+                                  lr_eff, deltas, zero=zero)
         for unit in f32:
             name = unit.key
             deltas[name], state.exp_avg[name], state.exp_avg_sq[name] = \
@@ -381,13 +395,17 @@ class AdamWBF16:
         state.step = step
         return deltas, state
 
-    def _noise(self, state, n: int, plane, device):
+    def _noise(self, state, n: int, plane, device, chunk=None):
         """The rbg planes of a unit of n elements: the injected ones, or
-        a draw; None under hash noise."""
+        a draw; None under hash noise.  ``chunk``: the unit is a ZeRO
+        chunk, whose planes are its slice of the whole leaf's."""
         if self.noise != "rbg":
             return None
         if plane is None:
-            return draw_planes(n, state.noise_generator)
+            plane = draw_planes(chunk.numel if chunk else n,
+                                state.noise_generator)
+        if chunk is not None:
+            plane = plane[:, chunk.base:chunk.base + chunk.size]
         if device.type == "cuda":  # the kernel reads int32 bits
             return plane.to(device=device, dtype=torch.int32).contiguous()
         return plane.to(device)
@@ -403,7 +421,7 @@ class AdamWBF16:
                 torch.where(fire, torch.zeros_like(acc), acc))
 
     def _update_unit(self, unit: _Unit, seed, plane, grads, state, params,
-                     lr_eff: float, deltas, staged=None):
+                     lr_eff: float, deltas, staged=None, zero=None):
         """Update one unit.  ``staged``: the leaf's (m, v, shift) on the
         card when some of its state lives on the host; the new ones are
         then returned instead of written to ``state``."""
@@ -411,6 +429,8 @@ class AdamWBF16:
         if unit.kind == "leaf":
             name = unit.names[0]
             p, g = params[name], grads[name]
+            chunk = zero.chunks.get(name) if zero is not None else None
+            reduce = zero.max_over_shards if chunk is not None else None
             m, v, sh = staged if staged is not None else (
                 state.exp_avg[key], state.exp_avg_sq[key], state.shift[key])
             if p.dtype == torch.float32:  # per_leaf's fp32 leaves
@@ -425,10 +445,12 @@ class AdamWBF16:
                 deltas[name], m, v, sh = fused_adamw_update(
                     p, g, m, v, sh, lr_eff, decay, seed[0], seed[1],
                     self.beta1, self.beta2, self.eps,
-                    planes=self._noise(state, p.numel(), plane, p.device))
+                    planes=self._noise(state, p.numel(), plane, p.device,
+                                       chunk),
+                    base=chunk.base if chunk is not None else 0)
                 if quantized:
-                    m, v = quantize_8bit(m, signed=True), quantize_8bit(
-                        v, signed=False)
+                    m = quantize_8bit(m, signed=True, absmax_reduce=reduce)
+                    v = quantize_8bit(v, signed=False, absmax_reduce=reduce)
             if staged is not None:
                 return m, v, sh
             state.exp_avg[key], state.exp_avg_sq[key] = m, v

@@ -54,6 +54,8 @@ class EMA:
     def update(self, grads: Mapping[str, torch.Tensor], state: EMAState,
                params: Mapping[str, torch.Tensor], **kw
                ) -> Tuple[Dict[str, torch.Tensor], EMAState]:
+        """One step; the shadow's update is elementwise, so a ZeRO chunk
+        (``zero=``, handed to the inner update) tracks its slice."""
         deltas, state.inner = self.inner.update(grads, state.inner, params,
                                                 **kw)
         state.count += 1

@@ -71,8 +71,10 @@ class AdamWScheduleFreeKahan:
 
     def update(self, grads: Mapping[str, torch.Tensor],
                state: ScheduleFreeKahanState,
-               params: Mapping[str, torch.Tensor]
+               params: Mapping[str, torch.Tensor], zero=None
                ) -> Tuple[Dict[str, torch.Tensor], ScheduleFreeKahanState]:
+        """One step.  Elementwise, so a ZeRO chunk (``zero``, ignored)
+        updates as its slice of the whole leaf."""
         step_size, bc2, c = self.scalars(state.step)
         b1, b2 = self.beta1, self.beta2
         deltas: Dict[str, torch.Tensor] = {}

@@ -25,8 +25,22 @@ step hands them to ``unet_apply(params, *args, base_params=...,
 seed=...)``, whose first argument is the trainable tree (LoRA's pairs)
 and ``seed`` the micro-batch's seed (LoRA's dropout masks).  The
 host-streamed optimizer state lives in the optimizer
-(``optimizers/adamw_bf16.py``).  Not ported here: meshes (ROADMAP queue
-1, item 14).
+(``optimizers/adamw_bf16.py``).
+
+Over several cards (JAX ``trainer.py:56-140``, ``:251-348``):
+``shard_train_state(state, mesh, shard_params)`` places the state on the
+mesh (``parallel/zero.py``: the sharded leaves' optimizer state cut to
+this rank's chunks) and ``make_train_step(..., mesh=)`` runs on every
+rank: each takes its contiguous rows of every micro-batch (``shard_batch``,
+JAX's ``P((data, fsdp))``) from the global batch, which every rank holds;
+the per-sample and per-micro-batch seeds are drawn for the whole global
+batch on every rank from the replicated generator and then sliced, so a
+sample's noise does not depend on the rank.  After the accumulation the
+gradients are reduced once (``Zero.reduce_gradients``, in the
+accumulator dtype), then masked, normed over the shards and clipped; the
+optimizer updates the rank's chunks and the step gathers the sharded
+parameters back; the loss and the metrics are averaged over the ranks.
+The tensor axis is refused (ROADMAP queue 1, item 14b).
 """
 from __future__ import annotations
 
@@ -37,6 +51,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from sdxl_training_improvements_tpu_torch.ops.probe import run_probe
+from sdxl_training_improvements_tpu_torch.parallel import mesh as M
 from sdxl_training_improvements_tpu_torch.training.methods import get_method
 from sdxl_training_improvements_tpu_torch.training.schedules import (
     NoiseSchedule)
@@ -52,6 +67,8 @@ class TrainState:
     generator: torch.Generator  # CPU: per-sample and per-micro seeds
     # the startup probe's result on a card (ops/probe.py), else None
     probe: Optional[Dict[str, float]] = None
+    # the mesh layout (parallel/zero.py) once shard_train_state placed it
+    zero: Any = None
 
 
 def create_train_state(params: Mapping[str, torch.Tensor], optimizer,
@@ -73,16 +90,54 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in tensors))
 
 
+def shard_train_state(state: TrainState, mesh, shard_params: bool = False
+                      ) -> TrainState:
+    """Place ``state`` (every rank's identical one-card state) on ``mesh``:
+    the parameters stay whole on every rank; with ``shard_params`` the
+    optimizer state (and EMA shadow) of each leaf JAX shards over fsdp is
+    cut to this rank's chunk (``parallel/zero.py``), field by field as
+    JAX places it.  A restored checkpoint is placed the same way, so a
+    state saved by any number of ranks resumes on any other."""
+    from sdxl_training_improvements_tpu_torch.parallel.zero import Zero
+    zero = Zero(mesh, state.params, shard_params=shard_params)
+    zero.shard_state(state.opt_state)
+    state.zero = zero
+    return state
+
+
+def shard_batch(batch: Mapping[str, torch.Tensor], mesh, accum: int = 1
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch: of each of its ``accum``
+    micro-batches, block ``M.batch_index(mesh)`` of data x fsdp equal
+    contiguous blocks (JAX's ``P((data, fsdp))``), the micro-batches'
+    blocks joined in order."""
+    index, blocks = M.batch_index(mesh)
+    global_b = next(iter(batch.values())).shape[0]
+    if global_b % (accum * blocks):
+        raise ValueError(
+            f"global batch {global_b} is not divisible into {accum} "
+            f"micro-batches over the data-parallel mesh extent {blocks}")
+    local = global_b // accum // blocks
+
+    def rows(v):
+        parts = [v[(i * blocks + index) * local:
+                   (i * blocks + index + 1) * local] for i in range(accum)]
+        return parts[0] if accum == 1 else torch.cat(parts)
+    return {k: rows(v) for k, v in batch.items()}
+
+
 def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
                     optimizer, config,
-                    const_params: Optional[Mapping[str, torch.Tensor]] = None
-                    ) -> Callable:
+                    const_params: Optional[Mapping[str, torch.Tensor]] = None,
+                    mesh=None) -> Callable:
     """Build ``step(state, batch, events=None) -> (state, metrics)``.
 
     ``batch`` leaves are [global_batch, ...]; with accumulation G the
     leading dim must be divisible by G.  ``events``, a dict, receives CUDA
     events at the phase boundaries ("start", "backward", "clip",
-    "update") for timing the step on a card."""
+    "update") for timing the step on a card.  ``mesh``: every rank calls
+    the step with the same global batch on a state placed by
+    ``shard_train_state`` (module docstring)."""
     loss_fn = get_method(config.training.method)
     accum = max(1, config.training.gradient_accumulation_steps)
     micro = getattr(config.tpu, "micro_batch_size", None)
@@ -123,6 +178,14 @@ def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
         micro_seeds = torch.randint(0, _SEED_HIGH, (accum,),
                                     generator=state.generator).tolist()
         full = dict(batch, sample_seeds=sample_seeds)
+        zero = state.zero
+        if mesh is not None:
+            if zero is None:
+                raise ValueError("the state is not placed on the mesh: "
+                                 "shard_train_state(state, mesh, "
+                                 "shard_params) first")
+            full = shard_batch(full, mesh, accum)
+            mb_size //= zero.world
         device = params[0].device
 
         grads = None
@@ -151,28 +214,42 @@ def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
         if accum > 1:
             for a in grads:
                 a.div_(accum)
+        if zero is not None:  # the mean over the ranks; chunks if sharded
+            reduced = zero.reduce_gradients(dict(zip(names, grads)))
+            grads = [reduced[n] for n in names]
+            del reduced
         mark(events, "backward")
 
         for g in grads:
             g.masked_fill_(~torch.isfinite(g), 0.0)
-        gnorm = global_norm(grads)
+        gnorm = (global_norm(grads) if zero is None
+                 else zero.norm(dict(zip(names, grads))))
         if clip is not None and clip > 0:
             scale = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
             for g in grads:
                 g.mul_(scale)
         mark(events, "clip")
 
-        deltas, state.opt_state = optimizer.update(
-            dict(zip(names, grads)), state.opt_state, state.params)
+        if zero is None:
+            deltas, state.opt_state = optimizer.update(
+                dict(zip(names, grads)), state.opt_state, state.params)
+        else:
+            deltas, state.opt_state = optimizer.update(
+                dict(zip(names, grads)), state.opt_state,
+                zero.views(state.params), zero=zero)
         del grads
         with torch.no_grad():
             for n, p in zip(names, params):
-                p.add_(deltas[n])
+                (p if zero is None else zero.view(n, p)).add_(deltas[n])
+        if zero is not None:
+            zero.gather_params(state.params)
         mark(events, "update")
 
         out = {k: torch.stack([m[k] for m in metrics]).mean()
                for k in metrics[0]}
         out["loss"] = torch.stack(losses).mean()
+        if zero is not None:
+            out = dict(zip(out, zero.average(list(out.values()))))
         out["grad_norm"] = gnorm
         state.step += 1
         return state, out

@@ -65,7 +65,7 @@ class ValidationSampler:
                 "deep_cache is wired for the sigma-space samplers only")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh serving is not ported (ROADMAP queue 1, item 14)")
+                "mesh serving is not ported (ROADMAP queue 1, item 14b)")
         self.model = model
         self.tokenizers = tokenizers
         self.schedule = schedule

@@ -375,7 +375,26 @@ def test_prefetch_worker_errors_propagate():
 
 
 def test_partitioned_cache_over_processes_raises(tmp_path):
+    """Refused until the multi-process loop was ported: now a partitioned
+    cache over 2 processes deals each rank JAX's index lists
+    (``partition_for_host``, pure: no collective), and ``create_dataset``
+    puts the rank's cache under ``host-NNN``."""
+    buckets = {(64, 64): list(range(7)), (80, 64): [7, 8],
+               (64, 80): [9], (96, 64): list(range(10, 16))}
+    for rank in (0, 1):
+        jd = object.__new__(JD.AspectBucketDataset)
+        td = object.__new__(TD.AspectBucketDataset)
+        for d in (jd, td):
+            d.bucket_indices = {k: list(v) for k, v in buckets.items()}
+        JD.AspectBucketDataset.partition_for_host(jd, 2, rank)
+        TD.AspectBucketDataset.partition_for_host(td, 2, rank)
+        assert td.bucket_indices == jd.bucket_indices
+        assert sum(map(len, td.bucket_indices.values())) == 7
+        with pytest.raises(ValueError, match="re-partition"):
+            td.partition_for_host(2, 1 - rank)
     cfg = TConfig.from_dict({"global_config": {"cache": {
-        "partitioned": True, "cache_dir": str(tmp_path)}}})
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TD.create_dataset(cfg, process_count=2, process_index=1)
+        "partitioned": True, "cache_dir": str(tmp_path)}},
+        "data": {"train_data_dir": [str(tmp_path / "none")]}})
+    ds = TD.create_dataset(cfg, process_count=2, process_index=1)
+    assert ds.cache.cache_dir == tmp_path / "host-001"
+    assert ds._partition == (2, 1)

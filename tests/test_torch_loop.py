@@ -17,7 +17,8 @@
   are not replayed (JAX ``tests/test_loop.py::test_resume_continues``);
   an explicit ``--resume`` path without ``state/`` raises.
 * A refiner checkpoint fine-tunes and re-exports its layout; the
-  refusals raise: an inpainting checkpoint, a mesh, ``--device cuda``
+  refusals raise: an inpainting checkpoint, a mesh with a tensor axis
+  (ROADMAP item 14b), ``--device cuda``
   without a card; LoRA, refused before it was ported, builds.
 """
 import json
@@ -362,8 +363,11 @@ def test_refusals(tmp_path, case, monkeypatch):
                        for p in trainer.model.unet.parameters())
         return
     elif case == "mesh":
-        cfg.tpu.mesh_shape = [2, 1, 1]
-        match = "item 14"
+        # a data or fsdp mesh trains now (tests/test_torch_multiprocess.py);
+        # a tensor axis is refused, before the shape is held against the
+        # world size (one process here)
+        cfg.tpu.mesh_shape = [1, 1, 2]
+        match = "item 14b"
     else:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         device, error, match = "cuda", RuntimeError, "is_available"
