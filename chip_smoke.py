@@ -20,8 +20,12 @@ Phases, each printing what it found:
    dk/dv, bit-equal on a second launch), the fused bf16-SR AdamW
    (``torch.equal`` to plain; also the second half of a [10240, 1280]
    leaf at element base n/2, a ZeRO chunk, under hash and rbg noise,
-   ``torch.equal`` to the whole leaf's second half, and timed) and the
-   startup
+   ``torch.equal`` to the whole leaf's second half, and timed; and rank
+   1's megatron slices of that leaf laid out as JAX's [1280, 10240]: the
+   columns split 2 and 4 ways and the GEGLU's value and gate halves split
+   2 ways, each ``torch.equal`` to the same elements of the whole leaf's
+   update and to its plain version, hash (the strided instantiation)
+   and rbg, timed with its bound) and the startup
    probe; the flash kernels of
    the other precisions, fp16 (the Hopper kernels' second instantiation)
    and fp32 (``csrc/flash_f32.cu`` forward, ``csrc/flash_bwd_f32.cu``
@@ -83,7 +87,7 @@ Phases, each printing what it found:
    step's loss read after the run, steps 3-4 timed as one window between
    two synchronizes, steps 5-6 profiled for device time and idle share,
    peak memory, launches); then, on run A's model, the precompute's rate
-   over 64 PNGs through the trainer's own precompute, one image of each
+   over 32 PNGs through the trainer's own precompute, one image of each
    size through the fp32 VAE kernels against plain, a b1 forward and
    backward on the 1216x832 bucket's cache entry through the kernels
    against plain, and the convolutions' device time with cuDNN's
@@ -120,7 +124,7 @@ Phases, each printing what it found:
    its checkpoint: (13a) ``aot.export_text2img`` at 1024^2, b1, Euler,
    8 steps, guidance 5, then ``AOTPipeline.load``, which captures the
    encode, the CFG UNet call and the fp32 VAE decode as CUDA graphs in one
-   pool (capture s, graphs and their nodes, pool GiB logged); 20 images
+   pool (capture s, graphs and their nodes, pool GiB logged); 8 images
    through the graphs and 3 through the eager kernel path (UNet wall ms a
    step, median and p90, s an image, one image's latents profiled for
    device busy ms and idle share), the graph latents against the eager
@@ -146,7 +150,7 @@ Phases, each printing what it found:
    whose gradients must be ``torch.equal`` to "full"'s (or within phase
    7's bar, said so), the UNet kernels launched in it, its peak GiB and
    the GiB of the outputs it keeps, then one profiled train step for
-   "full", "dots" and "dots_small" on one warm train state (device ms,
+   "full" and "dots" on one warm train state (device ms,
    idle share, launches, peak GiB); (14b) the bf16 AdamW under each
    layout (per-leaf hash and rbg, flat, hybrid, stacked): two steps, the
    optimizer's ms by CUDA events, kernel #7's launches a step by
@@ -177,7 +181,16 @@ Phases, each printing what it found:
    and W-row micro-batches: 2 epochs, then 1 with the final checkpoint
    and ``--resume``, ``torch.equal`` to the uninterrupted run on the
    card, each rank's cache under ``host-NNN`` (one rank: the plain cache,
-   as JAX's).
+   as JAX's);
+16. the tensor axis, in phase 15's rank processes on 15b's model: mesh
+   [1,1,W] over the W cards, phase 5's text-to-image call through
+   ``SDXLPipeline(mesh=)`` and phase 6's 3 steps with the UNet's
+   transformer blocks megatron-split (``shard_train_state(unet=)``); one
+   card runs the tensor code path at T = 1 and must give phase 5's
+   latents and phase 6's losses, grad norms and parameter digests bit for
+   bit; more cards run NCCL at T = W within phase 15's bars; each rank's
+   step device ms, NCCL device ms, peak GiB and #7 launches a step beside
+   the card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (``launches``: the sum over the main paths, ``launches_by_path``:
@@ -387,6 +400,10 @@ KERNELS.update({
     # instantiation), in place of JAX's XLA chain on rbg planes
     "fused_adamw_rbg": ("cuda", SRC + "csrc/fused_adamw.cu",
                         TPU + "fused_adamw.py:53"),
+    # its hash variant over a megatron slice, whose elements map to their
+    # places in the whole leaf (the kStrided template instantiation)
+    "fused_adamw_strided": ("cuda", SRC + "csrc/fused_adamw.cu",
+                            TPU + "fused_adamw.py:53"),
     "probe": ("triton", SRC + "ops/probe.py", TPU + "probe.py:106")})
 # the kernels each main path launches (the VAE's GroupNorm is fp32)
 SERVING_KERNELS = ("gn_silu_fwd", "gn_silu_fwd_f32", "flash_fwd")
@@ -898,6 +915,88 @@ def _adamw_base_case(gen) -> dict:
     return res
 
 
+# (kind, tensor size) of the megatron slices #7 is held on in phase 3:
+# rank 1's slice of a [10240, 1280] GEGLU projection in the JAX layout
+# ([in, out] in memory), whose column slices are strided
+STRIDED_SLICES = (("column", 2), ("column", 4), ("geglu", 2))
+
+
+def _adamw_strided_case(gen) -> dict:
+    """Kernel #7 over megatron slices (``STRIDED_SLICES``) of a [10240,
+    1280] leaf laid out as JAX's [1280, 10240]: the slice's elements are
+    runs of 10240 / T (a GEGLU's: its value and gate halves, each 5120 /
+    T) 10240 apart, and the hash variant maps each to its place in the
+    whole leaf (the ``kStrided`` instantiation; rbg: the whole leaf's
+    planes gathered through the map).  Every output ``torch.equal`` to
+    the same elements of the whole leaf's update by the kernel and to the
+    slice's own plain version; each slice timed, with its bound."""
+    from sdxl_training_improvements_tpu_torch.ops import fused_adamw as O
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    shape = (10240, 1280)
+
+    def randn(scale):  # [out, in] with the JAX layout's strides
+        return scale * torch.randn(shape[::-1], generator=gen,
+                                   device="cuda").t()
+
+    p, g, m = randn(0.05).bfloat16(), randn(1e-3), randn(1e-4).bfloat16()
+    v = (1e-8 * randn(1.0).square()).bfloat16()
+    shift = randn(1e-7).bfloat16()
+    planes = O.draw_planes(p.numel(), gen)
+    like = torch.empty_strided(p.shape, p.stride(), device="meta")
+    rows = []
+    for noise in ("hash", "rbg"):
+        kw = dict(lr_eff=1e-4 * (1 - 0.999 ** 3) ** 0.5, decay_amt=5.02e-3,
+                  seed0=0x9E3779B9, seed1=0x7F4A7C15)
+        whole = O.fused_adamw_cuda(
+            p, g, m.clone(), v.clone(), shift.clone(), **kw,
+            planes=planes if noise == "rbg" else None)
+        for kind, t in STRIDED_SLICES:
+            split = M.TPSplit(dim=0, jax_dim=1, size=t, rank=1,
+                              glu=kind == "geglu", like=like)
+            imap = split.index_map()
+            local = [split.cut(x) for x in (p, g, m, v, shift)]
+            n = local[0].numel()
+            skw = dict(kw, imap=imap, planes=None if noise == "hash" else
+                       planes[:, imap.indices(0, n, planes.device)
+                              ].contiguous())
+            plain = O.fused_adamw_reference(*local, **skw)
+            got = O.fused_adamw_cuda(local[0], local[1],
+                                     *(x.clone() for x in local[2:]), **skw)
+            names = ("delta", "m", "v", "shift")
+            equal = {k: torch.equal(a, split.cut(w)) and torch.equal(a, b)
+                     for k, a, w, b in zip(names, got, whole, plain)}
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, plain))
+            state = [x.clone() for x in local[2:]]
+            moved = (16 + 4 + (8 if noise == "rbg" else 0)) * n
+            bnd = bound(OPS_PER_ELEMENT["fused_adamw"] * n, moved,
+                        PEAK_FP32)
+            row = dict(
+                kind=kind, tensor=t, rank=1, noise=noise, elements=n,
+                index_map=str(imap), equal=all(equal.values()), err=err,
+                ms=time_ms(lambda: O.fused_adamw_cuda(
+                    local[0], local[1], *state, **skw)),
+                device_ms=device_ms(lambda: O.fused_adamw_cuda(
+                    local[0], local[1], *state, **skw)),
+                plain_ms=None, bound_ms=bnd[0], bound_by=bnd[1])
+            if not rows:  # the kernel line's case
+                row["plain_ms"] = time_ms(lambda: O.fused_adamw_reference(
+                    *local, **skw), warmup=1, iters=3, repeats=3)
+            rows.append(row)
+            log(f"fused_adamw {noise} over a megatron slice ({kind}, rank 1 "
+                f"of {t}) of {list(shape)} in the JAX layout, {n} elements, "
+                f"{imap}: torch.equal to the whole leaf's update and to "
+                f"plain {equal}, max_abs_err {err:.3e}; kernel "
+                f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}; "
+                f"bound {bnd[0]:.4f} ms, {bnd[1]}); plain "
+                f"{fmt_ms(row['plain_ms'])}")
+            check(row["equal"], f"fused_adamw {noise} {kind} slice of {t}: "
+                  f"not equal {equal}")
+            del plain, got, state, local
+        del whole
+    return rows
+
+
 def _probe_case():
     from sdxl_training_improvements_tpu_torch.ops import probe as P
     res = P.run_probe()
@@ -933,6 +1032,7 @@ def phase_kernels() -> dict:
                    for shape in FLASH_BWD_SHAPES + ENTRY_FLASH_SITES],
         adamw=[_adamw_case(*case, gen) for case in ADAMW_SHAPES],
         adamw_base=_adamw_base_case(gen),
+        adamw_strided=_adamw_strided_case(gen),
         probe=_probe_case())
     for dt in FLASH_DTYPES:
         res["flash" + SUFFIX[dt]] = [
@@ -1129,6 +1229,9 @@ def _counters() -> dict:
                     O.fused_adamw_cuda.launches_by_noise.__getitem__, "hash"),
                 "fused_adamw_rbg": functools.partial(
                     O.fused_adamw_cuda.launches_by_noise.__getitem__, "rbg"),
+                "fused_adamw_strided": functools.partial(
+                    O.fused_adamw_cuda.launches_by_noise.__getitem__,
+                    "strided"),
                 "probe": lambda: P.probe_cuda.launches}
     for dt, sfx in SUFFIX.items():
         counters.update({
@@ -1260,7 +1363,8 @@ def phase_slice(model, kernels=SERVING_KERNELS, label: str = "slice",
     check(len(step_ms) == STEPS, f"{len(step_ms)} UNet calls")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the {label} path")
-    return dict(launches=launches, finite=finite, peak_gb=peak_gb)
+    return dict(launches=launches, finite=finite, peak_gb=peak_gb,
+                latents=latents.cpu())
 
 
 # ------------------------------------------------ phase 10: rest of serving
@@ -1509,7 +1613,7 @@ def phase_rest_of_serving(model, tmp: Path) -> dict:
 # images through the graphs and through the eager kernel path (13a), the
 # DeepCache artifact's (13b), requests timed (13c); the graph latents
 # against the eager kernel path at the same seeds
-AOT_IMAGES, AOT_EAGER_IMAGES, AOT_REQUESTS = 20, 3, 5
+AOT_IMAGES, AOT_EAGER_IMAGES, AOT_REQUESTS = 8, 3, 5
 AOT_REL_L2_TOL = 1e-3  # the same kernels in the same order: 0 expected
 AOT_KERNELS = ("gn_silu_fwd", "gn_silu_fwd_f32", "flash_fwd")
 
@@ -2179,7 +2283,7 @@ ENTRY_PROFILED = (5, 6)  # and the steps profiled as another
 # the precompute's rate: 16 seeded PNGs (8 at each bucket) copied to 4
 # paths each, every path its own cache entry (16 batches of 4; 16 paths
 # each until the script outgrew its time limit)
-ENTRY_BULK_UNIQUE, ENTRY_BULK_COPIES = 16, 4
+ENTRY_BULK_UNIQUE, ENTRY_BULK_COPIES = 16, 2
 
 
 def _entry_config(root: Path, name: str, images: str = "images",
@@ -2625,7 +2729,7 @@ LORA_ERR_RATIO = 1.25
 # step and the probe, plus the fused AdamW under int8 moments
 OPT_KERNELS = ("gn_silu_fwd", "gn_silu_bwd", "flash_fwd", "flash_bwd_dq",
                "flash_bwd_dkv", "probe")
-SF_STEPS, SF_WARMUP, SOAP_STEPS, INT8_STEPS, EMA_STEPS = 3, 2, 2, 3, 2
+SF_STEPS, SF_WARMUP, SOAP_STEPS, INT8_STEPS, EMA_STEPS = 3, 2, 2, 2, 2
 # SOAP at full width does not fit 80 GB with its defaults (the reckoning
 # is logged): the cuts, in the order tried
 SOAP_CUTS = (("tpu", "grad_accum_dtype", "bfloat16"),
@@ -3272,7 +3376,7 @@ LAYOUT_STEPS = 2  # the same at each optimizer layout
 # 14a's policies that also take a profiled train step (every policy takes
 # the gradient check): the default, the one that keeps the most, and the
 # one that keeps the least
-PROFILED_14A = ("full", "dots", "dots_small")
+PROFILED_14A = ("full", "dots")
 # (layout, noise) of 14b: the default, its rbg twin and the three packings
 LAYOUTS_14B = (("per_leaf", "hash"), ("per_leaf", "rbg"), ("flat", "hash"),
                ("hybrid", "hash"), ("stacked", "hash"))
@@ -3844,10 +3948,13 @@ def _opt_state_gib(state) -> float:
                if k.startswith("opt.")) / 2 ** 30
 
 
-def _mesh_steps(model, start, ref, shape, shard, smi) -> dict:
-    """Phase 15b on this rank: the default ``Config()`` on mesh ``shape``
-    from the seeded parameters ``start``, ``TRAIN_STEPS`` steps on phase
-    6's batch; the last under the profiler."""
+def _mesh_steps(model, start, ref, shape, shard, smi, label="15b",
+                place: bool = False) -> dict:
+    """Phase 15b (16) on this rank: the default ``Config()`` on mesh
+    ``shape`` from the seeded parameters ``start``, ``TRAIN_STEPS`` steps
+    on phase 6's batch; the last under the profiler.  ``place``: the
+    model's UNet is put on the mesh's tensor axis, in place
+    (``shard_train_state(unet=)``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from sdxl_training_improvements_tpu_torch.config import Config
@@ -3865,7 +3972,7 @@ def _mesh_steps(model, start, ref, shape, shard, smi) -> dict:
         for k, p in model.trainable_params().items():
             p.copy_(start[k])
     batch = {k: v.to(DEVICE) for k, v in ref["batch"].items()}
-    names = TRAIN_KERNELS + ("probe",)
+    names = TRAIN_KERNELS + ("fused_adamw_strided", "probe")
     _zero_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3874,7 +3981,8 @@ def _mesh_steps(model, start, ref, shape, shard, smi) -> dict:
     step = make_train_step(model.unet_apply, NoiseSchedule.from_config(cfg),
                            opt, cfg, mesh=mesh)
     state = shard_train_state(create_train_state(
-        model.trainable_params(), opt, seed=cfg.training.seed), mesh, shard)
+        model.trainable_params(), opt, seed=cfg.training.seed), mesh, shard,
+        unet=model.unet if place else None)
     opt_gib = _opt_state_gib(state)
     rows = []
     for i in range(TRAIN_STEPS):
@@ -3902,64 +4010,61 @@ def _mesh_steps(model, start, ref, shape, shard, smi) -> dict:
     launches = _launches(names)
     out = dict(
         mesh=list(shape), shard_params=shard,
-        sharded_leaves=len(state.zero.chunks), opt_state_gib=opt_gib,
+        sharded_leaves=len(state.zero.chunks),
+        split_leaves=len(state.zero.tp), opt_state_gib=opt_gib,
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         losses=[r["loss"] for r in rows],
         grad_norms=[r["grad_norm"] for r in rows],
         step_ms=[r["step_ms"] for r in rows],
         wall_ms=[r["wall_ms"] for r in rows],
         device_ms=rows[-1]["device_ms"], nccl_ms=rows[-1]["nccl_ms"],
-        adamw_launches_per_step=rows[-1]["launches"]["fused_adamw"],
+        adamw_launches_per_step=rows[-1]["launches"]["fused_adamw"]
+        + rows[-1]["launches"]["fused_adamw_strided"],
+        strided_launches_per_step=rows[-1]["launches"][
+            "fused_adamw_strided"],
         launches=launches)
-    log(f"[rank {rank}] phase 15b mesh {list(shape)} shard_params {shard} "
-        f"({smi}): sharded leaves {out['sharded_leaves']}; step ms (CUDA "
+    log(f"[rank {rank}] phase {label} mesh {list(shape)} shard_params "
+        f"{shard} ({smi}): sharded leaves {out['sharded_leaves']}, split "
+        f"leaves {out['split_leaves']}; step ms (CUDA "
         f"events) {[round(x, 2) for x in out['step_ms']]}; profiled step "
         f"device {out['device_ms']:.2f} ms, NCCL kernels "
         f"{out['nccl_ms']:.3f} ms; #7 launches a step "
-        f"{out['adamw_launches_per_step']}; optimizer state "
+        f"{out['adamw_launches_per_step']} (strided "
+        f"{out['strided_launches_per_step']}); optimizer state "
         f"{opt_gib:.3f} GiB; peak {out['peak_gib']:.2f} GiB; losses "
         f"{out['losses']}; grad norms {out['grad_norms']}")
     world = M.process_count()
     if world == 1:  # bit for bit phase 6's meshless steps
         check(out["losses"] == ref["losses"]
               and out["grad_norms"] == ref["grad_norms"],
-              f"15b {list(shape)}: losses {out['losses']} / grad norms "
+              f"{label} {list(shape)}: losses {out['losses']} / grad norms "
               f"{out['grad_norms']} are not phase 6's {ref['losses']} / "
               f"{ref['grad_norms']}")
         check(torch.equal(param_digest(state.params), ref["final"]),
-              f"15b {list(shape)}: parameters differ from phase 6's")
+              f"{label} {list(shape)}: parameters differ from phase 6's")
     else:  # JAX's bars (tests/test_trainer.py:268-274)
         for a, b in zip(out["losses"], ref["losses"]):
             check(abs(a - b) <= MULTI_LOSS_RTOL * abs(b),
-                  f"15b {list(shape)}: loss {a} vs phase 6's {b}")
-    for k in TRAIN_KERNELS + ("probe",):
-        check(launches[k] > 0, f"15b {list(shape)}: kernel {k} was not "
+                  f"{label} {list(shape)}: loss {a} vs phase 6's {b}")
+    # a split leaf laid out [out, in] (the seeded model's) is strided in
+    # a row split and in the GEGLU's halves
+    used = TRAIN_KERNELS + ("probe",) + (
+        ("fused_adamw_strided",) if out["split_leaves"] else ())
+    for k in used:
+        check(launches[k] > 0, f"{label} {list(shape)}: kernel {k} was not "
               "launched")
     out["params"] = ({k: p.detach().clone() for k, p in state.params.items()}
-                     if world > 1 else None)
+                     if world > 1 and not out["split_leaves"] else None)
     del state, step, opt
     return out
 
 
-def _phase15b(work: Path, smi: str) -> dict:
-    """Phase 15b on this rank: the full-width default model, mesh [W,1,1]
-    then [1,W,1] with ``shard_params``."""
-    from sdxl_training_improvements_tpu_torch.config import Config
-    from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
-    from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
+def _phase15b(model, start, ref, smi: str) -> dict:
+    """Phase 15b on this rank: the full-width default model from the
+    seeded parameters ``start``, mesh [W,1,1] then [1,W,1] with
+    ``shard_params``."""
     from sdxl_training_improvements_tpu_torch.parallel import mesh as M
     world = M.process_count()
-    ref = torch.load(work / "phase6.pt")
-    cfg = Config()
-    model = SDXLModel.create(
-        tiny=False, dtype=torch.bfloat16, device=DEVICE,
-        generator=torch.Generator(device=DEVICE).manual_seed(SEED),
-        unet_config=UNetConfig.sdxl(remat=cfg.tpu.remat,
-                                    remat_policy=cfg.tpu.remat_policy))
-    check(torch.equal(param_digest(model.trainable_params()), ref["initial"]),
-          "15b: the seeded parameters differ from phase 6's")
-    start = {k: p.detach().clone()
-             for k, p in model.trainable_params().items()}
     dp = _mesh_steps(model, start, ref, (world, 1, 1), False, smi)
     dp_params = dp.pop("params")
     zero = _mesh_steps(model, start, ref, (1, world, 1), True, smi)
@@ -3973,9 +4078,67 @@ def _phase15b(work: Path, smi: str) -> dict:
         log(f"[rank {M.process_index()}] 15b [1,{world},1] against "
             f"[{world},1,1]: max parameter difference {worst:.3e}")
         check(worst <= MULTI_PARAM_ATOL, f"15b parameters differ by {worst}")
-    del model, start, dp_params, zero_params
-    _free()
+    del dp_params, zero_params
     return dict(dp=dp, zero=zero)
+
+
+def _phase16(model, start, ref, smi: str) -> dict:
+    """Phase 16 on this rank: the full-width default model on mesh
+    [1,1,W], megatron-split over the W cards: phase 5's text-to-image
+    call through ``SDXLPipeline(mesh=)`` (a split copy of the UNet), then
+    phase 6's 3 steps with the UNet split in place.  One card: the tensor
+    code path at T = 1, latents, losses, grad norms and parameter digests
+    bit for bit phases 5 and 6; more: NCCL at T = W, within phase 15's
+    bars (the latents within ``SLICE_REL_L2_TOL``)."""
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    from sdxl_training_improvements_tpu_torch.pipelines import SDXLPipeline
+    from sdxl_training_improvements_tpu_torch.training.validation import (
+        latents_to_images)
+    rank, world = M.process_index(), M.process_count()
+    shape = (1, 1, world)
+    with torch.no_grad():
+        for k, p in model.trainable_params().items():
+            p.copy_(start[k])
+    mesh = M.create_mesh(shape, device_type=DEVICE)
+    pipe = SDXLPipeline.from_model(model, mesh=mesh)
+    _zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    latents = pipe(["a photograph of an astronaut riding a horse"],
+                   height=SERVE_SIZE, width=SERVE_SIZE,
+                   num_inference_steps=STEPS, guidance_scale=5.0, seed=SEED,
+                   return_latents=True)
+    with torch.inference_mode():  # the image, as phase 5's call makes it
+        image = latents_to_images(model.decode_latents(latents))[0]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = _launches(SERVING_KERNELS)
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase5 = ref["latents"].to(latents.device)
+    equal = torch.equal(latents, phase5)
+    rel = ((latents.float() - phase5.float()).norm()
+           / phase5.float().norm()).item()
+    log(f"[rank {rank}] phase 16 serving on mesh {list(shape)} ({smi}): "
+        f"{SERVE_SIZE}x{SERVE_SIZE} euler {STEPS} steps in {serve_s:.2f} s, peak "
+        f"{serve_peak:.2f} GiB; latents vs phase 5's: torch.equal {equal}, "
+        f"rel L2 {rel:.3e}; launches {serve_launches}")
+    if world == 1:
+        check(equal, "16: the latents are not phase 5's")
+    else:
+        check(rel <= SLICE_REL_L2_TOL, f"16: latents rel L2 {rel}")
+    check(image.shape == (SERVE_SIZE, SERVE_SIZE, 3)
+          and image.dtype == np.uint8, f"16: image {image.shape}")
+    for k, n in serve_launches.items():
+        check(n > 0, f"16 serving: kernel {k} was not launched")
+    del pipe, latents, image
+    _free()
+    train = _mesh_steps(model, start, ref, shape, False, smi, label="16",
+                        place=True)
+    train.pop("params")
+    return dict(serve=dict(seconds=serve_s, peak_gib=serve_peak,
+                           equal=equal, rel_l2=rel,
+                           launches=serve_launches), train=train)
 
 
 def _multi_entry(work: Path, name: str, epochs: int, resume: bool = False,
@@ -4062,9 +4225,12 @@ def _phase15c(work: Path, smi: str) -> dict:
 
 
 def _phase15_rank(work: str) -> None:
-    """One rank of phase 15 (``python chip_smoke.py --phase15-rank DIR``
-    under the env triple): 15a, 15b, 15c; its results to
-    ``DIR/rank<r>.json``."""
+    """One rank of phases 15 and 16 (``python chip_smoke.py --phase15-rank
+    DIR`` under the env triple): 15a, 15b, 16 on 15b's model, 15c; its
+    results to ``DIR/rank<r>.json``."""
+    from sdxl_training_improvements_tpu_torch.config import Config
+    from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
+    from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
     from sdxl_training_improvements_tpu_torch.parallel import dryrun
     from sdxl_training_improvements_tpu_torch.parallel import mesh as M
     work = Path(work)
@@ -4075,12 +4241,28 @@ def _phase15_rank(work: str) -> None:
     losses = dryrun.dryrun_multichip(
         world, DEVICE, log=lambda m: log(f"[rank {rank}] 15a {m}"))
     t1 = time.perf_counter()
-    steps = _phase15b(work, smi)
+    ref = torch.load(work / "phase6.pt")
+    cfg = Config()
+    model = SDXLModel.create(
+        tiny=False, dtype=torch.bfloat16, device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        unet_config=UNetConfig.sdxl(remat=cfg.tpu.remat,
+                                    remat_policy=cfg.tpu.remat_policy))
+    check(torch.equal(param_digest(model.trainable_params()), ref["initial"]),
+          "15b: the seeded parameters differ from phase 6's")
+    start = {k: p.detach().clone()
+             for k, p in model.trainable_params().items()}
+    steps = _phase15b(model, start, ref, smi)
     t2 = time.perf_counter()
-    entry = _phase15c(work, smi)
+    tensor = _phase16(model, start, ref, smi)
+    del model, start
+    _free()
     t3 = time.perf_counter()
-    out = dict(rank=rank, world=world, dryrun=losses, **steps, entry=entry,
-               seconds=dict(dryrun=t1 - t0, steps=t2 - t1, entry=t3 - t2))
+    entry = _phase15c(work, smi)
+    t4 = time.perf_counter()
+    out = dict(rank=rank, world=world, dryrun=losses, **steps, tp=tensor,
+               entry=entry, seconds=dict(dryrun=t1 - t0, steps=t2 - t1,
+                                         tensor=t3 - t2, entry=t4 - t3))
     (work / f"rank{rank}.json").write_text(json.dumps(out))
     M.barrier("phase 15 done")
     torch.distributed.destroy_process_group()
@@ -4134,14 +4316,17 @@ def phase_multi_card(record: dict, tmp: Path) -> dict:
     ranks = [json.loads((work / f"rank{r}.json").read_text())
              for r in range(world)]
     for r in ranks:
-        for key in ("dp", "zero"):
-            m = r[key]
-            log(f"phase 15b rank {r['rank']} of {world} mesh {m['mesh']} "
-                f"({smi}): step device {m['device_ms']:.2f} ms, NCCL "
-                f"{m['nccl_ms']:.3f} ms a step, peak {m['peak_gib']:.2f} "
-                f"GiB, optimizer state {m['opt_state_gib']:.3f} GiB, #7 "
-                f"{m['adamw_launches_per_step']} launches a step")
-    log(f"phase 15 wall time {time.perf_counter() - t0:.1f} s (ranks: "
+        for phase, m in (("15b", r["dp"]), ("15b", r["zero"]),
+                         ("16", r["tp"]["train"])):
+            log(f"phase {phase} rank {r['rank']} of {world} mesh "
+                f"{m['mesh']} ({smi}): step device {m['device_ms']:.2f} ms, "
+                f"NCCL {m['nccl_ms']:.3f} ms a step, peak "
+                f"{m['peak_gib']:.2f} GiB, optimizer state "
+                f"{m['opt_state_gib']:.3f} GiB, #7 "
+                f"{m['adamw_launches_per_step']} launches a step (strided "
+                f"{m['strided_launches_per_step']}), split leaves "
+                f"{m['split_leaves']}")
+    log(f"phases 15-16 wall time {time.perf_counter() - t0:.1f} s (ranks: "
         f"{[r['seconds'] for r in ranks]})")
     return ranks[0]
 
@@ -4275,8 +4460,18 @@ def kernel_report(k: dict, paths: dict) -> dict:
         rbg["ms"], rbg["plain_ms"],
         "[10240, 1280] bf16, fp32 g, rbg planes", rbg["bound"],
         (None, None))
+    strided = k["adamw_strided"]
+    st = next(r for r in strided if r["noise"] == "hash"
+              and (r["kind"], r["tensor"]) == STRIDED_SLICES[0])
+    measured["fused_adamw_strided"] = (
+        max(r["err"] for r in strided), st["ms"], st["plain_ms"],
+        f"rank 1's column slice of 2 of [10240, 1280] bf16 in the JAX "
+        f"layout, fp32 g, hash ({st['index_map']})",
+        (st["bound_ms"], st["bound_by"]), (None, None))
     device.update({"fused_adamw": adamw["dev"], "fused_adamw_rbg": rbg["dev"],
+                   "fused_adamw_strided": st["device_ms"],
                    "probe": k["probe"]["dev"]})
+    extra["fused_adamw_strided"] = {"slices": strided}
     for name, noise in (("fused_adamw", "hash"), ("fused_adamw_rbg", "rbg")):
         extra[name] = {"zero_chunk_at_base_n/2": k["adamw_base"][noise]}
     library_device["probe"] = k["probe"]["library_dev"]
@@ -4318,12 +4513,12 @@ def main() -> None:
     elapsed("phase 4")
     serving = phase_slice(model)
     elapsed("phase 5")
+    record: dict = {"latents": serving.pop("latents")}  # for phase 16
     with tempfile.TemporaryDirectory() as tmp:
         rest = phase_rest_of_serving(model, Path(tmp))
         entry_points = phase_serving_entry_points(model, Path(tmp))
         elapsed("phases 10 and 13")
     profile_unet_step(model)
-    record: dict = {}
     train = phase_train(model, cfg, record=record)
     phase_train_parity(model, cfg)
     elapsed("phases 6-7")
@@ -4343,7 +4538,7 @@ def main() -> None:
     elapsed("phase 14")
     with tempfile.TemporaryDirectory() as tmp:
         multi = phase_multi_card(record, Path(tmp))
-    elapsed("phase 15")
+    elapsed("phases 15-16")
     kernels["adamw_rbg"] = settings["checks"]["leaf"]
     kernels["adamw_rbg_errs"] = [settings["checks"][c]["err"]
                                  for c in ("leaf", "group")]
@@ -4371,7 +4566,11 @@ def main() -> None:
              "mesh [1,W,1] + shard_params (phase 15b, rank 0)":
                  multi["zero"]["launches"],
              "multi-rank entry point (phase 15c, rank 0)":
-                 multi["entry"]["launches"]}
+                 multi["entry"]["launches"],
+             "mesh [1,1,W] serving (phase 16, rank 0)":
+                 multi["tp"]["serve"]["launches"],
+             "mesh [1,1,W] training (phase 16, rank 0)":
+                 multi["tp"]["train"]["launches"]}
     log(json.dumps(kernel_report(kernels, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

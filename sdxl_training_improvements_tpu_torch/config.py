@@ -220,8 +220,8 @@ class TPUConfig:
     data) and ``shard_params`` ZeRO-shards the optimizer state, the EMA
     shadow and the reduced gradients of the large leaves over fsdp
     (``parallel/zero.py``; the parameters stay whole on every rank, where
-    JAX shards them too).  A tensor axis above 1 is refused (ROADMAP
-    queue 1, item 14b)."""
+    JAX shards them too).  A tensor axis above 1 splits the UNet's
+    transformer blocks megatron-style (``parallel/mesh.py`` ``tp_plan``)."""
 
     mesh_shape: Optional[List[int]] = None
     axis_names: List[str] = field(

@@ -18,7 +18,15 @@
 // element's flat index j = base + i in memory order, which is
 // ops/stochastic.py's counter_noise ("hash" noise); base is 0 for a whole
 // leaf and a ZeRO chunk's offset in its leaf, so that the chunks of a
-// sharded leaf draw the whole leaf's noise.  The "rbg" variant (template parameter
+// sharded leaf draw the whole leaf's noise.  A megatron slice of a leaf
+// (parallel/mesh.py TPSplit) is a strided set of the leaf's elements:
+// there element i is element k = base + i of the slice, and j is its
+// place in the whole leaf, j = off + (k / run) * stride + k % run, plus
+// jump in the second half of a run (k % run >= half: a GEGLU slice holds
+// [value_r | gate_r] in each row).  The map costs a division a element,
+// so it is a template instantiation of its own (kMap = kStrided), beside
+// the contiguous chunk's (kMap = kBase: j = base + i) and the whole
+// leaf's (kMap = kWhole: j = i), which keep their registers.  The "rbg" variant (template parameter
 // kPlanes) reads n0 and n1 from two uint32 planes drawn beforehand, n0 =
 // planes[i] and n1 = planes[n + i], as JAX's `_noise_planes` materialises
 // them.  The Pallas kernel draws the TPU's hardware random bits instead;
@@ -94,7 +102,15 @@ __device__ __forceinline__ float load_g<uint16_t>(const uint16_t* g,
   return bf16_to_f32(g[i]);
 }
 
-template <typename G, bool kPlanes, bool kBase>
+// the noise index of element i: the whole leaf's, a contiguous chunk's,
+// or a strided slice's (see the top of the file)
+enum : int { kWhole = 0, kBase = 1, kStrided = 2 };
+
+struct IndexMap {
+  uint32_t off, run, stride, half, jump;
+};
+
+template <typename G, bool kPlanes, int kMap>
 __global__ void __launch_bounds__(kThreads)
 fused_adamw_kernel(const uint16_t* __restrict__ p, const G* __restrict__ g,
                    uint16_t* __restrict__ m, uint16_t* __restrict__ v,
@@ -102,6 +118,7 @@ fused_adamw_kernel(const uint16_t* __restrict__ p, const G* __restrict__ g,
                    int64_t n, float neg_lr_eff, float decay_all,
                    const float* __restrict__ decay_vec, int64_t slice_n,
                    uint32_t seed0, uint32_t seed1, uint32_t base,
+                   IndexMap map,
                    const uint32_t* __restrict__ planes, float beta1,
                    float one_minus_beta1, float beta2, float one_minus_beta2,
                    float eps) {
@@ -114,10 +131,16 @@ fused_adamw_kernel(const uint16_t* __restrict__ p, const G* __restrict__ g,
       n0 = planes[i];
       n1 = planes[n + i];
     } else {
-      // a ZeRO chunk hashes the index of its element in the whole leaf
-      // (32-bit arithmetic: the noise index wraps as JAX's uint32 iota)
-      const uint32_t idx =
-          kBase ? static_cast<uint32_t>(i) + base : static_cast<uint32_t>(i);
+      // a ZeRO chunk or a megatron slice hashes the index of its element
+      // in the whole leaf (32-bit arithmetic: the noise index wraps as
+      // JAX's uint32 iota)
+      uint32_t idx = static_cast<uint32_t>(i);
+      if constexpr (kMap != kWhole) idx += base;
+      if constexpr (kMap == kStrided) {
+        const uint32_t q = idx / map.run;
+        const uint32_t r = idx - q * map.run;
+        idx = map.off + q * map.stride + r + (r >= map.half ? map.jump : 0u);
+      }
       n0 = lowbias32(idx ^ seed0);
       n1 = lowbias32(idx ^ seed1);
     }
@@ -166,25 +189,30 @@ template <typename G, bool kPlanes>
 int launch(const void* p, const void* g, void* m, void* v, void* sh,
            void* delta, int64_t n, float neg_lr_eff, float decay,
            const void* decay_vec, int64_t slice_n, uint32_t seed0,
-           uint32_t seed1, int64_t base, const void* planes, float beta1,
-           float one_minus_beta1, float beta2, float one_minus_beta2,
-           float eps, cudaStream_t stream) {
+           uint32_t seed1, int64_t base, IndexMap map, const void* planes,
+           float beta1, float one_minus_beta1, float beta2,
+           float one_minus_beta2, float eps, cudaStream_t stream) {
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond that
   if (blocks < 1) blocks = 1;
   // the add of a chunk's base costs the hash variant 3 registers (35
   // against 32: 3/4 of the threads resident), so a whole leaf (base 0,
-  // every one-card launch) takes the instantiation without it
-  auto kernel = fused_adamw_kernel<G, kPlanes, false>;
+  // every one-card launch) takes the instantiation without it, and only
+  // a strided slice (map.run != 0) the one with the division
+  auto kernel = fused_adamw_kernel<G, kPlanes, kWhole>;
   if constexpr (!kPlanes) {
-    if (base != 0) kernel = fused_adamw_kernel<G, false, true>;
+    if (map.run != 0) {
+      kernel = fused_adamw_kernel<G, false, kStrided>;
+    } else if (base != 0) {
+      kernel = fused_adamw_kernel<G, false, kBase>;
+    }
   }
   kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const uint16_t*>(p), static_cast<const G*>(g),
       static_cast<uint16_t*>(m), static_cast<uint16_t*>(v),
       static_cast<uint16_t*>(sh), static_cast<uint16_t*>(delta), n,
       neg_lr_eff, decay, static_cast<const float*>(decay_vec), slice_n,
-      seed0, seed1, static_cast<uint32_t>(base),
+      seed0, seed1, static_cast<uint32_t>(base), map,
       static_cast<const uint32_t*>(planes), beta1,
       one_minus_beta1, beta2, one_minus_beta2, eps);
   return static_cast<int>(cudaGetLastError());
@@ -194,19 +222,19 @@ template <typename G>
 int launch_noise(const void* planes, const void* p, const void* g, void* m,
                  void* v, void* sh, void* delta, int64_t n, float neg_lr_eff,
                  float decay, const void* decay_vec, int64_t slice_n,
-                 uint32_t seed0, uint32_t seed1, int64_t base, float beta1,
-                 float one_minus_beta1, float beta2, float one_minus_beta2,
-                 float eps, cudaStream_t st) {
+                 uint32_t seed0, uint32_t seed1, int64_t base, IndexMap map,
+                 float beta1, float one_minus_beta1, float beta2,
+                 float one_minus_beta2, float eps, cudaStream_t st) {
   if (planes) {
     return launch<G, true>(p, g, m, v, sh, delta, n, neg_lr_eff, decay,
-                           decay_vec, slice_n, seed0, seed1, base, planes,
-                           beta1, one_minus_beta1, beta2, one_minus_beta2,
-                           eps, st);
+                           decay_vec, slice_n, seed0, seed1, base, map,
+                           planes, beta1, one_minus_beta1, beta2,
+                           one_minus_beta2, eps, st);
   }
   return launch<G, false>(p, g, m, v, sh, delta, n, neg_lr_eff, decay,
-                          decay_vec, slice_n, seed0, seed1, base, planes,
-                          beta1, one_minus_beta1, beta2, one_minus_beta2,
-                          eps, st);
+                          decay_vec, slice_n, seed0, seed1, base, map,
+                          planes, beta1, one_minus_beta1, beta2,
+                          one_minus_beta2, eps, st);
 }
 
 }  // namespace
@@ -215,25 +243,32 @@ int launch_noise(const void* planes, const void* p, const void* g, void* m,
 // for the hash noise of (seed0, seed1), else 2 x n uint32 ("rbg").
 // decay_vec: null for one decay amount, else one fp32 amount per slice of
 // slice_n elements.  base: the index of element 0 in the whole leaf (a ZeRO
-// chunk's offset; 0 for a whole leaf), which the hash noise hashes.
+// chunk's offset; 0 for a whole leaf), which the hash noise hashes; with
+// run != 0 the index of element 0 in a megatron slice, whose elements lie
+// in the whole leaf at off + (k / run) * stride + k % run (+ jump where
+// k % run >= half).
 extern "C" int fused_adamw_bf16(const void* p, const void* g, int g_is_bf16,
                                 void* m, void* v, void* sh, void* delta,
                                 int64_t n, float neg_lr_eff, float decay,
                                 const void* decay_vec, int64_t slice_n,
                                 uint32_t seed0, uint32_t seed1,
-                                int64_t base, const void* planes, float beta1,
-                                float one_minus_beta1, float beta2,
-                                float one_minus_beta2, float eps,
-                                void* stream) {
+                                int64_t base, uint32_t off, uint32_t run,
+                                uint32_t stride, uint32_t half,
+                                uint32_t jump, const void* planes,
+                                float beta1, float one_minus_beta1,
+                                float beta2, float one_minus_beta2,
+                                float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const IndexMap map{off, run, stride, half, jump};
   if (g_is_bf16) {
     return launch_noise<uint16_t>(planes, p, g, m, v, sh, delta, n,
                                   neg_lr_eff, decay, decay_vec, slice_n,
-                                  seed0, seed1, base, beta1, one_minus_beta1,
-                                  beta2, one_minus_beta2, eps, st);
+                                  seed0, seed1, base, map, beta1,
+                                  one_minus_beta1, beta2, one_minus_beta2,
+                                  eps, st);
   }
   return launch_noise<float>(planes, p, g, m, v, sh, delta, n, neg_lr_eff,
                              decay, decay_vec, slice_n, seed0, seed1, base,
-                             beta1, one_minus_beta1, beta2, one_minus_beta2,
-                             eps, st);
+                             map, beta1, one_minus_beta1, beta2,
+                             one_minus_beta2, eps, st);
 }

@@ -23,14 +23,24 @@ generate.py``:
     ... --export-aot artifacts/sdxl_28step
     ... --aot artifacts/sdxl_28step
 
+    # over several cards, one process each: the UNet megatron-split over
+    # the tensor axis, the CFG rows over data x fsdp; rank 0 writes
+    torchrun --nproc-per-node 2 -m sdxl_training_improvements_tpu_torch.\
+        generate --model ... --prompt ... --mesh 1,1,2
+
 ``--model`` is a diffusers-layout directory, such as
 ``training.checkpoints.export_diffusers`` writes.  Images are written and
 read as PNG by ``png.py`` (no Pillow); ``--init`` and ``--mask`` also take
 ``.npy`` arrays (HxWx3 uint8; HxW, nonzero = repaint).  An init image or
 mask of another size is resized to ``--width`` x ``--height`` as JAX's
 Pillow path does (Lanczos; a mask nearest, before its 127 threshold).
-``--device cpu`` runs on the CPU.  Not ported: ``--mesh`` (ROADMAP queue
-1, item 14b).
+``--device cpu`` runs on the CPU.  ``--mesh DATA,FSDP,TENSOR`` runs one
+process a card, started by torchrun or by JAX's env triple
+(``COORDINATOR_ADDRESS``, ``SDXL_NUM_PROCESSES``, ``SDXL_PROCESS_ID``), as
+``main.py`` does (``parallel/mesh.py`` ``initialize_multihost``: rank r
+on ``cuda:LOCAL_RANK``, gloo ranks with ``--device cpu``); every rank
+samples and rank 0 writes the images.  ``--aot`` refuses ``--mesh``, as
+JAX's does.
 """
 from __future__ import annotations
 
@@ -64,7 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tiny", action="store_true",
                    help="tiny test topology (CI smoke)")
     p.add_argument("--mesh", default=None, metavar="DATA,FSDP,TENSOR",
-                   help="not ported: serving over several cards")
+                   help="serve over a mesh of ranks, one process a card "
+                        "(torchrun), e.g. 1,1,2: the UNet is megatron-"
+                        "split over the tensor axis and the CFG batch "
+                        "sharded over data x fsdp")
     p.add_argument("--init", action="append", default=None, metavar="IMAGE",
                    help="img2img init image, PNG or .npy (repeat to match "
                         "--prompt count; resized to --height x --width)")
@@ -199,12 +212,10 @@ def main(argv=None) -> int:
         raise SystemExit("--mask requires --init (the image to repaint)")
     if args.aot:
         return _run_aot(args, argv)
-    if args.mesh:
-        raise SystemExit("--mesh: serving over several cards is not ported "
-                         "(ROADMAP queue 1, item 14b)")
+    mesh, device = _mesh(args.mesh, args.device)
     method = None if args.method == "auto" else args.method
     common = dict(tiny=args.tiny, sampler=args.sampler,
-                  deep_cache=args.deep_cache, device=args.device)
+                  deep_cache=args.deep_cache, device=device, mesh=mesh)
     pipe = SDXLPipeline.from_pretrained(args.model, method=method, **common)
     print(f"sampler method: {pipe.method} ({args.sampler}"
           + (f", deep-cache {args.deep_cache}" if args.deep_cache > 1
@@ -245,8 +256,44 @@ def main(argv=None) -> int:
     else:
         images = pipe(args.prompt, height=args.height, width=args.width,
                       **run)
-    _write(images, args.out)
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    if M.is_main_process():
+        _write(images, args.out)
     return 0
+
+
+def _mesh(spec, device):
+    """(the mesh of ``--mesh``, or None, and this rank's device): joins the
+    cluster the environment names; a one-rank mesh without one serves as
+    no mesh does."""
+    if not spec:
+        return None, device
+    import math
+
+    import torch
+
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    try:
+        shape = [int(v) for v in spec.split(",")]
+        if len(shape) != 3:
+            raise ValueError
+    except ValueError:
+        raise SystemExit(f"--mesh wants 3 comma-separated sizes "
+                         f"(data,fsdp,tensor), got {spec!r}")
+    kind = torch.device(device).type
+    M.initialize_multihost(kind)
+    if not torch.distributed.is_initialized():
+        if math.prod(shape) == 1:
+            return None, device
+        raise SystemExit(f"--mesh {spec}: {math.prod(shape)} ranks, but no "
+                         "cluster is named; start one process a card with "
+                         "torchrun (or JAX's env triple)")
+    if kind == "cuda" and M.process_count() > 1:
+        device = f"cuda:{M.local_rank()}"
+    try:
+        return M.create_mesh(shape, device_type=kind), device
+    except ValueError as e:
+        raise SystemExit(f"--mesh {spec}: {e}")
 
 
 def cli() -> None:

@@ -37,6 +37,8 @@ from sdxl_training_improvements_tpu_torch.ops.attention import (
 from sdxl_training_improvements_tpu_torch.ops.groupnorm import (
     group_norm_bf16, group_norm_f32, groupnorm_silu, norm_arith_bf16_enabled,
     normalize_bf16)
+from sdxl_training_improvements_tpu_torch.parallel.tensor import (
+    copy_to_tensor, row_parallel)
 
 
 _CHECKPOINT_NAME = contextvars.ContextVar("sdxl_checkpoint_name",
@@ -167,7 +169,13 @@ class ResnetBlock2D(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention, self when ``context`` is None, else cross.
-    q/k/v projections have no bias, the output projection has one."""
+    q/k/v projections have no bias, the output projection has one.
+
+    On the mesh's tensor axis (``tp_group``, set by ``models/unet.py``
+    ``place_on_mesh``) the module holds megatron slices: q/k/v
+    column-split (this rank's heads), ``to_out.0`` row-split, its
+    partial outputs summed over the group and the bias added once after
+    (``parallel/tensor.py``); the attention runs on the local heads."""
 
     def __init__(self, dim: int, context_dim: int, num_heads: int,
                  head_dim: int):
@@ -178,18 +186,22 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(context_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
+        self.tp_group = None
 
     def forward(self, x, context=None):
-        ctx = x if context is None else context
+        x = copy_to_tensor(x, self.tp_group)
+        ctx = x if context is None else copy_to_tensor(context,
+                                                       self.tp_group)
         b, s, _ = x.shape
         t = ctx.shape[1]
-        q = self.to_q(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.to_k(ctx).view(b, t, self.num_heads, self.head_dim)
-        v = self.to_v(ctx).view(b, t, self.num_heads, self.head_dim)
+        q = self.to_q(x).view(b, s, -1, self.head_dim)
+        k = self.to_k(ctx).view(b, t, -1, self.head_dim)
+        v = self.to_v(ctx).view(b, t, -1, self.head_dim)
         with checkpoint_name("attn_core" if context is None
                              else "attn_core_cross"):
             out = dot_product_attention(q, k, v)
-        return self.to_out[0](out.reshape(b, s, -1))
+        return row_parallel(self.to_out[0], out.reshape(b, s, -1),
+                            self.tp_group)
 
 
 class GEGLU(nn.Module):
@@ -204,15 +216,19 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU -> Linear; index 1 is diffusers' parameter-free dropout."""
+    """GEGLU -> Linear; index 1 is diffusers' parameter-free dropout.  On
+    the tensor axis (``tp_group``) the GEGLU projection is column-split,
+    each rank holding [value_r | gate_r], and ``net.2`` row-split."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
                                   nn.Linear(dim * mult, dim)])
+        self.tp_group = None
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        h = self.net[0](copy_to_tensor(x, self.tp_group))
+        return row_parallel(self.net[2], h, self.tp_group)
 
 
 class LayerNormF32(nn.Module):

@@ -32,6 +32,12 @@ is (unless it is kept too).  ``norm_bf16_arith`` (None: the value of
 every recomputation, under every policy, as JAX's ``SDXLUNet.__call__``
 sets it for its trace.
 
+The tensor axis: ``place_on_mesh(unet, mesh)`` cuts the transformer
+blocks' split leaves (``parallel/mesh.py`` ``tp_plan``) to this rank's
+megatron slices and gives their attentions and feed-forwards the mesh's
+tensor group (``models/layers.py``); the rest of the UNet runs whole on
+every tensor rank.
+
 DeepCache (arXiv 2312.00858, inference only): ``return_deep=True``
 returns the tensor entering the last up stage beside the prediction;
 ``deep_cache=<that tensor>`` runs only ``conv_in``, down stage 0, the last
@@ -40,6 +46,7 @@ up stage and the head around it.  The deep tensor is NCHW
 """
 from __future__ import annotations
 
+import copy
 import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
@@ -50,9 +57,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from sdxl_training_improvements_tpu_torch.models.layers import (
-    Downsample2D, GroupNormSiLU, ResnetBlock2D, TimestepEmbedding,
-    Transformer2DModel, Upsample2D, current_checkpoint_name,
-    timestep_embedding)
+    Attention, Downsample2D, FeedForward, GroupNormSiLU, ResnetBlock2D,
+    TimestepEmbedding, Transformer2DModel, Upsample2D,
+    current_checkpoint_name, timestep_embedding)
 from sdxl_training_improvements_tpu_torch.ops.groupnorm import (
     norm_arith_bf16)
 
@@ -611,3 +618,41 @@ class SDXLUNet(nn.Module):
         if hasattr(block, "upsamplers"):
             x = block.upsamplers[0](x)
         return x
+
+
+def attention_heads(unet: nn.Module) -> Dict[str, int]:
+    """Each attention module's head count, by module name."""
+    return {n: m.num_heads for n, m in unet.named_modules()
+            if isinstance(m, Attention)}
+
+
+def place_on_mesh(unet: nn.Module, mesh, copy_module: bool = False):
+    """Put ``unet`` (whole) on the mesh's tensor axis: each leaf that
+    ``parallel/mesh.py`` ``tp_plan`` splits becomes this rank's slice (the
+    parameter's data replaced, so a dict of the parameters sees it), and
+    each split attention and feed-forward gets the tensor group.  Returns
+    (the module, the plan).  ``copy_module``: place a copy, which shares
+    every unsplit parameter and buffer with ``unet`` (serving: the
+    caller's UNet stays whole).  A tensor axis of 1 splits nothing."""
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    from sdxl_training_improvements_tpu_torch.parallel.tensor import (
+        maybe_group)
+    params = dict(unet.named_parameters())
+    plan = M.tp_plan(params, mesh, attention_heads(unet))
+    if copy_module:
+        memo = {id(t): t for n, t in params.items() if n not in plan}
+        memo.update({id(b): b for b in unet.buffers()})
+        memo.update({id(params[n]): nn.Parameter(
+            s.cut(params[n].detach()), requires_grad=params[n].requires_grad)
+            for n, s in plan.items()})
+        unet = copy.deepcopy(unet, memo)
+    else:
+        with torch.no_grad():
+            for n, s in plan.items():
+                params[n].data = s.cut(params[n].data)
+    group = maybe_group(mesh)
+    for name, m in unet.named_modules():
+        if isinstance(m, (Attention, FeedForward)):
+            first = next(n for n, _ in m.named_parameters())
+            m.tp_group = group if f"{name}.{first}" in plan else None
+    return unet, plan

@@ -6,7 +6,9 @@ arithmetic, so both packages prepare an image to the same bits);
 ``png_unfilter`` undoes the PNG row filters for ``png.read_png``.
 
 The library is compiled into the package's ``_build/`` directory, named by
-a hash of the source and the flags.  The JAX package falls back to PIL
+a hash of the source and the flags; one thread of a process builds it (the
+precompute's decode threads reach it together on a cold checkout), and
+processes build under their own temporary names.  The JAX package falls back to PIL
 when the build fails; the port has no such fallback (the card's machine
 has no Pillow), so a failed build raises.
 """
@@ -17,6 +19,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +27,8 @@ import numpy as np
 _SRC = Path(__file__).resolve().parent / "image_ops.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
+
+_BUILD_LOCK = threading.Lock()
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F32P = ctypes.POINTER(ctypes.c_float)
@@ -35,16 +40,17 @@ def build() -> Path:
     digest = hashlib.sha256(_SRC.read_bytes() + " ".join(FLAGS).encode()
                             ).hexdigest()[:16]
     lib = BUILD_DIR / f"libimage_ops_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *FLAGS, str(_SRC), "-o", str(tmp)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {_SRC}:\n{proc.stdout}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, lib)
+    with _BUILD_LOCK:
+        if lib.exists():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(["g++", *FLAGS, str(_SRC), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build {_SRC}:\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
     return lib
 
 

@@ -30,7 +30,12 @@ in memory, so a channels-last leaf gets the same noise on both paths;
 ``base`` adds an offset to it, so that a ZeRO chunk (``parallel/zero.py``:
 a contiguous run of a leaf in memory order) draws the noise of its
 elements' places in the whole leaf, and the chunks' updates, joined, are
-the whole leaf's.
+the whole leaf's.  ``imap`` (an ``IndexMap``) goes one step further for
+a megatron slice (``parallel/mesh.py`` ``TPSplit``), which is a strided
+set of its leaf's elements: element i of the launch is element
+``base + i`` of the slice, and its noise index is that element's place
+in the whole leaf, ``imap(base + i)``.  The rbg planes are drawn for the
+whole leaf and gathered through the same map by the caller.
 
 Rounding: the JAX chain, jitted by XLA:CPU, computes three of its
 ``a * b + c`` forms as fused multiply-adds (measured against the JAX
@@ -46,15 +51,42 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from sdxl_training_improvements_tpu_torch.ops.stochastic import (
-    add_stochastic_bits, addcdiv_stochastic_bits, counter_noise, fma_f32)
+    add_stochastic_bits, addcdiv_stochastic_bits, counter_noise,
+    counter_noise_at, fma_f32)
 
 Quad = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class IndexMap:
+    """A slice's element j (in its memory order) -> its index in the whole
+    leaf's memory order: ``off + (j // run) * stride + j % run``, plus
+    ``jump`` where ``j % run >= half`` (the gate half of a GEGLU row).  A
+    contiguous slice has ``run == stride`` and ``half == run``."""
+    off: int
+    run: int
+    stride: int
+    half: int
+    jump: int = 0
+
+    @property
+    def contiguous(self) -> bool:
+        return self.run == self.stride and self.half >= self.run
+
+    def indices(self, first: int, n: int, device=None) -> torch.Tensor:
+        """The whole leaf's indices of slice elements [first, first + n),
+        int64."""
+        j = torch.arange(first, first + n, dtype=torch.int64, device=device)
+        q, r = j // self.run, j % self.run
+        return (self.off + q * self.stride + r
+                + torch.where(r >= self.half, self.jump, 0))
 
 
 def memory_order(x: torch.Tensor) -> torch.Tensor:
@@ -67,12 +99,17 @@ def memory_order(x: torch.Tensor) -> torch.Tensor:
 
 
 def noise_planes(seed0: int, seed1: int, n: int, device=None,
-                 base: int = 0):
+                 base: int = 0, imap: Optional[IndexMap] = None):
     """The four 16-bit noise planes of one leaf, or of n elements of it
-    from ``base`` on (JAX ``_noise_planes``, "hash"): (n0, n0 >> 16, n1,
-    n1 >> 16)."""
-    n0 = counter_noise(seed0, n, device, base)
-    n1 = counter_noise(seed1, n, device, base)
+    from ``base`` on, or of a slice's elements through ``imap`` (JAX
+    ``_noise_planes``, "hash"): (n0, n0 >> 16, n1, n1 >> 16)."""
+    if imap is None:
+        n0 = counter_noise(seed0, n, device, base)
+        n1 = counter_noise(seed1, n, device, base)
+    else:
+        idx = imap.indices(base, n, device)
+        n0 = counter_noise_at(seed0, idx)
+        n1 = counter_noise_at(seed1, idx)
     return n0, n0 >> 16, n1, n1 >> 16
 
 
@@ -124,14 +161,16 @@ def adamw_bf16_chain(p, g, m, v, shift, lr_eff: float, decay_amt,
 def fused_adamw_reference(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                           seed0: int, seed1: int, beta1: float = 0.9,
                           beta2: float = 0.999, eps: float = 1e-8,
-                          planes=None, decay=None, base: int = 0) -> Quad:
+                          planes=None, decay=None, base: int = 0,
+                          imap: Optional[IndexMap] = None) -> Quad:
     """Plain version of the kernel: the chain with the counter-hash noise
-    over each element's memory position plus ``base``, or with ``planes``
-    ([2, n]) in its place; ``decay`` ([k]) as in the module docstring.
-    Returns new tensors."""
+    over each element's memory position plus ``base`` (through ``imap``
+    when given), or with ``planes`` ([2, n]) in its place; ``decay``
+    ([k]) as in the module docstring.  Returns new tensors."""
     flat = [memory_order(x) for x in (p, g, m, v, shift)]
     noise = (plane_noise(planes) if planes is not None
-             else noise_planes(seed0, seed1, p.numel(), p.device, base))
+             else noise_planes(seed0, seed1, p.numel(), p.device, base,
+                               imap))
     if decay is not None:
         decay_amt = _per_element(decay, p.numel())
     outs = adamw_bf16_chain(*flat, lr_eff, decay_amt, noise, beta1, beta2,
@@ -151,7 +190,8 @@ def _library():
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int64]
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int64]
-                   + [ctypes.c_uint32] * 2 + [ctypes.c_int64, ctypes.c_void_p]
+                   + [ctypes.c_uint32] * 2 + [ctypes.c_int64]
+                   + [ctypes.c_uint32] * 5 + [ctypes.c_void_p]
                    + [ctypes.c_float] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -165,10 +205,12 @@ def _f32(x: float) -> float:
 def fused_adamw_cuda(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                      seed0: int, seed1: int, beta1: float = 0.9,
                      beta2: float = 0.999, eps: float = 1e-8,
-                     planes=None, decay=None, base: int = 0) -> Quad:
+                     planes=None, decay=None, base: int = 0,
+                     imap: Optional[IndexMap] = None) -> Quad:
     """Launch the kernel (its rbg variant with ``planes``, [2, n] int32 on
-    p's device; ``base`` offsets the hash noise's index, as in
-    ``fused_adamw_reference``).  ``m``, ``v`` and ``shift`` are updated in
+    p's device; ``base`` and ``imap`` place the hash noise's index, as in
+    ``fused_adamw_reference``: a strided ``imap`` takes the kernel's
+    strided instantiation).  ``m``, ``v`` and ``shift`` are updated in
     place and returned with a new ``delta``; raises on what it does not
     take."""
     if p.device.type != "cuda":
@@ -191,6 +233,22 @@ def fused_adamw_cuda(p, g, m, v, shift, lr_eff: float, decay_amt: float,
     if base < 0 or base + n > 2 ** 32:
         raise ValueError(f"elements [{base}, {base + n}): the noise index "
                          "is 32-bit")
+    strided = (0, 0, 0, 0, 0)  # (off, run, stride, half, jump): none
+    if imap is not None and planes is None:
+        if imap.contiguous:  # a plain offset: the base instantiation
+            base += imap.off
+        else:
+            last = base + n - 1
+            top = (imap.off + (last // imap.run) * imap.stride
+                   + imap.run - 1 + imap.jump)
+            if top >= 2 ** 32 or min(imap.run, imap.half) < 1:
+                raise ValueError(f"index map {imap} reaches {top}: the "
+                                 "noise index is 32-bit")
+            strided = (imap.off, imap.run, imap.stride, imap.half,
+                       imap.jump)
+        if base + n > 2 ** 32:
+            raise ValueError(f"elements [{base}, {base + n}): the noise "
+                             "index is 32-bit")
     if planes is not None and (
             planes.dtype != torch.int32 or planes.shape != (2, n)
             or planes.device != p.device or not planes.is_contiguous()):
@@ -213,18 +271,22 @@ def fused_adamw_cuda(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                 delta.data_ptr(), n, _f32(-lr_eff), _f32(decay_amt),
                 decay.data_ptr() if decay is not None else None, slice_n,
                 int(seed0) & 0xFFFFFFFF, int(seed1) & 0xFFFFFFFF, int(base),
+                *strided,
                 planes.data_ptr() if planes is not None else None,
                 _f32(beta1), _f32(1.0 - beta1), _f32(beta2),
                 _f32(1.0 - beta2), _f32(eps), stream)
     if rc != 0:
         raise RuntimeError(f"fused_adamw launch failed: cudaError_t {rc}")
     fused_adamw_cuda.launches += 1
-    fused_adamw_cuda.launches_by_noise["hash" if planes is None
-                                       else "rbg"] += 1
+    fused_adamw_cuda.launches_by_noise[
+        "rbg" if planes is not None else "strided" if strided[1]
+        else "hash"] += 1
     return delta, m, v, shift
 
 
-# launches in all, and of each noise's variant ("hash", "rbg")
+# launches in all, and of each variant: "hash" (a whole leaf or a
+# contiguous piece of one), "strided" (hash noise through a strided index
+# map: its own instantiation), "rbg"
 fused_adamw_cuda.launches = 0
 fused_adamw_cuda.launches_by_noise = collections.Counter()
 
@@ -232,11 +294,12 @@ fused_adamw_cuda.launches_by_noise = collections.Counter()
 def fused_adamw_update(p, g, m, v, shift, lr_eff: float, decay_amt: float,
                        seed0: int, seed1: int, beta1: float = 0.9,
                        beta2: float = 0.999, eps: float = 1e-8,
-                       planes=None, decay=None, base: int = 0) -> Quad:
+                       planes=None, decay=None, base: int = 0,
+                       imap: Optional[IndexMap] = None) -> Quad:
     """The plain chain for CPU tensors, the kernel for CUDA tensors."""
     args = (p, g, m, v, shift, lr_eff, decay_amt, seed0, seed1, beta1,
             beta2, eps)
-    kw = dict(planes=planes, decay=decay, base=base)
+    kw = dict(planes=planes, decay=decay, base=base, imap=imap)
     if p.device.type == "cpu":
         return fused_adamw_reference(*args, **kw)
     if p.device.type != "cuda":

@@ -40,6 +40,12 @@ def counter_noise(seed: int, n: int, device=None, base: int = 0
     return lowbias32(i ^ (int(seed) & _M32))
 
 
+def counter_noise_at(seed: int, idx: torch.Tensor) -> torch.Tensor:
+    """``lowbias32(i ^ seed)`` at the int64 indices ``idx`` (mod 2**32):
+    a strided slice's noise (``ops/fused_adamw.py`` ``IndexMap``)."""
+    return lowbias32((idx & _M32) ^ (int(seed) & _M32))
+
+
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """fp32 ``a * b + c`` with one rounding, as an FMA instruction gives.
 

@@ -1,8 +1,8 @@
 """The sharded-training dry-run matrix at tiny shapes.
 
-Port of ``__graft_entry__.py:150-217`` ``dryrun_multichip(n)`` for the
-mesh axes the port trains over (data and fsdp; the tensor axis is ROADMAP
-item 14b).  Every rank of an initialised world of ``n`` ranks calls it
+Port of ``__graft_entry__.py:150-217`` ``dryrun_multichip(n)`` over
+the three mesh axes.  Every rank of an initialised world of ``n`` ranks
+calls it
 (``parallel/mesh.py`` ``initialize_multihost``: gloo ranks on the CPU or
 NCCL ranks on the cards); each variant builds its mesh, the optimizer
 and the step from a ``Config`` as JAX's ``_run_variant`` does, places
@@ -19,7 +19,13 @@ a fresh copy of the tiny bf16 UNet's parameters with ``shard_train_state``
 * ``ddpm_fsdp_only``: [1, n, 1], plain adamw, the dp-only run's 4 steps
   and batches, whose losses must agree with dp-only within JAX's 5e-3;
 * ``flow_matching_ema``: the first variant's mesh, flow matching, plain
-  adamw with a weight EMA.
+  adamw with a weight EMA;
+* ``ddpm_tp_only`` (n > 1): [1, 1, n], the UNet's transformer blocks
+  megatron-split (where the tiny UNet's heads divide by n), plain adamw,
+  the dp-only run's 4 steps and batches: its losses must agree with
+  dp-only within 5e-3 (JAX's dp / tp-only pair);
+* ``ddpm_dp_tp`` (n even, n > 2): [n/2, 1, 2], adamw_bf16 with rbg
+  noise, each split leaf drawing its slice of the whole leaf's planes.
 
     python -m sdxl_training_improvements_tpu_torch.parallel.dryrun [--device cpu]
 
@@ -29,6 +35,7 @@ prints each variant's losses.
 from __future__ import annotations
 
 import argparse
+import copy
 from typing import Dict, List, Optional
 
 import torch
@@ -42,7 +49,7 @@ def _variant(name: str, model, start: Dict[str, torch.Tensor], shape,
              device, *, method: str = "ddpm", optimizer: str = "adamw_bf16",
              accum: int = 2, micro_batch: Optional[int] = None,
              ema_decay: Optional[float] = None, moments_8bit: bool = False,
-             steps: int = 1, seed: int = 0,
+             noise: str = "hash", steps: int = 1, seed: int = 0,
              global_batch: Optional[int] = None, log=print) -> List[float]:
     """One cell: ``steps`` steps on mesh ``shape``; the per-step losses."""
     from sdxl_training_improvements_tpu_torch.config import Config
@@ -59,11 +66,15 @@ def _variant(name: str, model, start: Dict[str, torch.Tensor], shape,
     config.training.gradient_accumulation_steps = accum
     config.optimizer.optimizer_type = optimizer
     config.optimizer.moments_8bit = moments_8bit
+    config.tpu.sr_noise = noise
     config.training.ema_decay = ema_decay
     config.tpu.shard_params = True
     b = global_batch or 2 * n
     config.training.batch_size = b // accum
     config.tpu.micro_batch_size = micro_batch
+    split = M.axis_sizes(mesh)[M.TENSOR_AXIS] > 1
+    if split:  # the placement cuts the parameters: a copy of the model
+        model = copy.deepcopy(model)
     with torch.no_grad():  # a fresh copy of the parameters per variant
         for k, p in model.trainable_params().items():
             p.copy_(start[k])
@@ -73,7 +84,7 @@ def _variant(name: str, model, start: Dict[str, torch.Tensor], shape,
                            mesh=mesh)
     state = shard_train_state(
         create_train_state(model.trainable_params(), opt), mesh,
-        shard_params=True)
+        shard_params=True, unet=model.unet if split else None)
     ucfg = model.unet_config
     losses = []
     for i in range(steps):
@@ -99,7 +110,8 @@ def _variant(name: str, model, start: Dict[str, torch.Tensor], shape,
         if not torch.isfinite(p).all():
             raise RuntimeError(f"dryrun {name}: non-finite parameter {k}")
     log(f"dryrun_multichip[{name}]: mesh={dict(M.axis_sizes(mesh))} "
-        f"sharded leaves={len(state.zero.chunks)} loss={losses[-1]:.4f} OK")
+        f"sharded leaves={len(state.zero.chunks)} split leaves="
+        f"{len(state.zero.tp)} loss={losses[-1]:.4f} OK")
     return losses
 
 
@@ -140,16 +152,27 @@ def dryrun_multichip(n_devices: int, device="cpu", log=print
     out["flow_matching_ema"] = _variant(
         "flow_matching_ema", shape=full, method="flow_matching",
         optimizer="adamw", ema_decay=0.999, **run)
-    rel = [abs(a - c) / max(abs(c), 1e-12) for a, c in
-           zip(out["ddpm_dp_only"], out["ddpm_fsdp_only"])]
-    for i, r in enumerate(rel):
-        if not r < TRAJECTORY_RTOL:
-            raise RuntimeError(
-                f"trajectory divergence at step {i}: dp-mesh "
-                f"{out['ddpm_dp_only'][i]} vs fsdp-mesh "
-                f"{out['ddpm_fsdp_only'][i]} (rel {r:.2e})")
-    log(f"dryrun_multichip[trajectory_agreement]: {steps} steps, max rel "
-        f"divergence {max(rel):.2e} OK")
+    pairs = ["ddpm_fsdp_only"]
+    if n > 1:
+        out["ddpm_tp_only"] = _variant(
+            "ddpm_tp_only", shape=(1, 1, n), optimizer="adamw",
+            steps=steps, seed=7, global_batch=2 * n, **run)
+        pairs.append("ddpm_tp_only")
+    if n % 2 == 0 and n > 2:
+        out["ddpm_dp_tp"] = _variant(
+            "ddpm_dp_tp", shape=(n // 2, 1, 2), optimizer="adamw_bf16",
+            noise="rbg", **run)
+    rel = []
+    for other in pairs:
+        for i, (a, c) in enumerate(zip(out["ddpm_dp_only"], out[other])):
+            r = abs(a - c) / max(abs(c), 1e-12)
+            if not r < TRAJECTORY_RTOL:
+                raise RuntimeError(
+                    f"trajectory divergence at step {i}: dp-mesh {a} vs "
+                    f"{other} {c} (rel {r:.2e})")
+            rel.append(r)
+    log(f"dryrun_multichip[trajectory_agreement]: {steps} steps, "
+        f"{' and '.join(pairs)}, max rel divergence {max(rel):.2e} OK")
     log(f"dryrun_multichip({n_devices}): all variants OK")
     return out
 

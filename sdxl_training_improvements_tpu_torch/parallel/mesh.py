@@ -11,10 +11,17 @@ plain functions of a leaf's flax path and flax shape, a spec being a
 tuple of axis names (JAX's ``PartitionSpec`` as a tuple).
 
 Where JAX's XLA inserts the collectives from these specs, the port's
-train step calls them itself (``parallel/zero.py``).  The ``tensor`` axis
-(megatron splitting by ``TP_RULES``) has its rules here but no step yet:
-a mesh with a tensor axis above 1 is refused by the trainer (ROADMAP
-queue 1, item 14b).
+train step calls them itself (``parallel/zero.py``), and its transformer
+blocks call megatron's f and g over the ``tensor`` axis
+(``parallel/tensor.py``, ``models/layers.py``).  ``tp_plan`` says how
+each leaf is split there (``TPSplit``): ``TP_RULES`` with two
+differences that change placement, not results.  An attention is split
+only when its head count divides by the tensor size (each rank runs
+whole heads), else every tensor rank keeps it whole; the GEGLU's value
+and gate halves are split each on its own (megatron's layout: a rank's
+slice is [value_r | gate_r], so no realignment before the gate), where
+JAX cuts the fused [value | gate] columns contiguously.  Checkpoints
+keep the one-card layout.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ import datetime
 import math
 import os
 import re
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -231,8 +239,9 @@ def _fsdp_spec_for(path_leaf_shape, fsdp_size: int,
 
 # megatron column/row over the ``tensor`` axis: column-parallel (output dim
 # split: qkv, the GEGLU proj) then row-parallel (input dim split: to_out,
-# ff net_2).  The fused [value|gate] GEGLU output split contiguously needs
-# a realignment before the gate (JAX ``mesh.py:174-181``); item 14b.
+# ff net_2).  JAX splits the fused [value|gate] GEGLU output contiguously
+# and realigns it before the gate (JAX ``mesh.py:174-181``); the port's
+# ``tp_plan`` splits the two halves each on its own.
 TP_RULES = (
     (re.compile(r"attn\d/to_[qkv]/kernel$"), 1),      # column: out dim
     (re.compile(r"attn\d/to_out_0/kernel$"), 0),      # row: in dim
@@ -280,6 +289,205 @@ def port_spec(name: str, tensor: torch.Tensor, mesh,
     path = "/".join(flax_path(name, tensor.dim()))
     return spec_for_param(path, jax_shape(name, tensor.shape), mesh,
                           shard_params=shard_params)
+
+
+# --------------------------------------------------------------------------
+# The tensor axis: which leaves split, and how a slice maps to its leaf
+# --------------------------------------------------------------------------
+
+_ATTN = re.compile(r"^(.*\.attn\d)\.")
+
+
+def _dense_strides(shape, order) -> Tuple[int, ...]:
+    """Contiguous strides for ``shape`` with the dims in ``order``
+    (outermost first)."""
+    strides = [0] * len(shape)
+    acc = 1
+    for d in reversed(order):
+        strides[d] = acc
+        acc *= shape[d]
+    return tuple(strides)
+
+
+@dataclass(frozen=True)
+class TPSplit:
+    """One leaf split over the tensor axis: rank ``rank`` of ``size``
+    holds the part of dim ``dim`` (the torch dim; ``jax_dim`` in the JAX
+    layout) that megatron gives it, a dense tensor whose dims lie in
+    memory in the whole leaf's order.  ``glu``: the dim is the GEGLU's
+    [value | gate] and the rank holds [value_r | gate_r].  ``like``: the
+    whole leaf (a meta tensor: shape, strides, dtype).
+
+    ``how`` picks the layout a method works in: "param" the parameter's
+    own, "jax" the contiguous JAX layout (SOAP's first moment)."""
+    dim: int
+    jax_dim: int
+    size: int
+    rank: int
+    glu: bool
+    like: torch.Tensor
+
+    def _layout(self, how: str):
+        """(whole shape, dim order outermost first, split dim)."""
+        if how == "jax":
+            shape = self.like.shape
+            jshape = (tuple(shape[::-1]) if len(shape) == 2
+                      else tuple(shape))
+            return jshape, list(range(len(jshape))), self.jax_dim
+        order = sorted(range(self.like.dim()),
+                       key=lambda d: -self.like.stride(d))
+        return tuple(self.like.shape), order, self.dim
+
+    def parts(self, rank: Optional[int] = None, how: str = "param"
+              ) -> List[Tuple[int, int]]:
+        """(start, length) along the split dim of the rank's pieces, in
+        the order the slice holds them."""
+        r = self.rank if rank is None else rank
+        shape, _, dim = self._layout(how)
+        whole = shape[dim]
+        if self.glu:
+            half = whole // 2
+            h = half // self.size
+            return [(r * h, h), (half + r * h, h)]
+        n = whole // self.size
+        return [(r * n, n)]
+
+    def local_shape(self, how: str = "param") -> Tuple[int, ...]:
+        shape, _, dim = self._layout(how)
+        out = list(shape)
+        out[dim] = sum(n for _, n in self.parts(how=how))
+        return tuple(out)
+
+    def empty_local(self, dtype=None, device=None, how: str = "param"
+                    ) -> torch.Tensor:
+        """An empty slice, dense, its dims in the whole leaf's order."""
+        shape = self.local_shape(how)
+        order = self._layout(how)[1]
+        return torch.empty_strided(
+            shape, _dense_strides(shape, order),
+            dtype=self.like.dtype if dtype is None else dtype,
+            device=device)
+
+    def _views(self, whole: torch.Tensor, local: torch.Tensor, rank: int,
+               how: str):
+        dim = self._layout(how)[2]
+        at = 0
+        for start, n in self.parts(rank, how):
+            yield whole.narrow(dim, start, n), local.narrow(dim, at, n)
+            at += n
+
+    def cut(self, whole: torch.Tensor, how: str = "param",
+            rank: Optional[int] = None) -> torch.Tensor:
+        """A copy of the rank's slice of ``whole`` (in layout ``how``)."""
+        r = self.rank if rank is None else rank
+        local = self.empty_local(whole.dtype, whole.device, how)
+        with torch.no_grad():
+            for src, dst in self._views(whole, local, r, how):
+                dst.copy_(src)
+        return local
+
+    def place(self, whole: torch.Tensor, flat: torch.Tensor, rank: int,
+              how: str = "param") -> None:
+        """Write rank ``rank``'s slice, given 1-D in its memory order,
+        into ``whole``."""
+        from sdxl_training_improvements_tpu_torch.ops.fused_adamw import (
+            memory_order)
+        local = self.empty_local(flat.dtype, flat.device, how)
+        memory_order(local).copy_(flat)
+        with torch.no_grad():
+            for dst, src in self._views(whole, local, rank, how):
+                dst.copy_(src)
+
+    def index_map(self, rank: Optional[int] = None):
+        """The ``ops.fused_adamw.IndexMap`` from the slice's memory order
+        to the whole leaf's (the parameter's layout): slice element i lies
+        at ``off + (i // run) * stride + i % run`` (+ ``jump`` in the gate
+        half of a GEGLU row)."""
+        from sdxl_training_improvements_tpu_torch.ops.fused_adamw import (
+            IndexMap)
+        r = self.rank if rank is None else rank
+        shape, order, dim = self._layout("param")
+        inner = math.prod(shape[d] for d in order[order.index(dim) + 1:])
+        (start, n), *gate = self.parts(r)
+        run = sum(k for _, k in self.parts(r)) * inner
+        jump = (gate[0][0] - start - n) * inner if gate else 0
+        # the split dim outermost: one run (a contiguous slice unless it
+        # holds a GEGLU's two halves)
+        outer = order.index(dim) == 0
+        return IndexMap(off=start * inner, run=run,
+                        stride=run if outer else shape[dim] * inner,
+                        half=n * inner if gate else run, jump=jump)
+
+
+def _torch_dim(name: str, ndim: int, jax_dim: int) -> int:
+    """The port's dim of JAX dim ``jax_dim`` (a Linear kernel is
+    transposed)."""
+    if name.endswith(".weight") and ndim == 2:
+        return 1 - jax_dim
+    return jax_dim
+
+
+def tp_plan(params: Mapping[str, torch.Tensor], mesh,
+            heads: Mapping[str, int], rank: Optional[int] = None
+            ) -> Dict[str, TPSplit]:
+    """The leaves of ``params`` (whole, name -> tensor) that split over
+    the mesh's tensor axis, each with its ``TPSplit``.  ``heads``: each
+    attention module's head count by name (``models/unet.py``
+    ``attention_heads``); an attention whose heads do not divide by the
+    tensor size stays whole, and so does a GEGLU / output pair whose
+    inner width does not.  ``rank``: the tensor coordinate (default:
+    this process's on ``mesh``)."""
+    sizes = axis_sizes(mesh)
+    t = sizes[TENSOR_AXIS]
+    if t <= 1:
+        return {}
+    if rank is None:
+        rank = mesh.get_local_rank(TENSOR_AXIS)
+    from sdxl_training_improvements_tpu_torch.models.weights import (
+        flax_path, jax_shape)
+    plan: Dict[str, TPSplit] = {}
+    for name, p in params.items():
+        path = "/".join(flax_path(name, p.dim()))
+        jdim = _tp_dim_for(path, jax_shape(name, p.shape), t)
+        if jdim is None:
+            continue
+        glu = "/ff/net_0/proj/" in f"/{path}"
+        attn = _ATTN.match(name)
+        if attn is not None:
+            if attn.group(1) not in heads:
+                raise ValueError(f"{name}: no head count for "
+                                 f"{attn.group(1)!r}")
+            if heads[attn.group(1)] % t:
+                continue
+        elif "/ff/" in f"/{path}":
+            width = (p.shape[_torch_dim(name, p.dim(), jdim)] // 2 if glu
+                     else p.shape[_torch_dim(name, p.dim(), jdim)])
+            if width % t:
+                continue
+        plan[name] = TPSplit(
+            dim=_torch_dim(name, p.dim(), jdim), jax_dim=jdim, size=t,
+            rank=rank, glu=glu,
+            like=torch.empty_strided(p.shape, p.stride(), dtype=p.dtype,
+                                     device="meta"))
+    return plan
+
+
+def dp_group(mesh):
+    """The group of the ranks that share this rank's tensor coordinate
+    (data x fsdp), or None (the default group) when the tensor axis is
+    1.  The first call on a mesh makes one group per tensor coordinate,
+    so every rank makes it."""
+    sizes = axis_sizes(mesh)
+    if sizes[TENSOR_AXIS] == 1:
+        return None
+    if getattr(mesh, "_sdxl_dp_group", None) is None:
+        grid = mesh.mesh.reshape(-1, sizes[TENSOR_AXIS])
+        mine = mesh.get_local_rank(TENSOR_AXIS)
+        for t in range(sizes[TENSOR_AXIS]):
+            g = dist.new_group([int(r) for r in grid[:, t]])
+            if t == mine:
+                mesh._sdxl_dp_group = g
+    return mesh._sdxl_dp_group
 
 
 def is_main_process() -> bool:

@@ -1,30 +1,38 @@
-"""Data parallelism and ZeRO sharding over the mesh's data and fsdp axes.
+"""Data parallelism, ZeRO sharding and the megatron slices over the mesh.
 
 The collectives that XLA inserts into JAX's sharded step
 (``sdxl_training_improvements_tpu/training/trainer.py:251-348``, from the
 specs of ``parallel/mesh.py``), called by the port's step itself:
 
-* every rank holds every parameter whole (JAX also shards the stored
-  parameters under ``tpu.shard_params``; the port's step has no per-block
-  gather, so the two differ in memory, not in results: ROADMAP item 14b);
-* a leaf that JAX shards over fsdp (``mesh.port_spec`` carries ``fsdp``:
-  at least 2-D, at least 2^16 elements, a divisible dim) is cut into
-  ``fsdp`` equal contiguous chunks of its memory order
-  (``ops/fused_adamw.py`` ``memory_order``), and the rank at fsdp
-  coordinate r keeps chunk r of its optimizer state and EMA shadow; the
-  ranks of one fsdp group along ``data`` hold the same chunk;
-* the gradients are reduced once a step, in flat buckets of at most
-  ``BUCKET_BYTES``: replicated leaves by an all-reduce over all ranks,
-  sharded leaves by a reduce-scatter over fsdp into the rank's chunk and
-  an all-reduce over data, each divided by the ranks (the mean over the
-  global batch, as JAX's);
-* the optimizer updates the rank's chunks and the replicated leaves; an
-  all-gather over fsdp puts each sharded parameter back together.
+* every rank holds every parameter whole, or, for a leaf split over the
+  tensor axis (``mesh.tp_plan``: the transformer blocks' projections),
+  its megatron slice (JAX also shards the stored parameters over fsdp
+  under ``tpu.shard_params``; the port's step has no per-block gather,
+  so the two differ in memory, not in results: ROADMAP item 14c);
+* a leaf that JAX shards over fsdp (``mesh.port_spec`` of its whole
+  shape carries ``fsdp``: at least 2-D, at least 2^16 elements, a
+  divisible dim) is cut into ``fsdp`` equal contiguous chunks of the
+  memory order of what the rank holds (``ops/fused_adamw.py``
+  ``memory_order``: the leaf, or its slice), and the rank at fsdp
+  coordinate r keeps chunk r of its optimizer state and EMA shadow; a
+  split leaf's optimizer state is its slice's;
+* the gradients are reduced once a step over data x fsdp (every tensor
+  rank of a group holds the same batch rows), in flat buckets of at
+  most ``BUCKET_BYTES``: unchunked leaves by an all-reduce, chunked ones
+  by a reduce-scatter over fsdp into the rank's chunk and an all-reduce
+  over data, each divided by data x fsdp (the mean over the global
+  batch, as JAX's);
+* the global norm counts each replicated leaf once and sums a split
+  leaf's squares over the tensor group;
+* the optimizer updates the rank's pieces (a split leaf's noise drawn at
+  its elements' places in the whole leaf, through the slice's index
+  map); an all-gather over fsdp puts each chunked parameter back.
 
-The chunk of an optimizer tensor is the same slice of the one-card
-tensor's memory order (SOAP's first moment: of its contiguous JAX layout),
-so a save can gather the one-card state and a restore can cut it again
-(``SHARDED_FIELDS``).  With ``tensor`` = 1, data x fsdp is every rank.
+A piece of an optimizer tensor is the same part of the one-card tensor
+(SOAP's first moment: of its contiguous JAX layout), so a save gathers
+the one-card state, parameters included, and a restore cuts it again
+(``SHARDED_FIELDS``), for any mesh.  With ``tensor`` = 1 nothing splits
+and data x fsdp is every rank: the step is the data and fsdp one.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ import torch.distributed as dist
 
 from sdxl_training_improvements_tpu_torch.ops.fused_adamw import memory_order
 from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+from sdxl_training_improvements_tpu_torch.parallel.tensor import (
+    gather_rows, join_leaf)
 
 BUCKET_BYTES = 256 << 20
 
@@ -66,49 +76,57 @@ class Chunk:
     numel: int
 
 
-def tensor_axis_refusal(mesh_shape) -> Optional[str]:
-    """The refusal of a mesh with a tensor axis above 1, or None."""
-    if mesh_shape is not None and len(mesh_shape) >= 3 and mesh_shape[2] > 1:
-        return (f"tpu.mesh_shape {list(mesh_shape)}: a tensor axis above 1 "
-                "(megatron splitting by TP_RULES) is not ported (ROADMAP "
-                "queue 1, item 14b)")
-    return None
-
-
 class Zero:
-    """The layout of ``params`` (name -> tensor, every rank's whole copy)
-    on ``mesh``: which leaves shard, and the step's collectives."""
+    """The layout of ``params`` (name -> tensor, every rank's copy: whole,
+    or its megatron slice for the leaves of ``tp``) on ``mesh``: which
+    leaves shard, and the step's collectives.  ``tp``: ``mesh.tp_plan``
+    of the whole leaves (empty when nothing splits)."""
 
     def __init__(self, mesh, params: Mapping[str, torch.Tensor],
-                 shard_params: bool = False):
+                 shard_params: bool = False,
+                 tp: Optional[Mapping[str, "M.TPSplit"]] = None):
         sizes = M.axis_sizes(mesh)
-        refusal = tensor_axis_refusal(
-            [sizes[a] for a in M.AXIS_NAMES])
-        if refusal:
-            raise NotImplementedError(refusal)
         self.data, self.fsdp = sizes[M.DATA_AXIS], sizes[M.FSDP_AXIS]
+        self.tensor = sizes[M.TENSOR_AXIS]
         self.world = self.data * self.fsdp
+        self.tp: Dict[str, M.TPSplit] = dict(tp or {})
         self.fsdp_group = mesh.get_group(M.FSDP_AXIS)
         self.data_group = mesh.get_group(M.DATA_AXIS)
+        self.tensor_group = (mesh.get_group(M.TENSOR_AXIS)
+                             if self.tensor > 1 else None)
+        self.dp_group = M.dp_group(mesh)  # None: every rank (tensor 1)
         self._plan(params, sizes, mesh.get_local_rank(M.FSDP_AXIS),
                    shard_params)
 
     def _plan(self, params, sizes, fsdp_rank: int, shard_params: bool):
-        """``chunks``: each sharded leaf's chunk on this rank; ``like``:
-        each sharded parameter's shape and strides (meta tensors)."""
+        """``chunks``: each chunked leaf's chunk on this rank; ``like``:
+        each chunked parameter's (local) shape and strides (meta
+        tensors).  Whether a leaf chunks is JAX's spec of its whole
+        shape."""
         self.chunks: Dict[str, Chunk] = {}
         self.like: Dict[str, torch.Tensor] = {}
         for name, p in params.items():
-            if M.FSDP_AXIS in M.port_spec(name, p, sizes, shard_params):
+            whole = self.tp[name].like if name in self.tp else p
+            if M.FSDP_AXIS in M.port_spec(name, whole, sizes, shard_params):
                 c = p.numel() // sizes[M.FSDP_AXIS]
                 self.chunks[name] = Chunk(fsdp_rank * c, c, p.numel())
                 self.like[name] = torch.empty_strided(
                     p.shape, p.stride(), dtype=p.dtype, device="meta")
 
+    @property
+    def sharded(self) -> bool:
+        """Whether any leaf is chunked or split."""
+        return bool(self.chunks or self.tp)
+
+    def holds_piece(self, name: str) -> bool:
+        """Whether this rank holds a piece of ``name`` (a chunk, a slice,
+        or a chunk of a slice) rather than the whole leaf."""
+        return name in self.chunks or name in self.tp
+
     # ------------------------------------------------------------ views
     def view(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's chunk of ``t`` (a view of its storage) when ``name``
-        shards, else ``t``."""
+        chunks, else ``t``."""
         c = self.chunks.get(name)
         if c is None:
             return t
@@ -118,40 +136,71 @@ class Zero:
               ) -> Dict[str, torch.Tensor]:
         return {n: self.view(n, t) for n, t in tensors.items()}
 
-    def full_like(self, name: str, dtype, device) -> torch.Tensor:
-        """An empty tensor laid out as the parameter ``name``."""
-        like = self.like[name]
-        return torch.empty_strided(like.shape, like.stride(), dtype=dtype,
-                                   device=device)
-
-    def chunk_of(self, name: str, full: torch.Tensor,
-                 how: str = "param") -> torch.Tensor:
-        """A copy of this rank's chunk of the one-card tensor ``full`` (of
-        the parameter's shape, in any strides; "jax": SOAP's JAX layout,
-        read contiguously)."""
-        c = self.chunks[name]
-        if how == "jax":
-            flat = full.reshape(-1)
-        else:
-            flat = memory_order(self.full_like(name, full.dtype,
-                                               full.device).copy_(full))
-        return flat[c.base:c.base + c.size].clone()
-
-    def gather(self, name: str, chunk: torch.Tensor,
-               how: str = "param") -> torch.Tensor:
-        """The whole tensor of the chunks over fsdp, laid out as the one-card
-        tensor (the parameter's shape and strides; "jax": contiguous in
-        the parameter's JAX layout).  A collective: every rank of the fsdp
-        group calls it."""
-        flat = self._gather_flat(name, chunk.contiguous())
-        like = self.like[name]
+    def _local_like(self, name: str, how: str) -> torch.Tensor:
+        """The meta tensor of what the rank holds of ``name`` before the
+        chunk: the parameter's layout, or ("jax") its contiguous JAX
+        layout."""
+        like = (self.like[name] if name in self.like
+                else self.tp[name].empty_local(device="meta"))
         if how == "jax":
             from sdxl_training_improvements_tpu_torch.training.optimizers \
                 .soap import to_jax_layout
-            return flat.view(to_jax_layout(like).shape)
-        from sdxl_training_improvements_tpu_torch.training.optimizers \
-            .adamw_bf16 import from_memory_order
-        return from_memory_order(flat, like)
+            return torch.empty(to_jax_layout(like).shape, dtype=like.dtype,
+                               device="meta")
+        return like
+
+    def chunk_of(self, name: str, full: torch.Tensor,
+                 how: str = "param") -> torch.Tensor:
+        """A copy of this rank's piece of the one-card tensor ``full`` (of
+        the parameter's whole shape, in any strides; "jax": SOAP's JAX
+        layout, read contiguously): its megatron slice, then its chunk."""
+        split = self.tp.get(name)
+        if split is not None:
+            full = split.cut(full.contiguous() if how == "jax" else full,
+                             how)
+        c = self.chunks.get(name)
+        if c is None:
+            return full if split is not None else full.clone()
+        if how == "jax":
+            flat = full.reshape(-1)
+        else:
+            like = self._local_like(name, how)
+            flat = memory_order(torch.empty_strided(
+                like.shape, like.stride(), dtype=full.dtype,
+                device=full.device).copy_(full))
+        return flat[c.base:c.base + c.size].clone()
+
+    def gather(self, name: str, piece: torch.Tensor,
+               how: str = "param", whole: bool = True) -> torch.Tensor:
+        """The one-card tensor of every rank's piece, laid out as the
+        one-card tensor (the parameter's shape and strides; "jax":
+        contiguous in the parameter's JAX layout); ``whole`` False stops
+        at the rank's slice (the chunks gathered over fsdp only).  A
+        collective of the fsdp and tensor groups."""
+        out = piece
+        if name in self.chunks:
+            flat = self._gather_flat(name, piece.contiguous())
+            like = self._local_like(name, how)
+            if how == "jax":
+                out = flat.view(like.shape)
+            else:
+                from sdxl_training_improvements_tpu_torch.training \
+                    .optimizers.adamw_bf16 import from_memory_order
+                out = from_memory_order(flat, like)
+        split = self.tp.get(name)
+        if not whole or split is None:
+            return out
+        return self._gather_slices(split, out, how)
+
+    def _gather_slices(self, split, local: torch.Tensor, how: str
+                       ) -> torch.Tensor:
+        """The whole leaf of the tensor group's slices."""
+        flat = memory_order(local.contiguous() if how == "jax" else local)
+        return join_leaf(split, self._gather_tensor_rows(flat), how)
+
+    def _gather_tensor_rows(self, flat: torch.Tensor) -> torch.Tensor:
+        """[tensor, n]: every tensor rank's 1-D ``flat``, by rank."""
+        return gather_rows(flat, self.tensor_group)
 
     def _gather_flat(self, name: str, chunk: torch.Tensor) -> torch.Tensor:
         """The chunks of ``name`` over fsdp, joined (1-D)."""
@@ -160,16 +209,44 @@ class Zero:
         dist.all_gather_into_tensor(flat, chunk, group=self.fsdp_group)
         return flat
 
-    def gather_tensors(self, tensors: Mapping[str, torch.Tensor]
-                       ) -> Dict[str, torch.Tensor]:
-        """Each sharded entry of ``tensors`` (a chunk) gathered whole."""
-        return {n: (self.gather(n, t) if n in self.chunks else t)
-                for n, t in tensors.items()}
+    def gather_tensors(self, tensors: Mapping[str, torch.Tensor],
+                       whole: bool = True) -> Dict[str, torch.Tensor]:
+        """Each sharded entry of ``tensors`` (a piece) gathered whole (or,
+        ``whole`` False, to the rank's slice)."""
+        return {n: (self.gather(n, t, whole=whole) if self.holds_piece(n)
+                    else t) for n, t in tensors.items()}
 
-    def max_over_shards(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` (a chunk's statistic) reduced by MAX over fsdp, in place."""
-        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.fsdp_group)
+    def whole_params(self, params: Mapping[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The one-card parameters: the split leaves' slices gathered over
+        the tensor group, the others as they are (a collective)."""
+        return {n: (self._gather_slices(self.tp[n], p.detach(), "param")
+                    if n in self.tp else p) for n, p in params.items()}
+
+    def max_over_shards(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """``x`` (a piece's statistic) reduced by MAX over the ranks that
+        hold the other pieces of ``name``'s leaf, in place."""
+        if name in self.chunks:
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.fsdp_group)
+        if name in self.tp:
+            dist.all_reduce(x, op=dist.ReduceOp.MAX,
+                            group=self.tensor_group)
         return x
+
+    def absmax_reduce(self, name: str):
+        """The int8 moments' absmax reduction of a piece of ``name``."""
+        return lambda x: self.max_over_shards(x, name)
+
+    def noise_map(self, name: str):
+        """(the whole leaf's elements, the piece's first element in what
+        the rank holds, the slice's ``IndexMap`` or None): where the noise
+        of this rank's piece of ``name`` lies in the whole leaf's."""
+        c = self.chunks.get(name)
+        base = c.base if c is not None else 0
+        split = self.tp.get(name)
+        if split is None:
+            return c.numel, base, None
+        return split.like.numel(), base, split.index_map()
 
     # ------------------------------------------------------------ step
     def _buckets(self, names: Sequence[str], nbytes) -> List[List[str]]:
@@ -189,8 +266,8 @@ class Zero:
 
     def reduce_gradients(self, grads: Dict[str, torch.Tensor]
                          ) -> Dict[str, torch.Tensor]:
-        """The mean of every rank's gradients: whole replicated leaves (in
-        place), chunks of sharded ones (views of a reduce-scatter's
+        """The mean over data x fsdp of the gradients: unchunked leaves
+        (in place), chunks of chunked ones (views of a reduce-scatter's
         output).  Every gradient must have one dtype."""
         names = list(grads)
         rep = [n for n in names if n not in self.chunks]
@@ -199,7 +276,7 @@ class Zero:
         size = next(iter(grads.values())).element_size() if grads else 0
         for bucket in self._buckets(rep, lambda n: grads[n].numel() * size):
             flat = torch.cat([memory_order(grads[n]) for n in bucket])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.dp_group)
             flat.div_(self.world)
             off = 0
             for n in bucket:
@@ -233,22 +310,35 @@ class Zero:
         return out
 
     def norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        """The global norm of the reduced gradients: the replicated leaves'
-        squares summed as ``trainer.global_norm`` sums them, plus the
-        chunks' squares summed over fsdp."""
-        sq = sum(g.float().square().sum() for n, g in grads.items()
-                 if n not in self.chunks)
-        shd = [g for n, g in grads.items() if n in self.chunks]
-        if shd:
-            part = sum(g.float().square().sum() for g in shd)
+        """The global norm of the reduced gradients: the replicated
+        leaves' squares summed as ``trainer.global_norm`` sums them, the
+        chunks' squares summed over fsdp, a split leaf's over the tensor
+        group."""
+        def squares(chunked: bool, split: bool):
+            return sum(g.float().square().sum() for n, g in grads.items()
+                       if (n in self.chunks) == chunked
+                       and (n in self.tp) == split)
+
+        def over_fsdp(part):
             dist.all_reduce(part, group=self.fsdp_group)
+            return part
+        sq = squares(False, False)
+        if any(n in self.chunks and n not in self.tp for n in grads):
+            sq = sq + over_fsdp(squares(True, False))
+        if any(n in self.tp for n in grads):
+            part = squares(False, True)
+            if any(n in self.tp and n in self.chunks for n in grads):
+                part = part + over_fsdp(squares(True, True))
+            part = torch.as_tensor(part, dtype=torch.float32,
+                                   device=next(iter(grads.values())).device)
+            dist.all_reduce(part, group=self.tensor_group)
             sq = sq + part
         return torch.sqrt(sq)
 
     def gather_params(self, params: Mapping[str, torch.Tensor]) -> None:
-        """After the chunks' update: every sharded parameter whole again on
-        every rank, in place (an all-gather over fsdp per bucket of one
-        dtype)."""
+        """After the chunks' update: every chunked parameter whole again on
+        every rank of its fsdp group (a split leaf: its slice), in place
+        (an all-gather over fsdp per bucket of one dtype)."""
         shd = [n for n in params if n in self.chunks]
         by_dtype: Dict[torch.dtype, List[str]] = {}
         for n in shd:
@@ -273,9 +363,10 @@ class Zero:
                         off += c
 
     def average(self, values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """The mean over all ranks of each 0-d value (one all-reduce)."""
+        """The mean over data x fsdp of each 0-d value (one all-reduce;
+        the tensor ranks of a group hold the same values)."""
         stacked = torch.stack([v.float() for v in values])
-        dist.all_reduce(stacked)
+        dist.all_reduce(stacked, group=self.dp_group)
         stacked = stacked / self.world
         return list(stacked.unbind())
 
@@ -295,7 +386,7 @@ class Zero:
             if how is None or not isinstance(value, dict):
                 continue
             for n, t in value.items():
-                if n not in self.chunks:
+                if not self.holds_piece(n):
                     continue
                 if isinstance(t, dict):
                     yield f"{prefix}.{f.name}.{n}.q", n, how, t, "q"
@@ -304,6 +395,6 @@ class Zero:
 
     def shard_state(self, opt) -> None:
         """Cut every sharded tensor of the one-card optimizer state
-        ``opt`` to this rank's chunk, in place."""
+        ``opt`` to this rank's piece, in place."""
         for _, n, how, owner, k in list(self.state_fields(opt)):
             owner[k] = self.chunk_of(n, owner[k], how)

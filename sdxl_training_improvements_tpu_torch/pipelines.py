@@ -17,8 +17,11 @@ checkpoint declares.
 
 Every draw comes from a generator on the model's device seeded with
 ``seed``, unless the caller passes it (``noise=``, and the VAE encode's
-draws): the VAE encodes first, then the sampler draws its noise.  Mesh
-serving is not ported (ROADMAP queue 1, item 14b).
+draws): the VAE encodes first, then the sampler draws its noise.
+``mesh=`` (a ``parallel/mesh.py`` mesh; every rank builds the pipeline
+and makes the same calls) serves over several cards, as
+``ValidationSampler(mesh=)`` does: the UNet megatron-split over the
+tensor axis, the CFG rows over data x fsdp.
 """
 from __future__ import annotations
 
@@ -64,11 +67,12 @@ class SDXLPipeline:
     def __init__(self, model: SDXLModel, tokenizers: TokenizerPair,
                  schedule: Optional[NoiseSchedule] = None,
                  method: str = "ddpm", sampler: str = "euler",
-                 deep_cache: int = 1):
+                 deep_cache: int = 1, mesh=None):
         self.model = model
         self.tokenizers = tokenizers
         self.schedule = schedule or NoiseSchedule.create()
         self.method = method  # ddpm | flow_matching
+        self.mesh = mesh  # serving over several cards; None: one
         self.sampler = sampler  # euler | dpmpp_2m (sigma space)
         self.deep_cache = deep_cache  # DeepCache interval, 1 = off
 
@@ -157,7 +161,7 @@ class SDXLPipeline:
                         schedule: Optional[NoiseSchedule] = None,
                         method: Optional[str] = None,
                         sampler: str = "euler", deep_cache: int = 1,
-                        dtype=torch.bfloat16, device="cuda"
+                        dtype=torch.bfloat16, device="cuda", mesh=None
                         ) -> "SDXLPipeline":
         """Load a diffusers-layout checkpoint directory onto ``device``
         (the card unless the caller asks for the CPU), the UNet and CLIPs
@@ -166,7 +170,8 @@ class SDXLPipeline:
         before any weight is read.  The UNet topology follows
         ``unet/config.json``; a 5-time-id UNet, or text_encoder_2/ without
         text_encoder/, is a single-encoder (refiner) checkpoint.
-        ``tiny`` builds the miniature VAE and CLIPs."""
+        ``tiny`` builds the miniature VAE and CLIPs; ``mesh``: serve over
+        it (module docstring)."""
         from sdxl_training_improvements_tpu_torch.training.checkpoints import (
             import_diffusers)
         model_dir = Path(model_dir)
@@ -202,20 +207,20 @@ class SDXLPipeline:
                        model_dir, single_encoder=refiner,
                        fallback_vocab_size=model.clip_g.cfg.vocab_size),
                    schedule, method=method, sampler=sampler,
-                   deep_cache=deep_cache)
+                   deep_cache=deep_cache, mesh=mesh)
 
     @classmethod
     def from_model(cls, model: SDXLModel,
                    tokenizers: Optional[TokenizerPair] = None,
                    schedule: Optional[NoiseSchedule] = None,
                    method: str = "ddpm", sampler: str = "euler",
-                   deep_cache: int = 1) -> "SDXLPipeline":
+                   deep_cache: int = 1, mesh=None) -> "SDXLPipeline":
         if tokenizers is None:
             # the hash fallback must match this model's vocabulary
             tokenizers = TokenizerPair.fallback(
                 vocab_size=model.clip_g.cfg.vocab_size)
         return cls(model, tokenizers, schedule, method=method,
-                   sampler=sampler, deep_cache=deep_cache)
+                   sampler=sampler, deep_cache=deep_cache, mesh=mesh)
 
     # ----------------------------------------------------------- internals
     def _sampler(self, num_inference_steps: int,
@@ -224,7 +229,8 @@ class SDXLPipeline:
                                  num_inference_steps=num_inference_steps,
                                  guidance_scale=guidance_scale,
                                  method=self.method, sampler=self.sampler,
-                                 deep_cache_interval=self.deep_cache)
+                                 deep_cache_interval=self.deep_cache,
+                                 mesh=self.mesh)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.model.device).manual_seed(seed)

@@ -25,10 +25,11 @@ sample's noise and timestep, the bf16 AdamW's every leaf's rounding
 seeds, so a resume that dropped them would be a different run.
 
 Over several ranks (``parallel/zero.py``) a save gathers the sharded
-optimizer state and rank 0 writes it in the one-card format; a restore
-reads the one-card state on every rank, which ``shard_train_state`` then
-cuts, so a state saved by W ranks resumes on any number of them (Orbax's
-resharding restore in JAX).
+optimizer state and the megatron-split parameters (and their state) and
+rank 0 writes it in the one-card format; a restore reads the one-card
+state on every rank, which ``shard_train_state`` then cuts, so a state
+saved by ranks of any mesh resumes on any other mesh, or in one process
+(Orbax's resharding restore in JAX).
 
 LoRA (JAX ``:210-323``): ``export_lora`` writes the adapter as
 ``pytorch_lora_weights.safetensors`` in the peft layout with a
@@ -364,8 +365,9 @@ def save_train_state(ckpt_dir, state, config=None,
     ``wait_for_saves`` before reading the checkpoint back or exiting.
 
     A state placed on a mesh (``state.zero``): every rank calls this (the
-    sharded tensors are gathered over fsdp, onto the host of rank 0), and
-    rank 0 alone writes the one-card format."""
+    sharded tensors are gathered over fsdp and the split ones over the
+    tensor axis, onto the host of rank 0), and rank 0 alone writes the
+    one-card format."""
     ckpt_dir = Path(ckpt_dir).absolute()
     main = M.is_main_process()
     if main:
@@ -379,6 +381,11 @@ def save_train_state(ckpt_dir, state, config=None,
             full = zero.gather(n, tensors[key], how)
             if main:
                 tensors[key] = full.cpu()
+            del full
+        for n in zero.tp:  # the parameters: every rank holds its slice
+            full = zero.whole_params({n: state.params[n]})[n]
+            if main:
+                tensors[f"params.{n}"] = full.cpu()
             del full
         if not main:  # the bytes this rank holds
             return mine

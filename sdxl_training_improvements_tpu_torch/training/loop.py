@@ -17,12 +17,16 @@ cadence are the JAX package's.  The differences:
   cache's per-rank rows, the validation loss agreed over the ranks (a
   failure anywhere: None everywhere), every rank calling the saves and
   rank 0 alone writing ``trainer_state.json``, the exports and the
-  validation images.  A tensor axis above 1 raises (ROADMAP queue 1,
-  item 14b);
+  validation images.  A tensor axis above 1 splits the UNet's
+  transformer blocks megatron-style (``shard_train_state(..., unet=)``):
+  every rank samples the validation images then (the UNet's forward is a
+  collective) and the exports gather the slices;
 * LoRA (``training.lora.enabled``, JAX ``:97-126``): the trainable tree
   is the pairs (``models/lora.py``), the frozen UNet goes to the step as
   ``const_params``; checkpoints ship the adapter (``export_lora``) and
-  the merged UNet;
+  the merged UNet.  The tensor axis splits nothing under LoRA: JAX's
+  ``TP_RULES`` match no LoRA path and the frozen base is not placed
+  (JAX ``:126``), so every tensor rank runs the whole UNet;
 * the weights to evaluate and export (``eval_params``) are the EMA
   shadow, else schedule-free's x, else the parameters; validation images
   and the diffusers export use them (LoRA: merged into the base);
@@ -64,8 +68,6 @@ from sdxl_training_improvements_tpu_torch.models.sdxl import SDXLModel
 from sdxl_training_improvements_tpu_torch.models.tokenizer import (
     TokenizerPair, load_tokenizers)
 from sdxl_training_improvements_tpu_torch.parallel import mesh as M
-from sdxl_training_improvements_tpu_torch.parallel.zero import (
-    tensor_axis_refusal)
 from sdxl_training_improvements_tpu_torch.training import checkpoints as C
 from sdxl_training_improvements_tpu_torch.training.optimizers import (
     EMAState, ScheduleFreeKahanState, ema_eval_params, make_optimizer,
@@ -107,9 +109,6 @@ class SDXLTrainer:
                 "device 'cuda': torch.cuda.is_available() is False (no "
                 "card); pass device='cpu' (--device cpu) to train on the "
                 "CPU")
-        refusal = tensor_axis_refusal(config.tpu.mesh_shape)
-        if refusal:
-            raise NotImplementedError(refusal)
         M.initialize_multihost(self.device.type)
         if self.device.type == "cuda" and M.process_count() > 1:
             self.device = torch.device("cuda", M.local_rank())
@@ -213,8 +212,9 @@ class SDXLTrainer:
                 except (OSError, ValueError, KeyError) as e:
                     self.logger.warning(f"{meta}: best_loss not read: {e}")
         if self.mesh is not None:  # the one-card state, cut to this rank's
-            state = shard_train_state(state, self.mesh,
-                                      config.tpu.shard_params)
+            state = shard_train_state(
+                state, self.mesh, config.tpu.shard_params,
+                unet=None if lcfg.enabled else self.model.unet)
         self.state = state
 
         self.dataset = dataset
@@ -466,7 +466,8 @@ class SDXLTrainer:
         when ``training.ema_decay`` is on; else schedule-free's averaged x
         sequence; else the parameters (under LoRA: the pairs).  With
         sharded optimizer state every rank calls it: the sharded leaves
-        are formed on the chunks and gathered."""
+        are formed on the chunks and gathered over fsdp (a split leaf to
+        this rank's slice, as the placed UNet holds it)."""
         opt_state = self.state.opt_state
         zero = self.state.zero
         params = self.state.params
@@ -479,7 +480,8 @@ class SDXLTrainer:
                 opt_state, view, beta1=self.config.optimizer.beta1)
         else:
             return params
-        return out if zero is None else zero.gather_tensors(out)
+        return out if zero is None else zero.gather_tensors(out,
+                                                            whole=False)
 
     @contextmanager
     def evaluated_weights(self):
@@ -505,9 +507,12 @@ class SDXLTrainer:
         """The UNet state dict to export when it is not the module's own:
         the merged LoRA, or the evaluated weights; None otherwise."""
         params = self.eval_params()
+        zero = self.state.zero
         if self.lora_apply is not None:
             params = lora_merge(self.model.trainable_params(), params,
                                 alpha=self.config.training.lora.alpha)
+        elif zero is not None and zero.tp:  # the slices, gathered whole
+            params = zero.whole_params(params)
         elif params is self.state.params:
             return None
         return {**self.model.unet.state_dict(), **params}
@@ -564,20 +569,29 @@ class SDXLTrainer:
                 f"no image sampler for custom method {method!r}; skipping "
                 "validation images (val loss still runs)")
             return
+        zero = self.state.zero
+        # a UNet split over the tensor axis samples on every rank (its
+        # forward is a collective); rank 0 writes the images
+        split = zero is not None and bool(zero.tp)
         with self.evaluated_weights():  # a collective with sharded state
-            if not M.is_main_process():
+            if not (split or M.is_main_process()):
                 return
             try:
                 sampler = ValidationSampler(
                     self.model, self.tokenizers, self.schedule,
                     num_inference_steps=(
                         self.config.training.num_inference_steps),
-                    method=method)
+                    method=method, mesh=self.mesh if split else None)
                 size = self.config.data.image_size
+                step = int(self.state.step)
+                if not M.is_main_process():  # the collective, no files
+                    sampler.generate(prompts, torch.Generator(
+                        device=self.device).manual_seed(step), size, size)
+                    return
                 vl = ValidationLogger(sampler, prompts, self.output_dir,
                                       logger=self.logger, height=size,
                                       width=size)
-                vl.run_validation(int(self.state.step))
+                vl.run_validation(step)
             except Exception as e:  # sampling must never kill training
                 self.logger.warning(f"validation sampling failed: {e}")
 

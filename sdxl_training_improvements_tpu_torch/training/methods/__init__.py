@@ -21,12 +21,21 @@ time_ids)`` is the UNet with its own parameters (the JAX signature's
   batch, one ``torch.Generator`` per draw, so re-tiling the batch into
   micro-batches leaves every sample's draws unchanged;
 * else ``generator`` draws for the whole micro-batch (a direct call).
+
+The finite guard clamps the mean over the micro-batch.  Over several
+ranks each holds a block of the micro-batch's rows, and ``mean_over``
+(the mesh step's context) makes the guard decide on the mean over all
+of them, as JAX's does on its global batch: a clamped mean clamps every
+rank's loss and zeroes its gradient.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from sdxl_training_improvements_tpu_torch.training import schedules as S
 
@@ -50,11 +59,37 @@ def get_method(name: str) -> LossFn:
     return LOSS_REGISTRY[name]
 
 
+# (group, ranks): the ranks whose blocks make up one micro-batch
+_MEAN_OVER = contextvars.ContextVar("sdxl_loss_mean_over", default=None)
+
+
+@contextlib.contextmanager
+def mean_over(group, ranks: int):
+    """Within the block the finite guard decides on the mean of the
+    ``ranks`` ranks of ``group`` (None: the default group); one rank
+    changes nothing."""
+    tok = _MEAN_OVER.set((group, ranks) if ranks > 1 else None)
+    try:
+        yield
+    finally:
+        _MEAN_OVER.reset(tok)
+
+
 def _finite_guard(loss: torch.Tensor) -> torch.Tensor:
     """Non-finite -> 1000.0, else min(loss, 1000.0).  The double where
-    keeps the gradient exactly zero (not NaN) on the discarded branch."""
+    keeps the gradient exactly zero (not NaN) on the discarded branch.
+    Under ``mean_over`` the test is on the ranks' mean (a collective):
+    a rank returns its own loss where that mean is finite and under the
+    clamp, else 1000.0."""
+    over = _MEAN_OVER.get()
     finite = torch.isfinite(loss)
     safe = torch.where(finite, loss, torch.zeros_like(loss))
+    if over is not None:
+        mean = loss.detach().float().clone()
+        dist.all_reduce(mean, group=over[0])
+        mean = mean / over[1]
+        keep = torch.isfinite(mean) & (mean <= LOSS_CLAMP)
+        return torch.where(keep, safe, torch.full_like(loss, LOSS_CLAMP))
     return torch.where(finite, torch.clamp(safe, max=LOSS_CLAMP),
                        torch.full_like(loss, LOSS_CLAMP))
 

@@ -351,21 +351,23 @@ class AdamWBF16:
         updated.
 
         ``zero`` (``parallel/zero.py``): the sharded leaves' ``grads``,
-        ``params`` and state are this rank's chunks; each chunk hashes
-        its elements' places in the whole leaf (the kernel's ``base``),
-        takes its slice of the whole leaf's rbg planes (drawn whole, so
+        ``params`` and state are this rank's pieces (a chunk, a megatron
+        slice, or a chunk of a slice); each piece hashes its elements'
+        places in the whole leaf (the kernel's ``base`` and index map),
+        takes its part of the whole leaf's rbg planes (drawn whole, so
         the stream does not depend on the mesh), and quantizes int8
-        moments with the whole leaf's absmax (a MAX over the shards)."""
+        moments with the whole leaf's absmax (a MAX over the pieces)."""
         self._validate(params)
         if state.layout != self.layout:
             raise ValueError(f"optimizer state of layout {state.layout!r} "
                              f"given to the {self.layout!r} layout")
-        if zero is not None and zero.chunks and (
+        if zero is not None and zero.sharded and (
                 self.layout != "per_leaf" or self._host):
             raise ValueError(
                 "sharded optimizer state needs the per-leaf layout with "
                 "resident state (tpu.flat_optimizer=on and host-streamed "
-                "state are refused under tpu.shard_params)")
+                "state are refused under tpu.shard_params and with a "
+                "tensor axis above 1: ROADMAP queue 1, item 14c)")
         step = state.step + 1
         lr_eff = self.lr_eff(step)
         units, f32 = self._units(params)
@@ -395,17 +397,21 @@ class AdamWBF16:
         state.step = step
         return deltas, state
 
-    def _noise(self, state, n: int, plane, device, chunk=None):
+    def _noise(self, state, n: int, plane, device, where=None):
         """The rbg planes of a unit of n elements: the injected ones, or
-        a draw; None under hash noise.  ``chunk``: the unit is a ZeRO
-        chunk, whose planes are its slice of the whole leaf's."""
+        a draw; None under hash noise.  ``where``: the unit is a piece of
+        a leaf (``Zero.noise_map``: the leaf's elements, the piece's
+        first element, the slice's index map), whose planes are its part
+        of the whole leaf's."""
         if self.noise != "rbg":
             return None
+        whole, base, imap = where if where is not None else (n, 0, None)
         if plane is None:
-            plane = draw_planes(chunk.numel if chunk else n,
-                                state.noise_generator)
-        if chunk is not None:
-            plane = plane[:, chunk.base:chunk.base + chunk.size]
+            plane = draw_planes(whole, state.noise_generator)
+        if imap is not None:
+            plane = plane[:, imap.indices(base, n, plane.device)]
+        elif where is not None:
+            plane = plane[:, base:base + n]
         if device.type == "cuda":  # the kernel reads int32 bits
             return plane.to(device=device, dtype=torch.int32).contiguous()
         return plane.to(device)
@@ -429,8 +435,9 @@ class AdamWBF16:
         if unit.kind == "leaf":
             name = unit.names[0]
             p, g = params[name], grads[name]
-            chunk = zero.chunks.get(name) if zero is not None else None
-            reduce = zero.max_over_shards if chunk is not None else None
+            where = (zero.noise_map(name) if zero is not None
+                     and zero.holds_piece(name) else None)
+            reduce = zero.absmax_reduce(name) if where is not None else None
             m, v, sh = staged if staged is not None else (
                 state.exp_avg[key], state.exp_avg_sq[key], state.shift[key])
             if p.dtype == torch.float32:  # per_leaf's fp32 leaves
@@ -446,8 +453,9 @@ class AdamWBF16:
                     p, g, m, v, sh, lr_eff, decay, seed[0], seed[1],
                     self.beta1, self.beta2, self.eps,
                     planes=self._noise(state, p.numel(), plane, p.device,
-                                       chunk),
-                    base=chunk.base if chunk is not None else 0)
+                                       where),
+                    base=where[1] if where is not None else 0,
+                    imap=where[2] if where is not None else None)
                 if quantized:
                     m = quantize_8bit(m, signed=True, absmax_reduce=reduce)
                     v = quantize_8bit(v, signed=False, absmax_reduce=reduce)

@@ -38,8 +38,6 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from sdxl_training_improvements_tpu_torch.ops.fused_adamw import memory_order
-
 Mats = Tuple[torch.Tensor, ...]
 
 
@@ -233,11 +231,13 @@ class SOAP:
                ) -> Tuple[Dict[str, torch.Tensor], SOAPState]:
         """One step.  ``zero`` (``parallel/zero.py``): a sharded leaf's
         gradient, parameter, first moment and delta are this rank's
-        chunks (the first moment's of its contiguous JAX layout), as JAX
-        places SOAP's state; the gradient and the first moment are
-        gathered whole for the projections, which every rank computes
-        whole, and each rank keeps its chunk of the elementwise results,
-        so the chunks are the whole leaf's update."""
+        pieces (its chunk, megatron slice, or chunk of a slice; the first
+        moment's of its contiguous JAX layout), as JAX places SOAP's
+        state; the gradient and the first moment are gathered whole for
+        the projections, which every rank computes whole (``exp_avg_sq``,
+        ``gg`` and ``q`` stay whole on every rank), and each rank keeps
+        its piece of the elementwise results, so the pieces are the whole
+        leaf's update."""
         step = state.step + 1  # 1-based; step 1 installs the basis only
         first = state.step == 0
         refresh = step % self.freq == 0
@@ -246,8 +246,8 @@ class SOAP:
         deltas: Dict[str, torch.Tensor] = {}
         with torch.no_grad():
             for n, p in params.items():
-                ch = zero.chunks.get(n) if zero is not None else None
-                g = grads[n] if ch is None else zero.gather(n, grads[n])
+                piece = zero is not None and zero.holds_piece(n)
+                g = zero.gather(n, grads[n]) if piece else grads[n]
                 g32 = to_jax_layout(g).float()
                 lshape = self.leaf_shape(g.shape)
                 gm = g32.reshape(lshape)
@@ -258,10 +258,10 @@ class SOAP:
                     continue
                 q = state.q[n]
                 g_proj = self._project(gm, q)
-                if ch is None:
+                if not piece:
                     m = state.exp_avg[n].mul_(b1).add_(g32, alpha=1.0 - b1)
                 else:
-                    g_part = g32.reshape(-1)[ch.base:ch.base + ch.size]
+                    g_part = zero.chunk_of(n, g32, how="jax")
                     state.exp_avg[n].mul_(b1).add_(g_part, alpha=1.0 - b1)
                     m = zero.gather(n, state.exp_avg[n], how="jax")
                 v = state.exp_avg_sq[n].mul_(b2).add_(g_proj * g_proj,
@@ -273,15 +273,14 @@ class SOAP:
                 if self.normalize_grads:
                     norm_grad = norm_grad / (
                         1e-30 + torch.sqrt(torch.mean(norm_grad ** 2)))
-                if ch is None:
+                if not piece:
                     p32 = to_jax_layout(p.detach()).float()
                     delta = (-step_size * norm_grad
                              - self.lr * self.weight_decay * p32)
                     deltas[n] = from_jax_layout(delta).to(p.dtype)
-                else:  # the same elementwise terms, on this rank's chunk
-                    step_dir = zero.full_like(n, torch.float32, p.device)
-                    step_dir.copy_(from_jax_layout(-step_size * norm_grad))
-                    part = memory_order(step_dir)[ch.base:ch.base + ch.size]
+                else:  # the same elementwise terms, on this rank's piece
+                    part = zero.chunk_of(
+                        n, from_jax_layout(-step_size * norm_grad))
                     deltas[n] = (part - self.lr * self.weight_decay
                                  * p.detach().float()).to(p.dtype)
                 if refresh:

@@ -28,11 +28,15 @@ host-streamed optimizer state lives in the optimizer
 (``optimizers/adamw_bf16.py``).
 
 Over several cards (JAX ``trainer.py:56-140``, ``:251-348``):
-``shard_train_state(state, mesh, shard_params)`` places the state on the
-mesh (``parallel/zero.py``: the sharded leaves' optimizer state cut to
-this rank's chunks) and ``make_train_step(..., mesh=)`` runs on every
-rank: each takes its contiguous rows of every micro-batch (``shard_batch``,
-JAX's ``P((data, fsdp))``) from the global batch, which every rank holds;
+``shard_train_state(state, mesh, shard_params, unet=)`` places the state
+on the mesh (``parallel/zero.py``: with a tensor axis the UNet's
+transformer blocks split into megatron slices, ``models/unet.py``
+``place_on_mesh``, their parameters and optimizer state cut to this
+rank's slice; the sharded leaves' optimizer state cut to this rank's
+chunks) and ``make_train_step(..., mesh=)`` runs on every rank: each
+takes its contiguous rows of every micro-batch (``shard_batch``, JAX's
+``P((data, fsdp))``, the same rows on every tensor rank of a group)
+from the global batch, which every rank holds;
 the per-sample and per-micro-batch seeds are drawn for the whole global
 batch on every rank from the replicated generator and then sliced, so a
 sample's noise does not depend on the rank.  After the accumulation the
@@ -40,10 +44,12 @@ gradients are reduced once (``Zero.reduce_gradients``, in the
 accumulator dtype), then masked, normed over the shards and clipped; the
 optimizer updates the rank's chunks and the step gathers the sharded
 parameters back; the loss and the metrics are averaged over the ranks.
-The tensor axis is refused (ROADMAP queue 1, item 14b).
+The loss's finite guard decides on the mean over the ranks' blocks
+(``methods.mean_over``), so a micro-batch's clamp is JAX's.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
@@ -52,7 +58,8 @@ import torch
 
 from sdxl_training_improvements_tpu_torch.ops.probe import run_probe
 from sdxl_training_improvements_tpu_torch.parallel import mesh as M
-from sdxl_training_improvements_tpu_torch.training.methods import get_method
+from sdxl_training_improvements_tpu_torch.training.methods import (
+    get_method, mean_over)
 from sdxl_training_improvements_tpu_torch.training.schedules import (
     NoiseSchedule)
 
@@ -90,16 +97,29 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in tensors))
 
 
-def shard_train_state(state: TrainState, mesh, shard_params: bool = False
-                      ) -> TrainState:
+def shard_train_state(state: TrainState, mesh, shard_params: bool = False,
+                      unet=None) -> TrainState:
     """Place ``state`` (every rank's identical one-card state) on ``mesh``:
-    the parameters stay whole on every rank; with ``shard_params`` the
-    optimizer state (and EMA shadow) of each leaf JAX shards over fsdp is
-    cut to this rank's chunk (``parallel/zero.py``), field by field as
-    JAX places it.  A restored checkpoint is placed the same way, so a
-    state saved by any number of ranks resumes on any other."""
+    with a tensor axis above 1 the leaves of ``unet`` (the module whose
+    parameters ``state.params`` holds) that megatron splits become this
+    rank's slices, in place (``models/unet.py`` ``place_on_mesh``; None:
+    nothing splits, as under LoRA); the other parameters stay whole on
+    every rank; with ``shard_params`` the optimizer state (and EMA
+    shadow) of each leaf JAX shards over fsdp is cut to this rank's chunk
+    (``parallel/zero.py``), field by field as JAX places it.  A restored
+    checkpoint is placed the same way, so a state saved by any number of
+    ranks resumes on any other."""
     from sdxl_training_improvements_tpu_torch.parallel.zero import Zero
-    zero = Zero(mesh, state.params, shard_params=shard_params)
+    tp = {}
+    if unet is not None:
+        from sdxl_training_improvements_tpu_torch.models.unet import (
+            place_on_mesh)
+        mine = {id(p) for p in state.params.values()}
+        if not all(id(p) in mine for p in unet.parameters()):
+            raise ValueError("shard_train_state(unet=): the module's "
+                             "parameters must be state.params")
+        _, tp = place_on_mesh(unet, mesh)
+    zero = Zero(mesh, state.params, shard_params=shard_params, tp=tp)
     zero.shard_state(state.opt_state)
     state.zero = zero
     return state
@@ -199,7 +219,9 @@ def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
                 apply = functools.partial(unet_apply, state.params,
                                           base_params=const_params,
                                           seed=micro_seeds[i])
-            loss, m = loss_fn(apply, mb, gen, schedule, mcfg)
+            with (mean_over(zero.dp_group, zero.world) if zero is not None
+                  else contextlib.nullcontext()):
+                loss, m = loss_fn(apply, mb, gen, schedule, mcfg)
             g = list(torch.autograd.grad(loss, params))
             losses.append(loss.detach())
             metrics.append(m)

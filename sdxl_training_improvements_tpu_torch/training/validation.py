@@ -6,8 +6,14 @@ walks the sigma-space samplers (the ZTSNR Karras-Euler or DPM++(2M)),
 "flow_matching" the OT Euler ODE; DeepCache on the sigma-space samplers;
 the img2img entry, the inpainting channels and the base->refiner handoff;
 aesthetic-score rows for 5-time-id (refiner) UNets; and
-``latents_to_images``.  Mesh serving is not ported (ROADMAP queue 1, item
-14): passing a mesh raises.  The training loop's pieces: ``ValidationLogger``
+``latents_to_images``.  Mesh serving (``mesh=``, JAX ``:84-115``,
+``:293-300``): every rank of the mesh runs the sampler; the UNet is put
+on the mesh's tensor axis once per parameter tree (a megatron-split
+copy, ``models/unet.py`` ``place_on_mesh``; JAX's ``_place_params``
+cache), and each UNet call runs this rank's block of the CFG-stacked
+[2n] rows when they divide by data x fsdp (JAX's ``_bshard``), the
+blocks gathered before the guidance combine.  The training loop's
+pieces: ``ValidationLogger``
 (sample the validation prompts, write PNGs with ``png.write_png``, log
 them) and ``validation_loss`` (the training method's loss over held-out
 batches, deterministic across calls).
@@ -15,6 +21,7 @@ batches, deterministic across calls).
 from __future__ import annotations
 
 import math
+import weakref
 from pathlib import Path
 from typing import List, Optional, Sequence
 
@@ -24,6 +31,11 @@ import torch
 from sdxl_training_improvements_tpu_torch.png import write_png
 from sdxl_training_improvements_tpu_torch.training import schedules as S
 from sdxl_training_improvements_tpu_torch.training.methods import get_method
+
+
+# a UNet -> (the key of its parameter tree and mesh, its megatron-split
+# copy): the samplers of one pipeline place it once
+_PLACED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def latents_to_images(decoded: torch.Tensor) -> List[np.ndarray]:
@@ -63,9 +75,12 @@ class ValidationSampler:
         if deep_cache_interval > 1 and method == "flow_matching":
             raise ValueError(
                 "deep_cache is wired for the sigma-space samplers only")
+        self.mesh = mesh
+        self._dp_group = None
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported (ROADMAP queue 1, item 14b)")
+            from sdxl_training_improvements_tpu_torch.parallel import (
+                mesh as M)
+            self._dp_group = M.dp_group(mesh)  # every rank: a collective
         self.model = model
         self.tokenizers = tokenizers
         self.schedule = schedule
@@ -132,20 +147,71 @@ class ValidationSampler:
         uncond, cond = pred.float().chunk(2)
         return uncond + g * (cond - uncond)
 
+    def _unet(self):
+        """The UNet to call on the mesh: the model's, or with a tensor
+        axis above 1 its megatron-split copy, placed once per parameter
+        tree (the model's UNet when it is placed already, as in
+        training)."""
+        from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+        unet = self.model.unet
+        if M.axis_sizes(self.mesh)[M.TENSOR_AXIS] == 1 \
+                or any(getattr(m, "tp_group", None) is not None
+                       for m in unet.modules()):
+            return unet
+        key = (id(self.mesh),) + tuple((id(p), p.data_ptr(), p._version)
+                                       for p in unet.parameters())
+        placed = _PLACED.get(unet)
+        if placed is None or placed[0] != key:
+            from sdxl_training_improvements_tpu_torch.models.unet import (
+                place_on_mesh)
+            _PLACED.pop(unet, None)  # the old copy goes before the new one
+            placed = _PLACED[unet] = (key, place_on_mesh(
+                unet, self.mesh, copy_module=True)[0])
+        return placed[1]
+
+    def _rows(self):
+        """(this rank's block of the CFG rows, the blocks) on a mesh, or
+        None without one."""
+        if self.mesh is None:
+            return None
+        from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+        return M.batch_index(self.mesh)
+
+    def _gather_rows(self, local: torch.Tensor, blocks: int) -> torch.Tensor:
+        """Every rank's block of rows, joined in block order."""
+        import torch.distributed as dist
+        out = torch.empty((blocks * local.shape[0],) + local.shape[1:],
+                          dtype=local.dtype, device=local.device)
+        dist.all_gather_into_tensor(out, local.contiguous(),
+                                    group=self._dp_group)
+        return out.contiguous(memory_format=torch.channels_last) \
+            if local.dim() == 4 else out
+
     def _apply(self, kind: str, x, t, prompt_embeds, pooled, time_ids,
                extra=None, deep=None):
         """One CFG UNet call on [x; x] at the timestep vector ``t``:
         "full", "deep" (the full call and its deep feature, DeepCache) or
         "shallow" (the shallow stages around ``deep``).  ``extra`` ([2B, K,
         h, w], CFG-stacked already) joins the input's channels: the
-        inpainting mask and masked latents."""
-        args = (self._unet_batch(x, extra), t, prompt_embeds, pooled,
-                time_ids)
+        inpainting mask and masked latents.  On a mesh the rank runs its
+        block of the rows (when they divide) and the prediction is
+        gathered whole; a deep feature stays the rank's block."""
+        args = [self._unet_batch(x, extra), t, prompt_embeds, pooled,
+                time_ids]
+        unet = self.model.unet_apply if self.mesh is None else self._unet()
+        rows = self._rows()
+        blocks = 1
+        if rows is not None and args[0].shape[0] % rows[1] == 0:
+            index, blocks = rows
+            k = args[0].shape[0] // blocks
+            args = [a[index * k:(index + 1) * k] for a in args]
         if kind == "deep":
-            return self.model.unet_apply(*args, return_deep=True)
-        if kind == "shallow":
-            return self.model.unet_apply(*args, deep_cache=deep)
-        return self.model.unet_apply(*args)
+            pred, feat = unet(*args, return_deep=True)
+            return (pred if blocks == 1
+                    else self._gather_rows(pred, blocks)), feat
+        out = (unet(*args, deep_cache=deep) if kind == "shallow"
+               else unet(*args))
+        return out if blocks == 1 else self._gather_rows(out, blocks)
 
     def _unet_call(self, prompt_embeds, pooled, time_ids, extra=None):
         """The eager ``unet(kind, x, t, deep=None)`` that ``sample_latents``

@@ -398,3 +398,27 @@ def test_partitioned_cache_over_processes_raises(tmp_path):
     ds = TD.create_dataset(cfg, process_count=2, process_index=1)
     assert ds.cache.cache_dir == tmp_path / "host-001"
     assert ds._partition == (2, 1)
+
+
+def test_native_build_from_threads_at_once(tmp_path, monkeypatch):
+    """A cold build reached by several threads of one process (the
+    precompute's decode threads) builds once: each thread gets the
+    library, and no image is skipped for a temporary file another thread
+    renamed away."""
+    import threading
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    out, errors = [], []
+
+    def build():
+        try:
+            out.append(native.build())
+        except Exception as e:  # reported below
+            errors.append(e)
+    threads = [threading.Thread(target=build) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(set(out)) == 1 and out[0].exists()
+    assert sorted(p.name for p in tmp_path.iterdir()) == [out[0].name]

@@ -17,9 +17,9 @@
   are not replayed (JAX ``tests/test_loop.py::test_resume_continues``);
   an explicit ``--resume`` path without ``state/`` raises.
 * A refiner checkpoint fine-tunes and re-exports its layout; the
-  refusals raise: an inpainting checkpoint, a mesh with a tensor axis
-  (ROADMAP item 14b), ``--device cuda``
-  without a card; LoRA, refused before it was ported, builds.
+  refusals raise: an inpainting checkpoint, a mesh of more ranks than
+  the process has, ``--device cuda`` without a card; LoRA, refused
+  before it was ported, builds.
 """
 import json
 import os
@@ -363,11 +363,11 @@ def test_refusals(tmp_path, case, monkeypatch):
                        for p in trainer.model.unet.parameters())
         return
     elif case == "mesh":
-        # a data or fsdp mesh trains now (tests/test_torch_multiprocess.py);
-        # a tensor axis is refused, before the shape is held against the
-        # world size (one process here)
+        # every mesh axis trains now (tests/test_torch_multiprocess.py,
+        # tests/test_torch_tensor_parallel.py); a shape of two ranks in
+        # one process does not cover the world: JAX's error
         cfg.tpu.mesh_shape = [1, 1, 2]
-        match = "item 14b"
+        error, match = ValueError, "does not cover 1 devices"
     else:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         device, error, match = "cuda", RuntimeError, "is_available"

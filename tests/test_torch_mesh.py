@@ -12,7 +12,9 @@
   simulated by threads (``parallel/zero.py`` ``Zero`` with its two
   collectives, the gather and the MAX, done over a thread barrier), two
   steps each; the chunks' parameters, deltas and gathered state are
-  ``torch.equal`` to the one-process run's.
+  ``torch.equal`` to the one-process run's.  The same holds for
+  megatron slices over a tensor axis (a column, a row and a GEGLU leaf,
+  alone and chunked over fsdp): the slices' update is the whole leaf's.
 """
 import threading
 
@@ -154,27 +156,44 @@ class _Hub:
 
 
 class ThreadZero(Zero):
-    """``Zero`` for rank ``rank`` of ``f`` simulated fsdp ranks: the two
-    collectives of an optimizer update (the gather and the MAX) exchange
-    through ``hub`` over a thread barrier."""
+    """``Zero`` for rank ``rank`` of ``f`` simulated fsdp ranks (and, with
+    ``t`` > 1, tensor coordinate ``tp_rank`` of ``t``, ``tp`` its plan):
+    the collectives of an optimizer update (the gathers and the MAX)
+    exchange through ``hub`` (the fsdp group's) and ``tp_hub`` (the
+    tensor group's) over thread barriers."""
 
-    def __init__(self, params, rank, f, hub):
-        self.data, self.fsdp, self.world = 1, f, f
+    def __init__(self, params, rank, f, hub, t=1, tp_rank=0, tp_hub=None,
+                 tp=None):
+        self.data, self.fsdp, self.world, self.tensor = 1, f, f, t
         self.rank, self.hub = rank, hub
-        self._plan(params, {"data": 1, "fsdp": f, "tensor": 1}, rank, True)
+        self.tp_rank, self.tp_hub = tp_rank, tp_hub
+        self.tp = dict(tp or {})
+        self._plan(params, {"data": 1, "fsdp": f, "tensor": t}, rank, True)
+
+    @staticmethod
+    def _exchange_on(hub, rank, x):
+        hub.slots[rank] = x.clone()  # the ranks write on
+        hub.barrier.wait()
+        out = list(hub.slots)
+        hub.barrier.wait()
+        return out
 
     def _exchange(self, x):
-        self.hub.slots[self.rank] = x.clone()  # the ranks write on
-        self.hub.barrier.wait()
-        out = list(self.hub.slots)
-        self.hub.barrier.wait()
-        return out
+        return self._exchange_on(self.hub, self.rank, x)
 
     def _gather_flat(self, name, chunk):
         return torch.cat(self._exchange(chunk))
 
-    def max_over_shards(self, x):
-        x.copy_(torch.stack(self._exchange(x)).max())
+    def _gather_tensor_rows(self, flat):
+        return torch.stack(self._exchange_on(self.tp_hub, self.tp_rank,
+                                             flat))
+
+    def max_over_shards(self, x, name):
+        if name in self.chunks:
+            x.copy_(torch.stack(self._exchange(x)).max())
+        if name in self.tp:
+            x.copy_(torch.stack(self._exchange_on(
+                self.tp_hub, self.tp_rank, x)).max())
         return x
 
 
@@ -292,8 +311,9 @@ def test_chunk_updates_equal_the_whole_leaf(kind, f):
                                   "tensor"])
 def test_refusals_under_model_sharding(case):
     """JAX's refusals under model sharding, word for word where JAX has
-    them (``optimizers/__init__.py:54-58``, ``:80-86``), and the tensor
-    axis, naming ROADMAP item 14b."""
+    them (``optimizers/__init__.py:54-58``, ``:80-86``); over a tensor
+    axis the per-leaf layout updates the slices and the packed layouts
+    refuse, naming ROADMAP item 14c."""
     from sdxl_training_improvements_tpu_torch.config import Config
     params, grads = _leaves(torch.bfloat16)
     if case in ("hybrid", "stacked"):
@@ -313,8 +333,136 @@ def test_refusals_under_model_sharding(case):
         cfg.optimizer.shift_host = True
         match = "cannot be combined with tpu.shard_params"
     else:
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            Zero({"data": 1, "fsdp": 1, "tensor": 2}, params)
+        # a tensor axis trains (test_tp_updates_equal_the_whole_leaf):
+        # per leaf on one rank of two here; the packed layouts refuse it
+        tp, _ = _tp_leaves(torch.bfloat16)
+        plan = M.tp_plan(tp, {"data": 1, "fsdp": 1, "tensor": 2},
+                         TP_HEADS, rank=0)
+        local = {n: plan[n].cut(p) if n in plan else p
+                 for n, p in tp.items()}
+        zero = ThreadZero(local, 0, 1, _Hub(1), t=2, tp=plan)
+        assert set(zero.tp) == {TP_COLUMN, TP_ROW, TP_GEGLU, TP_GEGLU_BIAS}
+        for layout in ("per_leaf", "hybrid"):
+            opt = O.AdamWBF16(layout=layout, noise="hash")
+            state = opt.init(local)
+            if layout == "per_leaf":
+                deltas, _ = opt.update({n: torch.zeros_like(p).float()
+                                        for n, p in local.items()},
+                                       state, local, zero=zero)
+                assert all(deltas[n].shape == local[n].shape
+                           for n in local)
+                continue
+            with pytest.raises(ValueError, match="item 14c"):
+                opt.update({n: torch.zeros_like(p).float()
+                            for n, p in local.items()}, state, local,
+                           zero=zero)
         return
     with pytest.raises(ValueError, match=match):
         O.make_optimizer(cfg)
+
+
+# ------------------------------------------- megatron slices in one process
+
+TP_PREFIX = "down_blocks.1.attentions.0.transformer_blocks.0."
+TP_COLUMN = TP_PREFIX + "attn1.to_q.weight"
+TP_ROW = TP_PREFIX + "attn1.to_out.0.weight"
+TP_GEGLU = TP_PREFIX + "ff.net.0.proj.weight"
+TP_GEGLU_BIAS = TP_PREFIX + "ff.net.0.proj.bias"
+TP_HEADS = {TP_PREFIX + "attn1": 4}
+
+
+def _tp_leaves(dtype):
+    """A column, a row and a GEGLU leaf (one in the JAX layout), the
+    GEGLU's bias, a replicated bias and a norm; two steps' gradients."""
+    g = torch.Generator().manual_seed(1)
+    params = {
+        TP_COLUMN: (torch.randn(256, 320, generator=g) * 0.05).to(dtype),
+        TP_ROW: (torch.randn(256, 320, generator=g) * 0.05).t().to(dtype),
+        TP_GEGLU: (torch.randn(1024, 256, generator=g) * 0.05).to(dtype),
+        TP_GEGLU_BIAS: torch.randn(1024, generator=g).to(dtype) * 0.05,
+        TP_PREFIX + "attn1.to_out.0.bias": torch.randn(
+            320, generator=g).to(dtype),
+        TP_PREFIX + "norm1.weight": torch.ones(320),
+    }
+    grads = [{n: torch.empty_strided(p.shape, p.stride()).copy_(
+        torch.randn(p.shape, generator=g)) for n, p in params.items()}
+        for _ in range(2)]  # each gradient laid out as its parameter
+    return params, grads
+
+
+@pytest.mark.parametrize("f,t", [(1, 2), (2, 2), (1, 4)])
+@pytest.mark.parametrize("kind", sorted(OPTIMIZERS))
+def test_tp_updates_equal_the_whole_leaf(kind, f, t):
+    make, dtype = OPTIMIZERS[kind]
+    start, grads = _tp_leaves(dtype)
+    opt = make()
+    params = {n: p.clone() for n, p in start.items()}
+    state = opt.init(params)
+    deltas = []
+    for g in grads:
+        d, state = opt.update(g, state, params)
+        deltas.append(d)
+        for n in params:
+            params[n].add_(d[n])
+    whole = _flat_state(state, params)
+
+    n_ranks = f * t
+    f_hubs = [_Hub(f) for _ in range(t)]
+    t_hubs = [_Hub(t) for _ in range(f)]
+    results, errors = [None] * n_ranks, []
+
+    def rank(r):
+        fi, ti = divmod(r, t)
+        try:
+            ropt = make()
+            plan = M.tp_plan(start, {"data": 1, "fsdp": f, "tensor": t},
+                             TP_HEADS, rank=ti)
+            p = {n: (plan[n].cut(x) if n in plan else x.clone())
+                 for n, x in start.items()}
+            zero = ThreadZero(p, fi, f, f_hubs[ti], t, ti, t_hubs[fi],
+                              plan)
+            # the one-card state of a fresh init, cut as a restore is
+            st = ropt.init({n: x.clone() for n, x in start.items()})
+            zero.shard_state(st)
+            got = []
+            for g in grads:
+                gl = {n: (plan[n].cut(x) if n in plan else x)
+                      for n, x in g.items()}
+                d, st = ropt.update(zero.views(gl), st, zero.views(p),
+                                    zero=zero)
+                got.append(d)
+                for n in p:
+                    zero.view(n, p[n]).add_(d[n])
+                for n in zero.chunks:  # the step's all-gather over fsdp
+                    p[n].copy_(zero.gather(n, zero.view(n, p[n]),
+                                           whole=False))
+            flat = _flat_state(st, p)
+            for key, n, how, _, _ in zero.state_fields(st):
+                flat[key] = zero.gather(n, flat[key], how)
+            flat.update({f"params.{n}": x for n, x in
+                         zero.whole_params(p).items()})
+            results[r] = (got, flat, zero)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+            for h in f_hubs + t_hubs:
+                h.barrier.abort()
+
+    threads = [threading.Thread(target=rank, args=(r,))
+               for r in range(n_ranks)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    if errors:
+        raise errors[0]
+    for got, flat, zero in results:
+        assert set(zero.tp) == {TP_COLUMN, TP_ROW, TP_GEGLU, TP_GEGLU_BIAS}
+        for step, d in enumerate(deltas):
+            for n in d:
+                assert torch.equal(got[step][n],
+                                   zero.chunk_of(n, d[n])
+                                   if n in zero.chunks or n in zero.tp
+                                   else d[n]), (kind, step, n)
+        assert set(flat) == set(whole)
+        for k in whole:
+            assert torch.equal(flat[k], whole[k]), (kind, k)

@@ -29,7 +29,8 @@ has not finished after ``WORKER_TIMEOUT`` seconds fails its test.
   their chunks and saved back by them ``torch.equal``.
 * ``dryrun`` (4 ranks): ``parallel/dryrun.dryrun_multichip(4)`` (mesh
   [2,2,1] with micro-batch re-tiling, dp-only, fsdp-only with int8
-  moments, flow matching with EMA, the dp/fsdp trajectory agreement).
+  moments, flow matching with EMA, tp-only on [1,1,4], [2,1,2] with rbg
+  noise, the dp/fsdp and dp/tp trajectory agreements).
 * ``trainer`` (2 ranks): ``SDXLTrainer`` on [1,2,1] with
   ``shard_params`` and the partitioned cache (``tests/mp_worker.py``'s
   scenarios): each rank's cache under ``host-NNN`` holding its half;
@@ -396,9 +397,11 @@ def test_dryrun_multichip_over_four_ranks(worlds):
     losses = res[0]
     assert set(losses) == {"ddpm_dp_fsdp_retile", "ddpm_dp_only",
                            "ddpm_fsdp_only_int8_moments", "ddpm_fsdp_only",
-                           "flow_matching_ema"}
-    for a, b in zip(losses["ddpm_dp_only"], losses["ddpm_fsdp_only"]):
-        assert abs(a - b) <= 5e-3 * abs(b)
+                           "flow_matching_ema", "ddpm_tp_only",
+                           "ddpm_dp_tp"}
+    for other in ("ddpm_fsdp_only", "ddpm_tp_only"):
+        for a, b in zip(losses["ddpm_dp_only"], losses[other]):
+            assert abs(a - b) <= 5e-3 * abs(b), other
 
 
 def test_trainer_over_two_ranks_with_partitioned_cache(worlds):

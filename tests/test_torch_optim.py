@@ -122,11 +122,45 @@ def _jax_seeds(state, n_leaves):
         k, (2,), jnp.uint32)) for k in keys]).astype(np.int64))
 
 
+def _assert_bits_equal(got: np.ndarray, ref: np.ndarray, where: str):
+    """Bit equality that names, on failure, the first element that
+    differs with both bit patterns and the count of differing elements."""
+    got, ref = got.reshape(-1), ref.reshape(-1)
+    bad = np.flatnonzero(got != ref)
+    if bad.size:
+        i = int(bad[0])
+        raise AssertionError(
+            f"{where}: {bad.size} of {got.size} elements differ; first at "
+            f"flat index {i}: port 0x{int(got[i]):08x} "
+            f"({got[i:i + 1].view(np.float32)[0]!r}), JAX 0x{int(ref[i]):08x} "
+            f"({ref[i:i + 1].view(np.float32)[0]!r})")
+
+
 def test_adamw_chain_bit_exact_vs_jax_hash():
     """Three steps of JAX ``adamw_bf16(noise="hash")`` and the port's
     optimizer from the same state, with JAX's per-leaf seeds and a weight
     decay large enough that the batched decay fires: bf16 p (after the
-    delta round trip), m, v and shift equal bit for bit."""
+    delta round trip), m, v and shift equal bit for bit.
+
+    The test holds its two sides to what this process computes: JAX's
+    jitted update is compiled here with the persistent compilation cache
+    off (so it cannot be an executable another process compiled and
+    wrote to the shared cache), and the port runs on one torch thread (so
+    its arithmetic does not depend on the pool an earlier test in the
+    same worker left).  Both compute the same values as before; a failure
+    names the step, leaf, field, element and both bit patterns."""
+    threads = torch.get_num_threads()
+    cached = jax.config.jax_enable_compilation_cache
+    torch.set_num_threads(1)
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        _adamw_chain_against_jax()
+    finally:
+        jax.config.update("jax_enable_compilation_cache", cached)
+        torch.set_num_threads(threads)
+
+
+def _adamw_chain_against_jax():
     kw = dict(lr=1e-3, weight_decay=2.0)
     jopt = jax_adamw_bf16(**kw, noise="hash")
     params_np, grads_np = _leaves()
@@ -162,12 +196,15 @@ def test_adamw_chain_bit_exact_vs_jax_hash():
                 np.testing.assert_allclose(_np(tparams[k]), np.asarray(jp),
                                            rtol=1e-6, atol=0)
                 continue
-            for got, ref in ((tparams[k], jp),
-                             (tstate.exp_avg[k], jstate.exp_avg[name]["bias"]),
-                             (tstate.exp_avg_sq[k],
-                              jstate.exp_avg_sq[name]["bias"]),
-                             (tstate.shift[k], jstate.shift[name]["bias"])):
-                np.testing.assert_array_equal(_bits(got), _jnp_bits(ref))
+            for field, got, ref in (
+                    ("param", tparams[k], jp),
+                    ("exp_avg", tstate.exp_avg[k],
+                     jstate.exp_avg[name]["bias"]),
+                    ("exp_avg_sq", tstate.exp_avg_sq[k],
+                     jstate.exp_avg_sq[name]["bias"]),
+                    ("shift", tstate.shift[k], jstate.shift[name]["bias"])):
+                _assert_bits_equal(_bits(got), _jnp_bits(ref),
+                                   f"step {step}, leaf {name}, {field}")
             assert float(tstate.accumulated_decay[k]) == float(
                 jstate.accumulated_decay[name]["bias"])
     assert fired > 0  # the decay branch ran

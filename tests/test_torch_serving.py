@@ -317,6 +317,27 @@ def test_deep_cache_first_call_is_exact(models):
     assert torch.isfinite(on).all() and not torch.equal(on, off)
 
 
+def _one_rank_mesh_serves_as_meshless(model):
+    import socket
+
+    import torch.distributed as dist
+
+    from sdxl_training_improvements_tpu_torch.parallel import mesh as M
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = M.create_mesh([1, 1, 1], device_type="cpu")
+        kw = dict(height=SIZE, width=SIZE, num_inference_steps=2,
+                  return_latents=True, seed=5)
+        got = SDXLPipeline.from_model(model, mesh=mesh)(["x"], **kw)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, SDXLPipeline.from_model(model)(["x"], **kw))
+
+
 def test_refusals(models, tmp_path):
     _, model = models["base"]
     sched = TS.NoiseSchedule.create()
@@ -329,8 +350,10 @@ def test_refusals(models, tmp_path):
                       (dict(deep_cache_interval=0), "deep_cache_interval")):
         with pytest.raises(ValueError, match=match):
             ValidationSampler(model, None, sched, **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ValidationSampler(model, None, sched, mesh=object())
+    # mesh serving runs (over gloo worlds: tests/test_torch_tensor_
+    # parallel.py); on a one-rank mesh it is the meshless sampler, bit
+    # for bit
+    _one_rank_mesh_serves_as_meshless(model)
     flow = SDXLPipeline.from_model(model, method="flow_matching")
     with pytest.raises(ValueError, match="denoising_start/denoising_end"):
         flow(["x"], height=SIZE, width=SIZE, num_inference_steps=2,
@@ -442,7 +465,13 @@ def test_generate_main_and_png(models, tmp_path, capsys):
                          + ["--init", str(tmp_path / "init.npy")]) == 0
     assert png.read_png(out / "000.png").shape == (32, 32, 3)
     # --aot / --export-aot: tests/test_torch_aot.py
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    # --mesh: a one-rank mesh serves as no mesh does; two ranks need a
+    # cluster (tests/test_torch_tensor_parallel.py runs one)
+    assert generate.main(common) == 0
+    ref = png.read_png(out / "000.png")
+    assert generate.main(common + ["--mesh", "1,1,1"]) == 0
+    assert np.array_equal(png.read_png(out / "000.png"), ref)
+    with pytest.raises(SystemExit, match="torchrun"):
         generate.main(common + ["--mesh", "1,1,2"])
     with pytest.raises(SystemExit, match="--mask requires --init"):
         generate.main(common + ["--mask", "m.png"])
