@@ -6,11 +6,13 @@ writes the latent cache, and training batches are pure cache reads
 (numpy), stacked on the host and copied to the card by
 ``data/pipeline.py``.  The differences from the JAX package:
 
-* images are PNG files read by ``png.read_png`` (the card's machine has no
-  Pillow; the JAX package decodes with PIL).  An image's size comes from
-  the cache's metadata, or else from its PNG header; any other file
-  raises, naming it.  A cache that the JAX package wrote from JPEGs still
-  trains: cached entries need no decode;
+* images are read by ``images.py`` (the card's machine has no Pillow;
+  the JAX package decodes with PIL) to the bits Pillow gives: JPEG
+  (baseline and progressive) and PNG.  An image's size comes from the
+  cache's metadata, or else from its header; a file of another format
+  (WebP, GIF) or a JPEG frame the decoder does not read (arithmetic,
+  12-bit, lossless, hierarchical) raises there, naming it.  A file that
+  fails to decode in the precompute is skipped, as JAX skips it;
 * ``prepare_image_array`` takes the decoded uint8 RGB array and runs the
   native C++ path (``native/image_ops.cpp``, the JAX package's code) with
   no PIL fallback: a failed build raises;
@@ -40,8 +42,8 @@ from sdxl_training_improvements_tpu_torch.data.paths import load_data_from_direc
 from sdxl_training_improvements_tpu_torch.data.samplers import BucketBatchSampler
 from sdxl_training_improvements_tpu_torch.data.tags import (
     TagWeighter, create_tag_weighter_with_index)
-from sdxl_training_improvements_tpu_torch.png import (
-    read_png, read_png_size, to_rgb)
+from sdxl_training_improvements_tpu_torch.images import (
+    read_image_size, read_rgb)
 
 
 def prepare_image_array(rgb: np.ndarray, bucket: Bucket,
@@ -109,15 +111,15 @@ class AspectBucketDataset:
 
     # ----------------------------------------------------------- assignment
     def _image_size(self, idx: int) -> Optional[Tuple[int, int]]:
-        """(w, h) from cache metadata if present, else the PNG header
+        """(w, h) from cache metadata if present, else the image's header
         (cache-first like reference ``group_images_by_bucket``).  A file
-        that is not a PNG raises, naming it."""
+        the port does not read raises, naming it."""
         if self.cache is not None:
             entry = self.cache.cached_entry(self.image_paths[idx])
             if entry and "original_size" in entry:
                 h, w = entry["original_size"]
                 return (w, h)
-        return read_png_size(self.image_paths[idx])
+        return read_image_size(self.image_paths[idx])
 
     def _assign_all(self) -> None:
         # header reads are I/O-bound; a thread pool turns the cold-start
@@ -203,7 +205,7 @@ class AspectBucketDataset:
             b = self._bucket_of[i]
             t_dec = _time.perf_counter()
             try:
-                rgb = to_rgb(read_png(self.image_paths[i]))
+                rgb = read_rgb(self.image_paths[i])
                 # per-image generator seeded by (seed, index): crops are
                 # reproducible regardless of decode-thread scheduling
                 arr, orig, crop = prepare_image_array(

@@ -29,9 +29,11 @@ generate.py``:
         generate --model ... --prompt ... --mesh 1,1,2
 
 ``--model`` is a diffusers-layout directory, such as
-``training.checkpoints.export_diffusers`` writes.  Images are written and
-read as PNG by ``png.py`` (no Pillow); ``--init`` and ``--mask`` also take
-``.npy`` arrays (HxWx3 uint8; HxW, nonzero = repaint).  An init image or
+``training.checkpoints.export_diffusers`` writes.  Images are written as
+PNG by ``png.py``; ``--init`` and ``--mask`` are read by ``images.py`` (no
+Pillow: JPEG or PNG, to the bits Pillow's ``convert("RGB")`` and
+``convert("L")`` give) or as ``.npy`` arrays (HxWx3 uint8; HxW, nonzero =
+repaint).  An init image or
 mask of another size is resized to ``--width`` x ``--height`` as JAX's
 Pillow path does (Lanczos; a mask nearest, before its 127 threshold).
 ``--device cpu`` runs on the CPU.  ``--mesh DATA,FSDP,TENSOR`` runs one
@@ -79,8 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "split over the tensor axis and the CFG batch "
                         "sharded over data x fsdp")
     p.add_argument("--init", action="append", default=None, metavar="IMAGE",
-                   help="img2img init image, PNG or .npy (repeat to match "
-                        "--prompt count; resized to --height x --width)")
+                   help="img2img init image, JPEG, PNG or .npy (repeat to "
+                        "match --prompt count; resized to --height x "
+                        "--width)")
     p.add_argument("--strength", type=float, default=None,
                    help="edit strength in (0, 1]; defaults to 0.35 for "
                         "img2img, 1.0 (full repaint) for inpainting")
@@ -121,18 +124,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _read(path) -> np.ndarray:
-    from sdxl_training_improvements_tpu_torch.png import read_png
-    path = Path(path)
-    return np.load(path) if path.suffix == ".npy" else read_png(path)
-
-
 def _load_images(paths, height, width):
+    from sdxl_training_improvements_tpu_torch.images import read_rgb
     from sdxl_training_improvements_tpu_torch.png import (
         resize_lanczos, to_rgb)
     out = []
     for path in paths:
-        a = _read(path)
+        a = np.load(path) if Path(path).suffix == ".npy" else read_rgb(path)
         if a.dtype != np.uint8:
             raise SystemExit(f"{path}: expected uint8 pixels, got {a.dtype}")
         a = to_rgb(a)
@@ -143,15 +141,16 @@ def _load_images(paths, height, width):
 
 
 def _load_masks(paths, height, width):
+    from sdxl_training_improvements_tpu_torch.images import read_gray
     from sdxl_training_improvements_tpu_torch.png import (
         resize_nearest, to_gray)
     out = []
     for path in paths:
-        a = _read(path)
         if Path(path).suffix == ".npy":  # nonzero = repaint
-            a = (a != 0).astype(np.uint8) * 255
+            m = to_gray((np.load(path) != 0).astype(np.uint8) * 255)
+        else:
+            m = read_gray(path)
         # white = repaint: luma > 127 after the nearest resize
-        m = to_gray(a)
         if m.shape != (height, width):
             m = resize_nearest(m, width, height)
         out.append((m > 127).astype(np.uint8))

@@ -3,14 +3,19 @@
 ``prepare_image_native`` fuses Lanczos3 resize -> crop -> flip -> [-1, 1]
 float32 CHW in OpenMP-parallel C++ (``image_ops.cpp``, the JAX package's
 arithmetic, so both packages prepare an image to the same bits);
-``png_unfilter`` undoes the PNG row filters for ``png.read_png``.
+``png_unfilter`` undoes the PNG row filters for ``png.read_png``;
+``jpeg_decode`` decodes a JPEG as Pillow does (``jpeg_decode.cpp``, a
+library of its own, built without OpenMP: the precompute decodes one
+image a thread).
 
-The library is compiled into the package's ``_build/`` directory, named by
-a hash of the source and the flags; one thread of a process builds it (the
-precompute's decode threads reach it together on a cold checkout), and
-processes build under their own temporary names.  The JAX package falls back to PIL
-when the build fails; the port has no such fallback (the card's machine
-has no Pillow), so a failed build raises.
+Each library is compiled into the package's ``_build/`` directory, named
+by its source's name and a hash of the source and the flags; one thread
+of a process builds (the precompute's decode threads reach it together on
+a cold checkout), and processes build under their own temporary names.
+The calls release the GIL (ctypes does for a ``CDLL``), so the decode
+threads run at once.  The JAX package falls back to PIL when the build
+fails; the port has no such fallback (the card's machine has no Pillow),
+so a failed build raises.
 """
 from __future__ import annotations
 
@@ -25,8 +30,10 @@ from pathlib import Path
 import numpy as np
 
 _SRC = Path(__file__).resolve().parent / "image_ops.cpp"
+_JPEG_SRC = Path(__file__).resolve().parent / "jpeg_decode.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
+JPEG_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _BUILD_LOCK = threading.Lock()
 
@@ -35,20 +42,21 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _INTP = ctypes.POINTER(ctypes.c_int)
 
 
-def build() -> Path:
-    """The shared library, compiled unless an up-to-date one exists."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(FLAGS).encode()
+def build(src: Path = _SRC, flags=FLAGS) -> Path:
+    """The shared library of ``src``, compiled unless an up-to-date one
+    exists."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
                             ).hexdigest()[:16]
-    lib = BUILD_DIR / f"libimage_ops_{digest}.so"
+    lib = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     with _BUILD_LOCK:
         if lib.exists():
             return lib
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(["g++", *FLAGS, str(_SRC), "-o", str(tmp)],
+        proc = subprocess.run(["g++", *flags, str(src), "-o", str(tmp)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed to build {_SRC}:\n"
+            raise RuntimeError(f"g++ failed to build {src}:\n"
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, lib)
     return lib
@@ -109,4 +117,37 @@ def png_unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
         row = bad.value
         raise ValueError(f"PNG row {row}: unknown filter type "
                          f"{src[row * (stride + 1)]}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_jpeg() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(_JPEG_SRC, JPEG_FLAGS)))
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,  # data, n, gray
+        _U8P, ctypes.c_size_t,  # out, its bytes
+        _INTP, _INTP,  # width, height
+        ctypes.c_char_p, ctypes.c_int]  # message, its room
+    return lib
+
+
+def jpeg_decode(blob: bytes, size: tuple, gray: bool, name) -> np.ndarray:
+    """The JPEG ``blob`` of ``size`` (width, height) decoded as Pillow's
+    ``convert("L")`` (``gray``: HxW) or ``convert("RGB")`` (HxWx3) gives
+    it; a file the decoder refuses raises ``ValueError`` naming ``name``
+    and the reason."""
+    w, h = size
+    out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
+    got_w, got_h = ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    rc = load_jpeg().jpeg_decode(blob, len(blob), int(gray),
+                                 out.ctypes.data_as(_U8P), out.nbytes,
+                                 ctypes.byref(got_w), ctypes.byref(got_h),
+                                 err, len(err))
+    if rc == 1:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    if rc != 0 or (got_w.value, got_h.value) != (w, h):
+        raise ValueError(f"{name}: the frame is {got_w.value}x{got_h.value}"
+                         f", the header said {w}x{h}")
     return out

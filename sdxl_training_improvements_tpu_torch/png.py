@@ -3,11 +3,14 @@
 The card's machine has no Pillow, so ``generate.py``, ``serve.py`` and
 the dataset write and read PNGs here: ``encode_png`` makes the bytes of an
 8-bit gray or RGB PNG (filter 0 on every row, zlib) and ``write_png``
-writes them; ``read_png`` reads non-interlaced 8-bit gray,
-gray+alpha, RGB and RGBA with any of the five row filters, undone in C++
-(``native.png_unfilter``; ``_unfilter`` is its plain numpy/Python version,
-which the tests hold it against byte for byte); ``read_png_size`` reads
-the size from the IHDR chunk alone.  ``to_rgb`` and ``to_gray`` convert
+writes them; ``read_png`` reads every color type (gray, RGB, palette,
+gray+alpha, RGBA) at every bit depth PNG allows (1-16), Adam7 files
+too (each pass unfiltered on its own), with the five row filters undone
+in C++ (``native.png_unfilter``; ``_unfilter`` is its plain numpy/Python
+version, which the tests hold it against byte for byte), and gives the
+samples as stored; ``read_png_as`` gives what Pillow's ``convert("RGB")``
+or ``convert("L")`` makes of them; ``read_png_size`` reads the size from
+the IHDR chunk alone.  ``to_rgb`` and ``to_gray`` convert
 as Pillow's ``convert("RGB")`` / ``convert("L")`` do (alpha dropped, not
 composited; ITU-R 601-2 luma in 16-bit fixed point).  ``resize_lanczos``
 and ``resize_nearest`` give what Pillow's ``Image.resize(size,
@@ -27,8 +30,14 @@ import numpy as np
 from sdxl_training_improvements_tpu_torch import native
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# color type -> channels (0 gray, 2 RGB, 4 gray + alpha, 6 RGBA)
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# color type -> channels (0 gray, 2 RGB, 3 palette, 4 gray + alpha, 6
+# RGBA), and the bit depths each may have
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7: each pass's first column and row and its steps (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -101,38 +110,119 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG -> uint8 HxW (gray) or HxWxC (gray +
-    alpha, RGB, RGBA).  Palette images, other bit depths and interlacing
-    raise."""
+def _chunks(path) -> tuple:
+    """(IHDR fields, the IDAT data joined, the PLTE entries or None) of
+    the PNG at ``path``; every chunk's CRC is checked."""
     blob = Path(path).read_bytes()
     if not blob.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = len(_SIGNATURE), None, []
+    pos, header, idat, plte = len(_SIGNATURE), None, [], None
     while pos + 8 <= len(blob):
         n, kind = struct.unpack(">I4s", blob[pos:pos + 8])
         data = blob[pos + 8:pos + 8 + n]
-        if zlib.crc32(kind + data) != struct.unpack(
-                ">I", blob[pos + 8 + n:pos + 12 + n])[0]:
+        crc = blob[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or zlib.crc32(kind + data) != struct.unpack(
+                ">I", crc)[0]:
             raise ValueError(f"{path}: bad CRC in a {kind!r} chunk")
         pos += 12 + n
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(data, np.uint8)[:len(data) // 3 * 3
+                                                 ].reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(data)
         elif kind == b"IEND":
             break
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or IDAT chunk")
+    try:
+        data = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt image data ({e})") from None
+    return header, data, plte
+
+
+def _unpack(rows: np.ndarray, w: int, c: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, w, c]: uint8 for depths
+    up to 8 (the values as stored), uint16 for 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2")[:, :w * c].astype(np.uint16).reshape(h, w, c)
+    if depth == 8:
+        return rows[:, :w * c].reshape(h, w, c)
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
+def _decode(path) -> tuple:
+    """(samples [h, w, c] as ``_unpack`` gives them, color type, bit
+    depth, PLTE entries or None) of the PNG at ``path``."""
+    header, data, plte = _chunks(path)
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace:
-        raise ValueError(
-            f"{path}: bit depth {depth}, color type {color}, interlace "
-            f"{interlace}: only non-interlaced 8-bit gray, gray+alpha, RGB "
-            "and RGBA are read")
+    if color not in _CHANNELS or depth not in _DEPTHS[color] or \
+            interlace > 1:
+        raise ValueError(f"{path}: bit depth {depth}, color type {color}, "
+                         f"interlace {interlace}: not a valid PNG")
+    if color == 3 and plte is None:
+        raise ValueError(f"{path}: a palette image without a PLTE chunk")
     c = _CHANNELS[color]
-    out = native.png_unfilter(zlib.decompress(b"".join(idat)), h, w * c, c)
-    return out.reshape(h, w) if c == 1 else out.reshape(h, w, c)
+    bpp = max(1, c * depth // 8)  # the filters' left-neighbour distance
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:  # an empty pass has no bytes at all
+            continue
+        stride = -(-(pw * c * depth) // 8)
+        n = ph * (stride + 1)
+        if interlace and pos + n > len(data):
+            raise ValueError(f"{path}: truncated image data")
+        part = data[pos:pos + n] if interlace else data
+        rows = native.png_unfilter(part, ph, stride, bpp)
+        out[y0::dy, x0::dx] = _unpack(rows, pw, c, depth)
+        pos += n
+    return out, color, depth, plte
+
+
+def read_png(path) -> np.ndarray:
+    """A PNG's samples as stored: HxW (one channel: gray or palette
+    indices) or HxWxC (gray + alpha, RGB, RGBA); uint8 for bit depths up
+    to 8 (a 1-, 2- or 4-bit sample keeps its value), uint16 for 16;
+    Adam7 files de-interlaced."""
+    samples, _, _, _ = _decode(path)
+    return samples[..., 0] if samples.shape[2] == 1 else samples
+
+
+def read_png_as(path, mode: str) -> np.ndarray:
+    """What Pillow's ``Image.open(path).convert(mode)`` gives, ``mode``
+    "RGB" (HxWx3) or "L" (HxW), by Pillow's rules: 1-, 2- and 4-bit
+    gray scale to 0-255 (times 255, 85, 17: modes "1", "L;2", "L;4");
+    16-bit gray (mode "I;16") clips at 255 rather than scaling; every
+    other 16-bit channel keeps its high byte ("RGB;16B" and the like);
+    a palette index takes its PLTE entry, and an index past the PLTE's
+    end black; tRNS and alpha are dropped, not composited."""
+    samples, color, depth, plte = _decode(path)
+    if depth == 16:
+        a = (np.minimum(samples, 255) if color == 0 else samples >> 8
+             ).astype(np.uint8)
+    elif color == 3:
+        table = np.zeros((256, 3), np.uint8)
+        table[:len(plte)] = plte[:256]
+        a = table[samples[..., 0]]
+    elif depth < 8:
+        a = samples * np.uint8({1: 255, 2: 85, 4: 17}[depth])
+    else:
+        a = samples
+    if a.shape[-1] == 1:
+        a = a[..., 0]
+    if mode == "RGB":
+        return to_rgb(a)
+    if mode == "L":
+        return to_gray(a)
+    raise ValueError(f"mode {mode!r}: only 'RGB' and 'L'")
 
 
 def read_png_size(path) -> tuple:
@@ -141,8 +231,7 @@ def read_png_size(path) -> tuple:
     with open(path, "rb") as f:
         head = f.read(24)
     if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
-        raise ValueError(f"{path}: not a PNG file (the port reads PNG "
-                         "images only)")
+        raise ValueError(f"{path}: not a PNG file")
     return struct.unpack(">II", head[16:24])
 
 

@@ -7,7 +7,8 @@
 * ``png.read_png`` equals Pillow on Pillow-written files; the C++ row
   unfilter (``native.png_unfilter``) is byte-equal to the plain Python
   one (``png._unfilter``) on each of the five filters and on Pillow's
-  adaptive files; a non-PNG image raises, naming the file.
+  adaptive files; a WebP, an arithmetic-coded JPEG and a GIF raise,
+  naming the file.
 * ``prepare_image_array`` is bit-equal to JAX's (both run the same C++),
   with the center and the random crop and with the flip; the precompute
   writes the same cache entries in both packages from the same PNGs.
@@ -30,7 +31,7 @@ from sdxl_training_improvements_tpu.data import dataset as JD
 from sdxl_training_improvements_tpu.data import pipeline as JP
 from sdxl_training_improvements_tpu.data import samplers as JS
 from sdxl_training_improvements_tpu.data import tags as JT
-from sdxl_training_improvements_tpu_torch import native, png
+from sdxl_training_improvements_tpu_torch import images, native, png
 from sdxl_training_improvements_tpu_torch.config import Config as TConfig
 from sdxl_training_improvements_tpu_torch.data import buckets as TB
 from sdxl_training_improvements_tpu_torch.data import cache as TCa
@@ -224,16 +225,35 @@ def test_native_unfilter_matches_plain_on_pillow_files(tmp_path):
         native.png_unfilter(b"\x07" + bytes(3), 1, 3, 3)
 
 
-def test_non_png_image_raises_naming_it(tmp_path):
-    path = tmp_path / "photo.jpg"
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
-    with pytest.raises(ValueError, match="photo.jpg"):
-        png.read_png_size(path)
+def _unread_image(path, kind: str) -> None:
+    """A file at ``path`` the port does not read: a WebP or GIF that
+    Pillow writes, or Pillow's baseline JPEG with its frame marker made
+    SOF9 (arithmetic coding)."""
+    img = Image.fromarray(np.zeros((8, 8, 3), np.uint8))
+    if kind == "arithmetic":
+        img.save(path, "JPEG")
+        blob = path.read_bytes()
+        path.write_bytes(blob.replace(b"\xff\xc0", b"\xff\xc9", 1))
+    else:
+        img.save(path, kind.upper())
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("photo.webp", "webp"), ("photo.jpg", "arithmetic"),
+    ("photo.jpeg", "gif")])
+def test_non_png_image_raises_naming_it(tmp_path, name, kind):
+    """A WebP, an arithmetic-coded JPEG and a GIF (under a JPEG name: the
+    format is told by the bytes) raise naming the file, in the size
+    reader and in ``create_dataset``."""
+    path = tmp_path / name
+    _unread_image(path, kind)
+    with pytest.raises(ValueError, match=name):
+        images.read_image_size(path)
     (tmp_path / "photo.txt").write_text("cat")
     cfg = TConfig.from_dict({"data": {"train_data_dir": [str(tmp_path)]},
                              "global_config": {
                                  "cache": {"cache_dir": str(tmp_path / "c")}}})
-    with pytest.raises(ValueError, match="photo.jpg"):
+    with pytest.raises(ValueError, match=name):
         TD.create_dataset(cfg)
 
 

@@ -5,9 +5,10 @@ rather than raised, so one call shows all of them; the ranks' results
 and the failed checks go to ``chiprun_out/multi_card_checks.json``.
 
     python tools/multi_card_checks.py        # e.g. on four cards
+    python tools/multi_card_checks.py --15b  # phases 6 and 15b only
 
 The parent starts each rank as ``python tools/multi_card_checks.py
---rank DIR`` under JAX's env triple.
+--rank DIR [--15b]`` under JAX's env triple.
 """
 import json
 import os
@@ -35,8 +36,12 @@ def check(cond, msg):
 cs.check = check
 
 
-def rank_main(work):
+def rank_main(work, only_15b):
     cs._phase15c = lambda work, smi: {"launches": {}}
+    if only_15b:
+        from sdxl_training_improvements_tpu_torch.parallel import dryrun
+        dryrun.dryrun_multichip = lambda *a, **kw: None
+        cs._phase16 = lambda *a, **kw: {}
     try:
         cs._phase15_rank(work)
     finally:
@@ -44,7 +49,7 @@ def rank_main(work):
          ).write_text(json.dumps(FAILED))
 
 
-def main():
+def main(only_15b):
     t0 = time.perf_counter()
     smi = cs.phase_environment()
     cs.phase_build()
@@ -57,8 +62,7 @@ def main():
         generator=torch.Generator(device="cuda").manual_seed(cs.SEED),
         unet_config=UNetConfig.sdxl(remat=cfg.tpu.remat,
                                     remat_policy=cfg.tpu.remat_policy))
-    serving = cs.phase_slice(model)
-    record = {"latents": serving.pop("latents")}
+    record = {} if only_15b else {"latents": cs.phase_slice(model)["latents"]}
     cs.phase_train(model, cfg, record=record)
     del model
     cs._free()
@@ -71,7 +75,8 @@ def main():
             s.bind(("localhost", 0))
             port = s.getsockname()[1]
         procs = [subprocess.Popen(
-            [sys.executable, __file__, "--rank", str(work)],
+            [sys.executable, __file__, "--rank", str(work)]
+            + (["--15b"] if only_15b else []),
             env=dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}",
                      SDXL_NUM_PROCESSES=str(world), SDXL_PROCESS_ID=str(r),
                      LOCAL_RANK=str(r))) for r in range(world)]
@@ -93,6 +98,6 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
-        rank_main(sys.argv[2])
+        rank_main(sys.argv[2], "--15b" in sys.argv[3:])
     else:
-        main()
+        main("--15b" in sys.argv[1:])
