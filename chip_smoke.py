@@ -80,16 +80,18 @@ Phases, each printing what it found:
    the refiner's widths (bf16) and the fp32 VAE encoder's, and the bf16
    flash forward at the refiner's attention sites;
 11. the training entry point, after phase 9 with the earlier models freed,
-   and after the decode check: every committed JPEG fixture
+   and after the decode check: every committed JPEG and WebP fixture
    (``tests/fixtures/images``) decoded by the port's reader on the card's
-   host, each result's sha256 against Pillow's in the fixtures' manifest,
-   and the host ms per megapixel of baseline 4:2:0 and progressive at
-   1024^2.  ``main.main`` on ``configs/novelai_v3_1024.yaml`` as the
+   host, each result's sha256 (RGB and L) against Pillow's in the
+   fixtures' manifest, and the host ms per megapixel of baseline 4:2:0
+   and progressive JPEG at 1024^2 and of the two WebP entry files.
+   ``main.main`` on ``configs/novelai_v3_1024.yaml`` as the
    port's YAML reader loads it (full SDXL-base width, seeded weights, the
    cuts logged) over 8 images in a temporary directory, 4 at 1024x1024
    and 4 at 1216x832: four committed JPEGs (baseline 4:2:0 with restart
-   markers, progressive 4:2:0, baseline 4:4:4, grayscale) and four PNGs
-   written here (a palette PNG, an Adam7 PNG, two seeded Paeth PNGs);
+   markers, progressive 4:2:0, baseline 4:4:4, grayscale), two committed
+   WebPs (lossy with alpha at 1024x1024, lossless at 1216x832) and two
+   PNGs written here (a palette PNG, an Adam7 PNG);
    run A (3 epochs, 6 steps: the cache's latent shapes, each
    step's loss read after the run, steps 3-4 timed as one window between
    two synchronizes, steps 5-6 profiled for device time and idle share,
@@ -107,7 +109,7 @@ Phases, each printing what it found:
 12. the remaining training features, after phase 11 with its models
    freed, each at full SDXL-base width on phase 11's recipe and cuts:
    (12a) ``main.main`` with LoRA (rank 4, the default targets) and EMA
-   0.9999 over phase 11's PNGs, 2 epochs with steps 3-4 profiled (device
+   0.9999 over phase 11's images, 2 epochs with steps 3-4 profiled (device
    time, idle share, the update's ms by CUDA events, peak memory,
    launches); on its model, with seeded trees, the merge path against
    the branch path (dropout 0), the LoRA gradients through the kernels
@@ -168,7 +170,7 @@ Phases, each printing what it found:
    STACK_CHECK_MAX elements (the plain chain's fp64 temporaries), each
    ``torch.equal``; (14c) ``main.main`` on
    ``configs/v5e16_single_chip.yaml`` (int8 moments, shift_host,
-   moments_host) with phase 11's cuts over phase 11's PNGs: 4 steps with
+   moments_host) with phase 11's cuts over phase 11's images: 4 steps with
    the update's ms by CUDA events, the optimizer state on the card
    (none) and on the host (pinned), peak GiB, launches; the streamed
    update against the copies alone and the resident update (the share of
@@ -2278,12 +2280,13 @@ ENTRY_IMAGE_SIZES = ((1024, 1024), (1216, 832))
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / \
     "images"
 # the phase's 8 files in index order (the first four at the first size):
-# a committed JPEG fixture, or how the script writes the PNG
+# a committed JPEG or WebP fixture, or how the script writes the PNG
 ENTRY_FILES = ("entry_baseline_420_rst.jpg", "entry_progressive_420.jpg",
-               "palette", "paeth", "entry_baseline_444.jpg",
-               "entry_gray.jpg", "adam7", "paeth")
+               "palette", "entry_lossy_alpha.webp", "entry_baseline_444.jpg",
+               "entry_gray.jpg", "adam7", "entry_lossless.webp")
 # the decode check's timed fixtures: baseline 4:2:0 and progressive 4:2:0
-DECODE_TIMED = ENTRY_FILES[:2]
+# JPEG, lossy WebP with alpha (1024x1024) and lossless WebP (1216x832)
+DECODE_TIMED = ENTRY_FILES[:2] + ENTRY_FILES[3::4]
 ENTRY_CAPTIONS = ("masterpiece, best quality, 1girl, solo, smile",
                   "landscape, mountains, lake, sunset, scenery",
                   "1boy, armor, sword, castle, night",
@@ -2388,9 +2391,9 @@ def _write_adam7_png(path: Path, img: np.ndarray) -> None:
 def _entry_images(folder: Path, n: int = 8, mixed: bool = True) -> None:
     """Images with tag captions in ``folder``, the first half at the
     first of ENTRY_IMAGE_SIZES, the rest at the second: with ``mixed``
-    (and n = 8) ENTRY_FILES, the JPEG fixtures copied and the PNGs
-    written here; else ``n`` seeded Paeth PNGs.  Each written PNG is read
-    back through the port's reader against its samples."""
+    (and n = 8) ENTRY_FILES, the JPEG and WebP fixtures copied and the
+    PNGs written here; else ``n`` seeded Paeth PNGs.  Each written PNG is
+    read back through the port's reader against its samples."""
     import shutil
 
     from sdxl_training_improvements_tpu_torch.png import read_png
@@ -2401,7 +2404,7 @@ def _entry_images(folder: Path, n: int = 8, mixed: bool = True) -> None:
         kind = ENTRY_FILES[i] if mixed else "paeth"
         path = folder / (_entry_name(i) if mixed else f"{i:02d}.png")
         path.with_suffix(".txt").write_text(ENTRY_CAPTIONS[i % 4])
-        if kind.endswith(".jpg"):
+        if kind.endswith((".jpg", ".webp")):
             shutil.copyfile(IMAGE_FIXTURES / kind, path)
             continue
         # smooth gradients plus noise: a photo-like image
@@ -2422,15 +2425,15 @@ def _entry_images(folder: Path, n: int = 8, mixed: bool = True) -> None:
 
 def _entry_name(i: int) -> str:
     """The file name of phase 11's image ``i``."""
-    return f"{i:02d}" + (".jpg" if ENTRY_FILES[i].endswith(".jpg")
-                         else ".png")
+    return f"{i:02d}" + (Path(ENTRY_FILES[i]).suffix or ".png")
 
 
 def phase_decode() -> dict:
-    """The decode check: every JPEG fixture through the port's reader
-    (``images.read_rgb``) on the card's host, its sha256 against the
-    Pillow digest in the fixtures' manifest; the timed fixtures' median
-    host ms per megapixel over 5 decodes after one warm-up."""
+    """The decode check: every JPEG and WebP fixture through the port's
+    reader (``images.read_rgb`` and ``read_gray``) on the card's host,
+    each sha256 against the Pillow digest in the fixtures' manifest; the
+    timed fixtures' median host ms per megapixel over 5 decodes after one
+    warm-up."""
     import hashlib
 
     from sdxl_training_improvements_tpu_torch import images
@@ -2440,9 +2443,15 @@ def phase_decode() -> dict:
         check=True).stdout.strip().splitlines()[0]
     manifest = json.loads((IMAGE_FIXTURES / "manifest.json").read_text())
     mismatches = []
+    counts = {}
     for name, entry in sorted(manifest["files"].items()):
+        suffix = Path(name).suffix
+        counts[suffix] = counts.get(suffix, 0) + 1
         rgb = images.read_rgb(IMAGE_FIXTURES / name)
-        if hashlib.sha256(rgb.tobytes()).hexdigest() != entry["rgb_sha256"]:
+        gray = images.read_gray(IMAGE_FIXTURES / name)
+        if (hashlib.sha256(rgb.tobytes()).hexdigest(),
+                hashlib.sha256(gray.tobytes()).hexdigest()) != (
+                    entry["rgb_sha256"], entry["l_sha256"]):
             mismatches.append(name)
     ms_per_mp = {}
     for name in DECODE_TIMED:
@@ -2455,14 +2464,15 @@ def phase_decode() -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         ms_per_mp[name] = statistics.median(times) / (
             rgb.shape[0] * rgb.shape[1] / 1e6)
-    log(f"decode check ({smi}; the card's host): {len(manifest['files'])} "
-        f"JPEG fixtures, {len(mismatches)} mismatches {mismatches} against "
-        f"Pillow {manifest['pillow']} (libjpeg-turbo "
-        f"{manifest['libjpeg_turbo']}); host ms per megapixel at 1024^2: "
+    log(f"decode check ({smi}; the card's host): {counts.get('.jpg', 0)} "
+        f"JPEG and {counts.get('.webp', 0)} WebP fixtures, "
+        f"{len(mismatches)} mismatches {mismatches} against Pillow "
+        f"{manifest['pillow']} (libjpeg-turbo {manifest['libjpeg_turbo']}, "
+        f"libwebp {manifest['libwebp']}); host ms per megapixel: "
         + ", ".join(f"{k} {v:.2f}" for k, v in ms_per_mp.items()))
     check(not mismatches, f"decode check: {mismatches} differ from Pillow")
-    return dict(files=len(manifest["files"]), mismatches=mismatches,
-                ms_per_mp=ms_per_mp)
+    return dict(files=len(manifest["files"]), by_suffix=counts,
+                mismatches=mismatches, ms_per_mp=ms_per_mp, card=smi)
 
 
 def _run_main(argv, timed=None, profiled=None, events=False) -> tuple:
@@ -2667,8 +2677,8 @@ def _entry_conv_cost(model, cfg, batch) -> dict:
 def phase_entry_point() -> dict:
     """Phase 11: the training entry point, ``main.main``, at full
     SDXL-base width on the recipe of ``configs/novelai_v3_1024.yaml``, as
-    the port's YAML reader loads it, over 8 seeded PNGs: run A
-    (ENTRY_EPOCHS epochs, no saves; one window of warm steps timed and
+    the port's YAML reader loads it, over the 8 images of ENTRY_FILES:
+    run A (ENTRY_EPOCHS epochs, no saves; one window of warm steps timed and
     one profiled), then the precompute's rate over a larger set, the
     kernels against plain on the landscape bucket, and run B (1 epoch
     with the final checkpoint, then ``--resume`` to ENTRY_EPOCHS), whose
@@ -3915,7 +3925,7 @@ def phase_host_state() -> dict:
     """14c: ``main.main`` on ``configs/v5e16_single_chip.yaml`` (int8
     moments, shift_host and moments_host, micro-batch 1, bf16 gradient
     accumulator, no remat) at full SDXL-base width with phase 11's cuts,
-    over phase 11's 8 seeded PNGs: run A (HOST_EPOCHS epochs: each step's
+    over phase 11's 8 images: run A (HOST_EPOCHS epochs: each step's
     update ms by CUDA events, the state's GiB on the card and on the host,
     peak memory, launches), the copy overlap on its final state, then run
     B (1 epoch with the final checkpoint, ``--resume`` to HOST_EPOCHS),
@@ -3936,7 +3946,7 @@ def phase_host_state() -> dict:
             f"(seeded weights); num_epochs {HOST_EPOCHS} (run A), 1 then "
             f"{HOST_EPOCHS} (run B); save_every 0, save_best false and "
             "save_final_model false except run B's first part; phase 11's "
-            "8 seeded PNGs")
+            "8 images")
         no_saves = dict(save_every=0, save_best=False)
         cfg_a = _host_entry_config(root, "run_a", num_epochs=HOST_EPOCHS,
                                    save_final_model=False, **no_saves)

@@ -8,11 +8,13 @@ writes the latent cache, and training batches are pure cache reads
 
 * images are read by ``images.py`` (the card's machine has no Pillow;
   the JAX package decodes with PIL) to the bits Pillow gives: JPEG
-  (baseline and progressive) and PNG.  An image's size comes from the
-  cache's metadata, or else from its header; a file of another format
-  (WebP, GIF) or a JPEG frame the decoder does not read (arithmetic,
-  12-bit, lossless, hierarchical) raises there, naming it.  A file that
-  fails to decode in the precompute is skipped, as JAX skips it;
+  (baseline and progressive), PNG and WebP (lossy, lossless, the first
+  frame of an animation).  An image's size comes from the cache's
+  metadata, or else from its header; a file of another format (GIF), a
+  JPEG frame the decoder does not read (arithmetic, 12-bit, lossless,
+  hierarchical) or a WebP container libwebp refuses raises there, naming
+  it.  A file that fails to decode in the precompute is skipped, as JAX
+  skips it;
 * ``prepare_image_array`` takes the decoded uint8 RGB array and runs the
   native C++ path (``native/image_ops.cpp``, the JAX package's code) with
   no PIL fallback: a failed build raises;

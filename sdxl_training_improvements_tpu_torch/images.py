@@ -6,7 +6,9 @@ dataset's bucketing and precompute and for ``generate.py --init/--mask``:
 * ``read_rgb(path)`` is ``Image.open(path).convert("RGB")`` as an HxWx3
   uint8 array, ``read_gray(path)`` is ``convert("L")`` (HxW), and
   ``read_image_size(path)`` is ``.size`` (width, height) from the
-  headers alone: the frame header (SOFn) of a JPEG, IHDR of a PNG.
+  headers alone: the frame header (SOFn) of a JPEG, IHDR of a PNG, the
+  chunk headers of a WebP (its VP8X canvas, else its VP8 key-frame or
+  VP8L header).
 * The format is told by the file's leading bytes, as Pillow tells it,
   not by its extension.
 * JPEG: baseline, extended-sequential and progressive Huffman frames, 1,
@@ -17,7 +19,16 @@ dataset's bucketing and precompute and for ``generate.py --init/--mask``:
   low coefficients unrefined, and truncated or corrupt streams.  Pillow
   decodes arithmetic-coded and some damaged files that the port refuses.
 * PNG: every color type and bit depth, Adam7 included (``png.py``).
-* WebP, GIF and any other format raise, naming the file and the format.
+* WebP: lossy (VP8, with or without an ALPH chunk) and lossless (VP8L)
+  frames, still or the first frame of an animation, decoded in C++
+  (``native/webp_decode.cpp``) to the bits Pillow's libwebp gives.  The
+  RIFF container is read here as libwebp's demuxer reads it; what it
+  refuses (a RIFF size past the end of the file, a chunk past the RIFF
+  chunk, a frame off its canvas, an ALPH chunk before VP8L, ...) and
+  any frame the decoder refuses raise ``ValueError`` naming the file.
+  An animation's first frame is drawn on a canvas of (0, 0, 0, 0) at
+  its offset, as ``WebPAnimDecoder`` draws it; alpha is dropped.
+* GIF and any other format raise, naming the file and the format.
   EXIF orientation, ICC profiles and comments are ignored, as
   ``convert`` ignores them.
 """
@@ -26,6 +37,7 @@ from __future__ import annotations
 import io
 import struct
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -44,19 +56,22 @@ _JPEG_BARE = {0x01, *range(0xD0, 0xD9)}
 
 
 def _format(path, head: bytes) -> str:
-    """"jpeg" or "png" from a file's first bytes; others raise."""
+    """"jpeg", "png" or "webp" from a file's first 16 bytes (for WebP,
+    the first chunk Pillow's ``_accept`` asks for); others raise."""
     if head.startswith(b"\xff\xd8\xff"):
         return "jpeg"
     if head.startswith(png._SIGNATURE):
         return "png"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        kind = "a WebP image"
+        if head[12:16] in (b"VP8 ", b"VP8L", b"VP8X"):
+            return "webp"
+        kind = f"a RIFF WEBP file whose first chunk is {head[12:16]!r}"
     elif head[:6] in (b"GIF87a", b"GIF89a"):
         kind = "a GIF image"
     else:
-        kind = "not a JPEG or PNG file"
-    raise ValueError(f"{path}: {kind} (the port reads JPEG and PNG images "
-                     "only)")
+        kind = "not a JPEG, PNG or WebP file"
+    raise ValueError(f"{path}: {kind} (the port reads JPEG, PNG and WebP "
+                     "images only)")
 
 
 def _jpeg_size(path, f) -> tuple:
@@ -99,22 +114,249 @@ def _jpeg_size(path, f) -> tuple:
         return w, h
 
 
+# WebP (libwebp's demux.c): the largest chunk payload, the VP8X flags
+# (animation, alpha, and all the defined ones) and the largest canvas
+_WEBP_MAX_PAYLOAD = 0xFFFFFFFF - 8 - 1
+_WEBP_ANIMATION, _WEBP_ALPHA, _WEBP_FLAGS = 0x02, 0x10, 0x3E
+_WEBP_MAX_AREA = 1 << 32
+
+
+class WebPLayout(NamedTuple):
+    """Where a WebP file's first frame is, as ``WebPAnimDecoder`` finds
+    it: the canvas (width, height), the frame's (x, y) on it and its
+    (width, height), whether it is lossless, and the (offset, length) of
+    its image chunk's payload (the padding byte included, as libwebp
+    hands it to the decoder) and of its ALPH chunk's payload, or None."""
+    canvas: tuple
+    offset: tuple
+    size: tuple
+    lossless: bool
+    image: tuple
+    alpha: Optional[tuple]
+
+
+def _le24(b: bytes) -> int:
+    return b[0] | (b[1] << 8) | (b[2] << 16)
+
+
+def webp_layout(path, read, file_size: int) -> WebPLayout:
+    """The layout of the WebP file ``path`` whose bytes ``read(offset, n)``
+    gives, checked as libwebp's demuxer checks it (``WebPDemux``, with
+    ``WebPGetFeatures`` on each image chunk); what it refuses raises
+    ``ValueError`` naming the file."""
+    def fail(why: str):
+        raise ValueError(f"{path}: {why} (WebP)")
+
+    head = read(0, 20)
+    if len(head) < 20:
+        fail("truncated file")
+    (riff,) = struct.unpack("<I", head[4:8])
+    if riff < 8 or riff > _WEBP_MAX_PAYLOAD:
+        fail(f"bad RIFF size {riff}")
+    end = riff + 8  # bytes past the RIFF chunk are ignored
+    if file_size < end:
+        fail(f"truncated file (the RIFF header says {end} bytes, the file "
+             f"has {file_size})")
+
+    def chunk(pos: int) -> tuple:
+        h = read(pos, 8)
+        (size,) = struct.unpack("<I", h[4:8])
+        if size > _WEBP_MAX_PAYLOAD:
+            fail(f"bad {h[:4]!r} chunk size {size}")
+        padded = size + (size & 1)
+        if padded > end - pos - 8:
+            fail(f"the {h[:4]!r} chunk runs past the RIFF chunk")
+        return h[:4], size, padded
+
+    def features(pos: int, tag: bytes, size: int, padded: int) -> tuple:
+        """``WebPGetFeatures`` of the image chunk at ``pos``: its size."""
+        data = read(pos + 8, min(padded, 30))
+        if tag == b"VP8 ":
+            if padded < 10:
+                fail("truncated VP8 frame header")
+            bits = _le24(data)
+            if data[3:6] != b"\x9d\x01\x2a":
+                fail("corrupt VP8 frame header (start code)")
+            if bits & 1 or (bits >> 1) & 7 > 3 or not (bits >> 4) & 1 \
+                    or (bits >> 5) >= size:
+                fail("corrupt VP8 frame header")
+            w, h = (struct.unpack("<H", data[6:8])[0] & 0x3FFF,
+                    struct.unpack("<H", data[8:10])[0] & 0x3FFF)
+            if not w or not h:
+                fail("a VP8 frame of size 0")
+            return w, h
+        if padded < 5 or data[0] != 0x2F or data[4] >> 5:
+            fail("corrupt VP8L header")
+        bits = int.from_bytes(data[1:5], "little")
+        return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+
+    def store_frame(pos: int, min_size: int) -> tuple:
+        """``StoreFrame``: a frame's ALPH and image chunks from ``pos``;
+        (the position after them, the frame as a dict)."""
+        if end - pos < 8 or end - pos < min_size:
+            fail("truncated file")
+        f = dict(alpha=None, image=None, size=None, lossless=False,
+                 offset=(0, 0))
+        while True:
+            tag, size, padded = chunk(pos)
+            if tag == b"ALPH" and f["alpha"] is None:
+                f["alpha"] = (pos + 8, size)
+            elif tag == b"VP8L" and f["alpha"] is not None:
+                fail("an ALPH chunk before a VP8L frame")
+            elif tag in (b"VP8 ", b"VP8L") and f["image"] is None:
+                f["size"] = features(pos, tag, size, padded)
+                f["image"] = (pos + 8, padded)
+                f["lossless"] = tag == b"VP8L"
+            else:
+                return pos, f  # a chunk of the level above
+            pos += 8 + padded
+            if pos == end:
+                return pos, f
+            if end - pos < 8:
+                fail("truncated file")
+
+    frames = []
+    state = dict(flags=0, canvas=None, anim=0)
+
+    def single_image(pos: int) -> int:
+        if frames:
+            fail("more than one image")
+        if end - pos < 8:
+            fail("truncated file")
+        pos, f = store_frame(pos, 0)
+        if not state["flags"] & _WEBP_ALPHA:
+            f["alpha"] = None  # the demuxer drops ALPH without the flag
+        if state["canvas"] is None and f["size"] is not None:
+            state["canvas"] = f["size"]
+        frames.append(f)
+        return pos
+
+    animated = False
+    if head[12:16] == b"VP8X":
+        (size,) = struct.unpack("<I", head[16:20])
+        if size > _WEBP_MAX_PAYLOAD or size < 10:
+            fail(f"bad VP8X chunk size {size}")
+        size += size & 1
+        if size > end - 20:
+            fail("the VP8X chunk runs past the RIFF chunk")
+        vp8x = read(20, 10)
+        state["flags"] = vp8x[0]
+        state["canvas"] = (_le24(vp8x[4:7]) + 1, _le24(vp8x[7:10]) + 1)
+        if state["canvas"][0] * state["canvas"][1] >= _WEBP_MAX_AREA:
+            fail("the canvas is too large")
+        animated = bool(state["flags"] & _WEBP_ANIMATION)
+        pos = 20 + size
+        if end - pos < 8:
+            fail("truncated file (nothing after VP8X)")
+        while True:
+            tag, size, padded = chunk(pos)
+            if tag == b"VP8X":
+                fail("a second VP8X chunk")
+            elif tag in (b"ALPH", b"VP8 ", b"VP8L"):
+                if state["anim"] or animated:
+                    fail(f"a {tag!r} chunk outside ANMF in an animation")
+                pos = single_image(pos)
+            elif tag == b"ANIM":
+                if padded < 6:
+                    fail("bad ANIM chunk size")
+                state["anim"] = 1
+                pos += 8 + padded
+            elif tag == b"ANMF":
+                if not state["anim"]:
+                    fail("an ANMF chunk before ANIM")
+                if padded < 16:
+                    fail("bad ANMF chunk size")
+                hdr = read(pos + 8, 16)
+                x, y = 2 * _le24(hdr[0:3]), 2 * _le24(hdr[3:6])
+                if (_le24(hdr[6:9]) + 1) * (_le24(hdr[9:12]) + 1) >= \
+                        _WEBP_MAX_AREA:
+                    fail("an ANMF frame is too large")
+                start = pos + 24
+                pos, f = store_frame(start, padded - 16)
+                if pos - start > padded - 16:
+                    fail("an ANMF frame's chunks run past it")
+                if animated and (f["alpha"] or f["image"]):
+                    if frames and frames[-1]["image"] is None:
+                        fail("an incomplete frame")
+                    f["offset"] = (x, y)
+                    frames.append(f)
+            else:
+                pos += 8 + padded
+            if pos == end:
+                break
+            if end - pos < 8:
+                fail("truncated file")
+        if state["flags"] & ~_WEBP_FLAGS & 0xFF:
+            fail("reserved VP8X flags set")
+    else:
+        single_image(12)
+    if not frames:
+        fail("no image")
+    cw, ch = state["canvas"]
+    for f in frames:
+        if f["image"] is None:
+            fail("a frame without an image chunk")
+        (x, y), (w, h) = f["offset"], f["size"]
+        if not animated and ((x, y) != (0, 0) or (w, h) != (cw, ch)):
+            fail(f"the frame is {w}x{h}, the canvas {cw}x{ch}")
+        if x + w > cw or y + h > ch:
+            fail(f"a {w}x{h} frame at ({x}, {y}) is off the {cw}x{ch} "
+                 "canvas")
+    f = frames[0]
+    return WebPLayout((cw, ch), f["offset"], f["size"], f["lossless"],
+                      f["image"], f["alpha"])
+
+
+def _webp_size(path, f) -> tuple:
+    size = f.seek(0, io.SEEK_END)
+
+    def read(offset: int, n: int) -> bytes:
+        f.seek(offset)
+        return f.read(n)
+    return webp_layout(path, read, size).canvas
+
+
+def read_webp(path, blob: bytes, info: dict = None) -> tuple:
+    """The WebP file ``blob`` (read from ``path``) as Pillow's
+    ``WebPAnimDecoder`` gives its first frame: (HxWx3 RGB, HxW alpha) of
+    the canvas; ``info`` receives what the frame used
+    (``native.WEBP_INFO``)."""
+    lay = webp_layout(path, lambda o, n: blob[o:o + n], len(blob))
+    (start, length), alpha = lay.image, None
+    if lay.alpha is not None:
+        alpha = blob[lay.alpha[0]:lay.alpha[0] + lay.alpha[1]]
+    rgb, a = native.webp_decode(blob[start:start + length], lay.lossless,
+                                alpha, lay.size, path, info)
+    if lay.size == lay.canvas:
+        return rgb, a
+    (cw, ch), (x, y), (w, h) = lay.canvas, lay.offset, lay.size
+    full, fa = np.zeros((ch, cw, 3), np.uint8), np.zeros((ch, cw), np.uint8)
+    full[y:y + h, x:x + w], fa[y:y + h, x:x + w] = rgb, a
+    return full, fa
+
+
 def read_image_size(path) -> tuple:
     """(width, height) as Pillow's ``Image.open(path).size``, from the
     headers."""
     with open(path, "rb") as f:
-        head = f.read(12)
+        head = f.read(16)
         kind = _format(path, head)
         if kind == "png":
             return png.read_png_size(path)
+        if kind == "webp":
+            return _webp_size(path, f)
         f.seek(2)
         return _jpeg_size(path, f)
 
 
 def _read(path, mode: str) -> np.ndarray:
     blob = Path(path).read_bytes()
-    if _format(path, blob[:12]) == "png":
+    kind = _format(path, blob[:16])
+    if kind == "png":
         return png.read_png_as(path, mode)
+    if kind == "webp":
+        rgb = read_webp(path, blob)[0]
+        return png.to_gray(rgb) if mode == "L" else rgb
     size = _jpeg_size(path, io.BytesIO(blob[2:]))
     return native.jpeg_decode(blob, size, mode == "L", path)
 

@@ -6,7 +6,8 @@ arithmetic, so both packages prepare an image to the same bits);
 ``png_unfilter`` undoes the PNG row filters for ``png.read_png``;
 ``jpeg_decode`` decodes a JPEG as Pillow does (``jpeg_decode.cpp``, a
 library of its own, built without OpenMP: the precompute decodes one
-image a thread).
+image a thread); ``webp_decode`` decodes one WebP frame as Pillow's
+libwebp does (``webp_decode.cpp``, built the same way).
 
 Each library is compiled into the package's ``_build/`` directory, named
 by its source's name and a hash of the source and the flags; one thread
@@ -31,9 +32,11 @@ import numpy as np
 
 _SRC = Path(__file__).resolve().parent / "image_ops.cpp"
 _JPEG_SRC = Path(__file__).resolve().parent / "jpeg_decode.cpp"
+_WEBP_SRC = Path(__file__).resolve().parent / "webp_decode.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
-JPEG_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
+# the image decoders: no OpenMP (the precompute decodes one image a thread)
+DECODER_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 _BUILD_LOCK = threading.Lock()
 
@@ -122,7 +125,7 @@ def png_unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def load_jpeg() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build(_JPEG_SRC, JPEG_FLAGS)))
+    lib = ctypes.CDLL(str(build(_JPEG_SRC, DECODER_FLAGS)))
     lib.jpeg_decode.restype = ctypes.c_int
     lib.jpeg_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,  # data, n, gray
@@ -151,3 +154,52 @@ def jpeg_decode(blob: bytes, size: tuple, gray: bool, name) -> np.ndarray:
         raise ValueError(f"{name}: the frame is {got_w.value}x{got_h.value}"
                          f", the header said {w}x{h}")
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_webp() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(_WEBP_SRC, DECODER_FLAGS)))
+    lib.webp_decode.restype = ctypes.c_int
+    lib.webp_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,  # data, n, lossless
+        ctypes.c_char_p, ctypes.c_size_t,  # ALPH payload, its bytes
+        _U8P, ctypes.c_size_t, _U8P,  # out, its bytes, alpha out
+        _INTP, _INTP, _INTP,  # width, height, info
+        ctypes.c_char_p, ctypes.c_int]  # message, its room
+    return lib
+
+
+# what ``webp_decode``'s ``info`` holds (webp_decode.cpp lists them)
+WEBP_INFO = ("lossless", "transforms", "cache_bits", "entropy_image",
+             "palette", "filter_type", "filter_level", "sharpness",
+             "partitions", "segments", "segment_map", "alpha_method",
+             "alpha_filter", "alpha_transforms", "bpred_mbs", "skip_flags")
+
+
+def webp_decode(payload: bytes, lossless: bool, alpha, size: tuple,
+                name, info: dict = None) -> tuple:
+    """One WebP frame of ``size`` (width, height), decoded as Pillow's
+    libwebp decodes it: (HxWx3 RGB, HxW alpha).  ``payload`` is its
+    ``VP8L`` (``lossless``) or ``VP8 `` chunk's payload, ``alpha`` its
+    ``ALPH`` chunk's payload or None.  ``info``, when given, receives what
+    the frame used (``WEBP_INFO``).  A frame the decoder refuses raises
+    ``ValueError`` naming ``name`` and the reason."""
+    w, h = size
+    out = np.empty((h, w, 3), np.uint8)
+    a = np.empty((h, w), np.uint8)
+    got_w, got_h = ctypes.c_int(), ctypes.c_int()
+    used = (ctypes.c_int * len(WEBP_INFO))()
+    err = ctypes.create_string_buffer(256)
+    rc = load_webp().webp_decode(
+        payload, len(payload), int(lossless), alpha,
+        0 if alpha is None else len(alpha), out.ctypes.data_as(_U8P),
+        out.nbytes, a.ctypes.data_as(_U8P), ctypes.byref(got_w),
+        ctypes.byref(got_h), used, err, len(err))
+    if rc == 1:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    if rc != 0 or (got_w.value, got_h.value) != (w, h):
+        raise ValueError(f"{name}: the frame is {got_w.value}x{got_h.value}"
+                         f", the header said {w}x{h}")
+    if info is not None:
+        info.update(zip(WEBP_INFO, used))
+    return out, a

@@ -106,7 +106,8 @@ def _manifest() -> dict:
     return json.loads((FIXTURES / "manifest.json").read_text())
 
 
-@pytest.mark.parametrize("name", sorted(_manifest()["files"]))
+@pytest.mark.parametrize("name", sorted(
+    n for n in _manifest()["files"] if n.endswith(".jpg")))
 def test_jpeg_fixtures_match_manifest(name):
     """The manifest is Pillow's decode of the committed bytes, and the
     port's decode is the manifest."""
@@ -422,9 +423,10 @@ def test_decode_from_threads_at_once_on_a_cold_build(tmp_path, monkeypatch):
 
 def test_other_formats_raise_naming_them(tmp_path):
     for name, blob, what in [
-            ("a.webp", b"RIFF\x10\x00\x00\x00WEBPVP8 ", "WebP"),
+            ("a.webp", b"RIFF\x10\x00\x00\x00WEBPVP8 ",
+             "truncated file.*WebP"),
             ("b.gif", b"GIF89a" + bytes(20), "GIF"),
-            ("c.png", b"BM" + bytes(40), "not a JPEG or PNG")]:
+            ("c.png", b"BM" + bytes(40), "not a JPEG, PNG or WebP")]:
         path = tmp_path / name
         path.write_bytes(blob)
         for read in (images.read_image_size, images.read_rgb,
