@@ -181,16 +181,19 @@ Phases, each printing what it found:
    DIR``) joined through JAX's env triple on NCCL: (15a)
    ``parallel/dryrun.dryrun_multichip(W)`` at tiny shapes; (15b) the
    default ``Config()`` model on mesh [W,1,1] and on [1,W,1] with
-   ``shard_params``, 3 steps each on phase 6's batch (one card: losses,
-   grad norms and parameter digests equal to phase 6's; more: JAX's
-   bars), with each rank's step device ms, NCCL kernels' device ms,
-   peak and optimizer-state GiB and #7 launches a step beside the
-   card's name and power limit; (15c) ``main.main`` on phase 11's recipe
-   and cuts with the partitioned cache, mesh [1,W,1], ``shard_params``
-   and W-row micro-batches: 2 epochs, then 1 with the final checkpoint
-   and ``--resume``, ``torch.equal`` to the uninterrupted run on the
-   card, each rank's cache under ``host-NNN`` (one rank: the plain cache,
-   as JAX's);
+   ``shard_params`` (each rank storing only its fsdp chunks of the large
+   leaves, which every unit of the UNet gathers to run), 3 steps each on
+   phase 6's batch (one card: losses, grad norms and parameter digests
+   equal to phase 6's; more: JAX's bars), with each rank's step device
+   ms, NCCL kernels' device ms, parameter, gradient-accumulator,
+   optimizer-state and peak GiB, the fsdp all-gathers and #7 launches a
+   step beside the card's name and power limit; (15c) ``main.main`` on
+   phase 11's recipe and cuts with the partitioned cache, mesh [1,W,1],
+   ``shard_params`` and W-row micro-batches: 2 epochs, then 1 with the
+   final checkpoint and ``--resume``, ``torch.equal`` to the
+   uninterrupted run on the card, each rank's cache under ``host-NNN``
+   (one rank: the plain cache, as JAX's), with parameter,
+   gradient-accumulator and peak GiB and the fsdp all-gathers a step;
 16. the tensor axis, in phase 15's rank processes on 15b's model: mesh
    [1,1,W] over the W cards, phase 5's text-to-image call through
    ``SDXLPipeline(mesh=)`` and phase 6's 3 steps with the UNet's
@@ -4103,15 +4106,22 @@ def _recording_loss(method: str, rows: list, per_row: bool = False):
         methods.LOSS_REGISTRY[method] = fn
 
 
-def _param_diff(a: dict, b: dict) -> tuple:
+def _param_diff(a, b: dict) -> tuple:
     """(the largest |a - b| over every leaf, the count of elements that
-    differ)."""
+    differ); ``a``: (name, tensor) pairs."""
     worst, n = 0.0, 0
-    for k, x in a.items():
+    for k, x in a:
         d = (x.float() - b[k].float()).abs()
         worst = max(worst, d.max().item())
         n += int((d > 0).sum().item())
     return worst, n
+
+
+def _whole_leaves(zero, params: dict):
+    """(name, the one-card leaf) of each parameter, gathered one leaf at a
+    time (a collective), so that no whole copy of the UNet is held."""
+    for k, p in params.items():
+        yield k, zero.whole_params({k: p})[k]
 
 
 def _matched_reference(model, start, ref) -> dict:
@@ -4181,13 +4191,17 @@ def _matched_reference(model, start, ref) -> dict:
 
 
 def _mesh_steps(model, start, ref, shape, shard, smi, label="15b",
-                place: bool = False, matched: Optional[dict] = None
-                ) -> dict:
+                place: bool = False, matched: Optional[dict] = None,
+                store: bool = True) -> dict:
     """Phase 15b (16) on this rank: the default ``Config()`` on mesh
     ``shape`` from the seeded parameters ``start``, ``TRAIN_STEPS`` steps
-    on phase 6's batch; the last under the profiler.  ``place``: the
-    model's UNet is put on the mesh's tensor axis, in place
-    (``shard_train_state(unet=)``).  ``matched``: what
+    on phase 6's batch; the last under the profiler.  ``place`` (or
+    ``shard``): the model's UNet is placed on the mesh, in place
+    (``shard_train_state(unet=)``): split over its tensor axis, and with
+    ``shard`` each rank stores only its fsdp chunks, which every unit
+    gathers to run (given back whole after the steps; ``store`` False:
+    the UNet is not given, so the parameters stay whole, their optimizer
+    state chunked, as under LoRA).  ``matched``: what
     ``_matched_reference`` returned, which a mesh that splits the batch
     is held to (W > 1)."""
     from torch.profiler import ProfilerActivity, profile
@@ -4221,14 +4235,25 @@ def _mesh_steps(model, start, ref, shape, shard, smi, label="15b",
                                mesh=mesh)
     state = shard_train_state(create_train_state(
         model.trainable_params(), opt, seed=cfg.training.seed), mesh, shard,
-        unet=model.unet if place else None)
+        unet=model.unet if place or (shard and store) else None)
+    zero = state.zero
+    # the peak so far: the one-card state that the placement cut
+    placed_peak = torch.cuda.max_memory_allocated()
     opt_gib = _opt_state_gib(state)
+    param_gib = sum(p.numel() * p.element_size()
+                    for p in state.params.values()) / 2 ** 30
     rows = []
     diffs = {}
     for i in range(TRAIN_STEPS):
         before = _launches(names)
+        collectives = (zero.gathers, zero.scatters)
         events: dict = {}
         profiled = i == TRAIN_STEPS - 1
+        if profiled:  # the last step's own peak, above what it starts with
+            torch.cuda.synchronize()
+            peak_before = torch.cuda.max_memory_allocated()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         with ExitStack() as stack:
             if profiled:
                 prof = stack.enter_context(
@@ -4238,16 +4263,19 @@ def _mesh_steps(model, start, ref, shape, shard, smi, label="15b",
             state, metrics = step(state, batch, events)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        if profiled:
+            step_peak = torch.cuda.max_memory_allocated()
         after = _launches(names)
         if matched is not None and i == 0:  # the parameters after step 1
-            now = {k: p.detach() for k, p in state.params.items()}
-            diffs = {k: _param_diff(now, matched[k]["params1"])
+            diffs = {k: _param_diff(_whole_leaves(zero, state.params),
+                                    matched[k]["params1"])
                      for k in ("phase6", "matched")}
-            del now
         row = dict(loss=metrics["loss"].item(),
                    grad_norm=metrics["grad_norm"].item(), wall_ms=wall_ms,
                    step_ms=events["start"].elapsed_time(events["update"]),
-                   launches={k: after[k] - before[k] for k in names})
+                   launches={k: after[k] - before[k] for k in names},
+                   gathers=zero.gathers - collectives[0],
+                   scatters=zero.scatters - collectives[1])
         if profiled:
             row["device_ms"] = sum(ms for _, ms in _device_events(prof))
             row["nccl_ms"] = _nccl_ms(prof)
@@ -4255,9 +4283,14 @@ def _mesh_steps(model, start, ref, shape, shard, smi, label="15b",
     launches = _launches(names)
     out = dict(
         mesh=list(shape), shard_params=shard,
-        sharded_leaves=len(state.zero.chunks),
-        split_leaves=len(state.zero.tp), opt_state_gib=opt_gib,
-        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        sharded_leaves=len(zero.chunks), stored=zero.stored,
+        split_leaves=len(zero.tp), opt_state_gib=opt_gib,
+        param_gib=param_gib, grad_gib=zero.grad_bytes / 2 ** 30,
+        fsdp_gathers_per_step=rows[-1]["gathers"],
+        fsdp_scatters_per_step=rows[-1]["scatters"],
+        peak_gib=max(peak_before, step_peak) / 2 ** 30,
+        held_gib=held / 2 ** 30, step_peak_gib=step_peak / 2 ** 30,
+        placed_peak_gib=placed_peak / 2 ** 30,
         losses=[r["loss"] for r in rows],
         grad_norms=[r["grad_norm"] for r in rows],
         step_ms=[r["step_ms"] for r in rows],
@@ -4268,6 +4301,17 @@ def _mesh_steps(model, start, ref, shape, shard, smi, label="15b",
         strided_launches_per_step=rows[-1]["launches"][
             "fused_adamw_strided"],
         launches=launches)
+    log(f"[rank {rank}] phase {label} mesh {list(shape)} shard_params "
+        f"{shard} ({smi}): memory a rank: parameters "
+        f"{out['param_gib']:.3f} GiB (stored as fsdp chunks: "
+        f"{out['stored']}), gradient accumulator {out['grad_gib']:.3f} "
+        f"GiB, optimizer state {opt_gib:.3f} GiB; peak {out['peak_gib']:.2f}"
+        f" GiB over the phase ({out['placed_peak_gib']:.2f} GiB by the end "
+        f"of the placement), {out['step_peak_gib']:.2f} GiB in the last "
+        f"step, which starts holding {out['held_gib']:.2f} GiB (the "
+        f"state, the seeded start and the references); fsdp all-gathers "
+        f"{out['fsdp_gathers_per_step']} and reduce-scatters "
+        f"{out['fsdp_scatters_per_step']} a step")
     log(f"[rank {rank}] phase {label} mesh {list(shape)} shard_params "
         f"{shard} ({smi}): sharded leaves {out['sharded_leaves']}, split "
         f"leaves {out['split_leaves']}; step ms (CUDA "
@@ -4326,9 +4370,12 @@ def _mesh_steps(model, start, ref, shape, shard, smi, label="15b",
     for k in used:
         check(launches[k] > 0, f"{label} {list(shape)}: kernel {k} was not "
               "launched")
-    out["params"] = ({k: p.detach().clone() for k, p in state.params.items()}
+    out["params"] = ({k: p.detach().clone() for k, p in
+                      zero.whole_params(state.params).items()}
                      if world > 1 and not out["split_leaves"] else None)
-    del state, step, opt
+    if zero.stored:  # the model's parameters whole again for what follows
+        zero.unstore(state.params, model.unet)
+    del state, step, opt, zero
     return out
 
 
@@ -4358,21 +4405,30 @@ def _phase15b(model, start, ref, smi: str) -> dict:
     dp = _mesh_steps(model, start, ref, (world, 1, 1), False, smi,
                      matched=matched)
     dp_params = dp.pop("params")
-    zero = _mesh_steps(model, start, ref, (1, world, 1), True, smi,
-                       matched=matched)
-    zero_params = zero.pop("params")
-    del matched
-    if world > 1:
-        for a, b in zip(zero["losses"], dp["losses"]):
-            check(abs(a - b) <= MULTI_LOSS_RTOL * abs(b),
-                  f"15b: [1,W,1] loss {a} vs [W,1,1] {b}")
-        worst = max((zero_params[k].float() - dp_params[k].float()).abs()
-                    .max().item() for k in dp_params)
-        log(f"[rank {M.process_index()}] 15b [1,{world},1] against "
-            f"[{world},1,1]: max parameter difference {worst:.3e}")
-        check(worst <= MULTI_PARAM_ATOL, f"15b parameters differ by {worst}")
-    del dp_params, zero_params
-    return dict(dp=dp, zero=zero)
+    out = dict(dp=dp)
+    # [1,W,1], and at W >= 4 [2,W/2,1] too, each rank storing its chunks;
+    # at W >= 4 also [1,W,1] with the parameters whole (the optimizer
+    # state chunked), to hold the memory and the time against
+    meshes = [("zero", (1, world, 1), True)] + (
+        [("hybrid", (2, world // 2, 1), True),
+         ("zero_whole_params", (1, world, 1), False)] if world >= 4 else [])
+    for key, shape, store in meshes:
+        out[key] = _mesh_steps(model, start, ref, shape, True, smi,
+                               matched=matched, store=store)
+        params = out[key].pop("params")
+        if world > 1:
+            for a, b in zip(out[key]["losses"], dp["losses"]):
+                check(abs(a - b) <= MULTI_LOSS_RTOL * abs(b),
+                      f"15b: {list(shape)} loss {a} vs [W,1,1] {b}")
+            worst = max((params[k].float() - dp_params[k].float()).abs()
+                        .max().item() for k in dp_params)
+            log(f"[rank {M.process_index()}] 15b {list(shape)} against "
+                f"[{world},1,1]: max parameter difference {worst:.3e}")
+            check(worst <= MULTI_PARAM_ATOL,
+                  f"15b {list(shape)} parameters differ by {worst}")
+        del params
+    del matched, dp_params
+    return out
 
 
 def _phase16(model, start, ref, smi: str) -> dict:
@@ -4475,6 +4531,19 @@ def _phase15c(work: Path, smi: str) -> dict:
     t0 = time.perf_counter()
     a, a_steps = _multi_entry(work, "multi_a", MULTI_EPOCHS)
     launches = _launches(names)
+    zero = a.state.zero
+    memory = dict(
+        stored=zero.stored, param_gib=sum(
+            p.numel() * p.element_size() for p in a.state.params.values())
+        / 2 ** 30, grad_gib=zero.grad_bytes / 2 ** 30,
+        fsdp_gathers_per_step=zero.gathers / max(1, a.state.step),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"[rank {rank}] phase 15c run A ({smi}): memory a rank: parameters "
+        f"{memory['param_gib']:.3f} GiB (stored as fsdp chunks: "
+        f"{memory['stored']}), gradient accumulator "
+        f"{memory['grad_gib']:.3f} GiB, peak {memory['peak_gib']:.2f} GiB;"
+        f" fsdp all-gathers {memory['fsdp_gathers_per_step']:.1f} a step")
+    del zero
     ds = a.dataset
     cache_dir = Path(ds.cache.cache_dir)
     images = sum(len(v) for v in ds.bucket_indices.values())
@@ -4500,7 +4569,8 @@ def _phase15c(work: Path, smi: str) -> dict:
         steps=a_step, resumed_losses=[s["loss"] for s in b_steps],
         losses=[s["loss"] for s in a_steps], resume_equal=equal,
         launches=launches, run_a_s=t1 - t0, run_b_s=t2 - t1,
-        resume_s=t3 - t2, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        resume_s=t3 - t2, memory=memory,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"[rank {rank}] phase 15c ({smi}): cache {cache_dir} ({images} "
         f"images of this rank); run A {a_step} steps in {t1 - t0:.1f} s, "
         f"losses {out['losses']}; run B 1 epoch + save {t2 - t1:.1f} s, "
@@ -4610,12 +4680,20 @@ def phase_multi_card(record: dict, tmp: Path) -> dict:
              for r in range(world)]
     for r in ranks:
         for phase, m in (("15b", r["dp"]), ("15b", r["zero"]),
+                         ("15b", r.get("hybrid")),
+                         ("15b", r.get("zero_whole_params")),
                          ("16", r["tp"]["train"])):
+            if m is None:  # at W >= 4 only
+                continue
             log(f"phase {phase} rank {r['rank']} of {world} mesh "
-                f"{m['mesh']} ({smi}): step device {m['device_ms']:.2f} ms, "
+                f"{m['mesh']} (parameters stored as chunks: "
+                f"{m['stored']}; {smi}): step device {m['device_ms']:.2f} ms, "
                 f"NCCL {m['nccl_ms']:.3f} ms a step, peak "
-                f"{m['peak_gib']:.2f} GiB, optimizer state "
-                f"{m['opt_state_gib']:.3f} GiB, #7 "
+                f"{m['peak_gib']:.2f} GiB (last step {m['step_peak_gib']:.2f}"
+                f"), parameters {m['param_gib']:.3f} GiB, gradient "
+                f"accumulator {m['grad_gib']:.3f} GiB, optimizer state "
+                f"{m['opt_state_gib']:.3f} GiB, fsdp all-gathers "
+                f"{m['fsdp_gathers_per_step']} a step, #7 "
                 f"{m['adamw_launches_per_step']} launches a step (strided "
                 f"{m['strided_launches_per_step']}), split leaves "
                 f"{m['split_leaves']}")

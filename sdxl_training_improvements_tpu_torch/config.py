@@ -217,11 +217,13 @@ class TPUConfig:
     """Device and step settings.  The name and fields are the JAX
     package's.  On the cards ``mesh_shape`` is [data, fsdp, tensor] over
     the ranks (one card each, ``parallel/mesh.py``; None: every rank on
-    data) and ``shard_params`` ZeRO-shards the optimizer state, the EMA
-    shadow and the reduced gradients of the large leaves over fsdp
-    (``parallel/zero.py``; the parameters stay whole on every rank, where
-    JAX shards them too).  A tensor axis above 1 splits the UNet's
-    transformer blocks megatron-style (``parallel/mesh.py`` ``tp_plan``)."""
+    data) and ``shard_params`` shards the large leaves over fsdp as JAX
+    places them (``parallel/zero.py``): each rank stores its chunk of the
+    parameter, its gradient, its optimizer state and its EMA shadow, and
+    the UNet gathers each unit's chunks to run it (under LoRA the pairs
+    stay whole, their state sharded).  A tensor axis above 1 splits the
+    UNet's transformer blocks megatron-style (``parallel/mesh.py``
+    ``tp_plan``)."""
 
     mesh_shape: Optional[List[int]] = None
     axis_names: List[str] = field(

@@ -36,7 +36,11 @@ The tensor axis: ``place_on_mesh(unet, mesh)`` cuts the transformer
 blocks' split leaves (``parallel/mesh.py`` ``tp_plan``) to this rank's
 megatron slices and gives their attentions and feed-forwards the mesh's
 tensor group (``models/layers.py``); the rest of the UNet runs whole on
-every tensor rank.
+every tensor rank.  The fsdp axis under ``tpu.shard_params``: once the
+rank stores only its chunks of the large leaves (``parallel/zero.py``
+``store_params`` sets ``fsdp``), every unit of ``gather_units`` runs on
+its chunks gathered for the call, inside remat's checkpoint for the
+blocks, so that the recomputation gathers them again.
 
 DeepCache (arXiv 2312.00858, inference only): ``return_deep=True``
 returns the tensor entering the last up stage beside the prediction;
@@ -526,6 +530,28 @@ class SDXLUNet(nn.Module):
         # policies of its own here
         self.remat_policies = (remat_policies(cfg.remat_policy)
                                if cfg.remat else (None, None))
+        # the fsdp layout (parallel/zero.py Zero) once the parameters are
+        # stored as chunks: each unit gathers its own to run
+        self.fsdp = None
+
+    def gather_units(self):
+        """(name, module) of each unit whose chunked parameters are
+        gathered together (``parallel/zero.py`` ``store_params``): every
+        resnet and transformer block (remat's units), every resampler,
+        the stem, the time and add embeddings and the output head."""
+        kinds = (ResnetBlock2D, Transformer2DModel, Downsample2D,
+                 Upsample2D)
+        return [(n, m) for n, m in self.named_modules()
+                if isinstance(m, kinds) or n in (
+                    "conv_in", "time_embedding", "add_embedding",
+                    "conv_norm_out", "conv_out")]
+
+    def _run(self, module, *args, recomputed: bool = False):
+        """``module(*args)``; with stored fsdp chunks, on its gathered
+        parameters (``recomputed``: under remat's checkpoint)."""
+        if self.fsdp is None:
+            return module(*args)
+        return self.fsdp.run_unit(module, *args, recomputed=recomputed)
 
     def _block(self, block, *args, mid: bool = False):
         """Run one resnet or transformer block, under the remat policy
@@ -537,13 +563,13 @@ class SDXLUNet(nn.Module):
                 selective_checkpoint_context, policy)}
             return checkpoint(self._recomputable, block, *args,
                               use_reentrant=False, **kw)
-        return block(*args)
+        return self._run(block, *args)
 
     def _recomputable(self, block, *args):
         # the recomputation runs in the backward, outside forward()'s
         # context (on the card, on autograd's own thread): set it again
         with norm_arith_bf16(self.config.norm_bf16):
-            return block(*args)
+            return self._run(block, *args, recomputed=True)
 
     def forward(self, sample, timesteps, encoder_hidden_states, text_embeds,
                 time_ids, deep_cache=None, return_deep: bool = False):
@@ -571,16 +597,16 @@ class SDXLUNet(nn.Module):
             timesteps = timesteps.expand(x.shape[0])
 
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
-        emb = self.time_embedding(t_emb.to(dt))
+        emb = self._run(self.time_embedding, t_emb.to(dt))
         ids_emb = timestep_embedding(time_ids.reshape(-1),
                                      cfg.addition_time_embed_dim)
         add_in = torch.cat([text_embeds.float(),
                             ids_emb.reshape(x.shape[0], -1)], dim=-1)
-        emb = emb + self.add_embedding(add_in.to(dt))
+        emb = emb + self._run(self.add_embedding, add_in.to(dt))
         ctx = encoder_hidden_states.to(dt)
 
         shallow = deep_cache is not None
-        x = self.conv_in(x)
+        x = self._run(self.conv_in, x)
         skips = [x]
         for block in self.down_blocks[:1] if shallow else self.down_blocks:
             attns = getattr(block, "attentions", None)
@@ -590,7 +616,7 @@ class SDXLUNet(nn.Module):
                     x = self._block(attns[j], x, ctx)
                 skips.append(x)
             if hasattr(block, "downsamplers") and not shallow:
-                x = block.downsamplers[0](x)
+                x = self._run(block.downsamplers[0], x)
                 skips.append(x)
 
         if shallow:
@@ -606,7 +632,8 @@ class SDXLUNet(nn.Module):
                 x = self._up_block(block, x, skips, emb, ctx)
         deep = x
         x = self._up_block(self.up_blocks[-1], x, skips, emb, ctx)
-        out = self.conv_out(self.conv_norm_out(x))
+        out = self._run(self.conv_out,
+                        self._run(self.conv_norm_out, x))
         return (out, deep) if return_deep else out
 
     def _up_block(self, block, x, skips, emb, ctx):
@@ -616,7 +643,7 @@ class SDXLUNet(nn.Module):
             if attns is not None:
                 x = self._block(attns[j], x, ctx)
         if hasattr(block, "upsamplers"):
-            x = block.upsamplers[0](x)
+            x = self._run(block.upsamplers[0], x)
         return x
 
 
@@ -641,6 +668,7 @@ def place_on_mesh(unet: nn.Module, mesh, copy_module: bool = False):
     plan = M.tp_plan(params, mesh, attention_heads(unet))
     if copy_module:
         memo = {id(t): t for n, t in params.items() if n not in plan}
+        memo[id(unet.fsdp)] = None  # the copy gathers nothing
         memo.update({id(b): b for b in unet.buffers()})
         memo.update({id(params[n]): nn.Parameter(
             s.cut(params[n].detach()), requires_grad=params[n].requires_grad)

@@ -6,8 +6,10 @@ calls it
 (``parallel/mesh.py`` ``initialize_multihost``: gloo ranks on the CPU or
 NCCL ranks on the cards); each variant builds its mesh, the optimizer
 and the step from a ``Config`` as JAX's ``_run_variant`` does, places
-a fresh copy of the tiny bf16 UNet's parameters with ``shard_train_state``
-(``tpu.shard_params`` on) and takes its steps on seeded global batches:
+a fresh copy of the tiny bf16 UNet with ``shard_train_state``
+(``tpu.shard_params`` on: each rank stores its fsdp chunks of the large
+leaves, and the UNet gathers them per unit) and takes its steps on
+seeded global batches:
 
 * ``ddpm_dp_fsdp_retile``: mesh [n/2, 2, 1] (n even, else [n, 1, 1]),
   adamw_bf16, a global batch of 4n (2 x 2n) re-tiled into micro-batches
@@ -72,9 +74,9 @@ def _variant(name: str, model, start: Dict[str, torch.Tensor], shape,
     b = global_batch or 2 * n
     config.training.batch_size = b // accum
     config.tpu.micro_batch_size = micro_batch
-    split = M.axis_sizes(mesh)[M.TENSOR_AXIS] > 1
-    if split:  # the placement cuts the parameters: a copy of the model
-        model = copy.deepcopy(model)
+    # the placement cuts the parameters (megatron slices, fsdp chunks): a
+    # copy of the model
+    model = copy.deepcopy(model)
     with torch.no_grad():  # a fresh copy of the parameters per variant
         for k, p in model.trainable_params().items():
             p.copy_(start[k])
@@ -84,7 +86,7 @@ def _variant(name: str, model, start: Dict[str, torch.Tensor], shape,
                            mesh=mesh)
     state = shard_train_state(
         create_train_state(model.trainable_params(), opt), mesh,
-        shard_params=True, unet=model.unet if split else None)
+        shard_params=True, unet=model.unet)
     ucfg = model.unet_config
     losses = []
     for i in range(steps):

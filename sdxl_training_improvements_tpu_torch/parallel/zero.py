@@ -1,14 +1,12 @@
-"""Data parallelism, ZeRO sharding and the megatron slices over the mesh.
+"""Data parallelism, ZeRO and FSDP sharding and the megatron slices
+over the mesh.
 
 The collectives that XLA inserts into JAX's sharded step
 (``sdxl_training_improvements_tpu/training/trainer.py:251-348``, from the
 specs of ``parallel/mesh.py``), called by the port's step itself:
 
-* every rank holds every parameter whole, or, for a leaf split over the
-  tensor axis (``mesh.tp_plan``: the transformer blocks' projections),
-  its megatron slice (JAX also shards the stored parameters over fsdp
-  under ``tpu.shard_params``; the port's step has no per-block gather,
-  so the two differ in memory, not in results: ROADMAP item 14c);
+* a leaf split over the tensor axis (``mesh.tp_plan``: the transformer
+  blocks' projections) is held as its megatron slice;
 * a leaf that JAX shards over fsdp (``mesh.port_spec`` of its whole
   shape carries ``fsdp``: at least 2-D, at least 2^16 elements, a
   divisible dim) is cut into ``fsdp`` equal contiguous chunks of the
@@ -16,26 +14,43 @@ specs of ``parallel/mesh.py``), called by the port's step itself:
   ``memory_order``: the leaf, or its slice), and the rank at fsdp
   coordinate r keeps chunk r of its optimizer state and EMA shadow; a
   split leaf's optimizer state is its slice's;
+* under ``tpu.shard_params`` with the UNet given (``store_params``, as
+  ``training/trainer.py`` ``shard_train_state(unet=)`` calls it) the
+  rank stores only that chunk of the parameter too, as JAX places it:
+  each remat unit of the UNet (``models/unet.py`` ``gather_units``)
+  all-gathers its chunks over fsdp just before it runs and drops them
+  after (``run_unit``; in buckets of one dtype, at most ``BUCKET_BYTES``
+  whole), and the gather's backward reduce-scatters the whole leaves'
+  gradients, in the accumulator dtype, into the rank's chunks, which the
+  step accumulates (``collecting``).  Under remat the recomputation
+  gathers again; without it a saved whole weight is dropped and gathered
+  again when the backward unpacks it (``parallel/tensor.py``
+  ``drop_saved_wholes``).  Without the UNet (LoRA's pairs) the
+  parameters stay whole and the chunks are gathered back after the
+  update (``gather_params``);
 * the gradients are reduced once a step over data x fsdp (every tensor
   rank of a group holds the same batch rows), in flat buckets of at
   most ``BUCKET_BYTES``: unchunked leaves by an all-reduce, chunked ones
-  by a reduce-scatter over fsdp into the rank's chunk and an all-reduce
+  by a reduce-scatter over fsdp into the rank's chunk (per micro-batch
+  in the gather's backward when the chunks are stored) and an all-reduce
   over data, each divided by data x fsdp (the mean over the global
   batch, as JAX's);
 * the global norm counts each replicated leaf once and sums a split
   leaf's squares over the tensor group;
 * the optimizer updates the rank's pieces (a split leaf's noise drawn at
   its elements' places in the whole leaf, through the slice's index
-  map); an all-gather over fsdp puts each chunked parameter back.
+  map).
 
 A piece of an optimizer tensor is the same part of the one-card tensor
 (SOAP's first moment: of its contiguous JAX layout), so a save gathers
-the one-card state, parameters included, and a restore cuts it again
-(``SHARDED_FIELDS``), for any mesh.  With ``tensor`` = 1 nothing splits
-and data x fsdp is every rank: the step is the data and fsdp one.
+the one-card state, parameters included (``whole_params``), and a
+restore cuts it again (``SHARDED_FIELDS``), for any mesh.  With
+``tensor`` = 1 nothing splits and data x fsdp is every rank: the step is
+the data and fsdp one.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence
 
@@ -45,7 +60,8 @@ import torch.distributed as dist
 from sdxl_training_improvements_tpu_torch.ops.fused_adamw import memory_order
 from sdxl_training_improvements_tpu_torch.parallel import mesh as M
 from sdxl_training_improvements_tpu_torch.parallel.tensor import (
-    gather_rows, join_leaf)
+    drop_saved_wholes, gather_chunks, gather_for_use, gather_rows,
+    join_leaf)
 
 BUCKET_BYTES = 256 << 20
 
@@ -76,11 +92,57 @@ class Chunk:
     numel: int
 
 
+class _UnitBucket:
+    """Chunked leaves of one remat unit gathered by one collective (one
+    dtype): ``names`` (in the UNet), ``local`` (in the unit), ``likes``
+    (what the rank holds whole: the leaf or its slice), ``sizes`` (the
+    chunks)."""
+
+    def __init__(self, zero: "Zero", names, local):
+        self.zero, self.names, self.local = zero, list(names), list(local)
+        self.likes = [zero.like[n] for n in self.names]
+        self.sizes = [zero.chunks[n].size for n in self.names]
+        self.group = zero.fsdp_group
+
+    def grad_dtype(self) -> torch.dtype:
+        return self.zero.grad_dtype
+
+    def deliver(self, mine: torch.Tensor):
+        """The reduced chunks into the step's accumulator (``Zero.
+        collecting``), or back through autograd in the parameters'
+        dtype outside it."""
+        z = self.zero
+        z.scatters += 1
+        pieces, off = [], 0
+        for n, c in zip(self.names, self.sizes):
+            pieces.append(mine[off:off + c])
+            off += c
+        if z.sink is None:
+            return [p.to(z.like[n].dtype) for n, p in
+                    zip(self.names, pieces)]
+        for n, p in zip(self.names, pieces):
+            if n in z.sink:
+                z.sink[n].add_(p)
+            else:
+                z.sink[n] = p
+        return [None] * len(pieces)
+
+
 class Zero:
     """The layout of ``params`` (name -> tensor, every rank's copy: whole,
     or its megatron slice for the leaves of ``tp``) on ``mesh``: which
     leaves shard, and the step's collectives.  ``tp``: ``mesh.tp_plan``
     of the whole leaves (empty when nothing splits)."""
+
+    # stored chunks (``store_params``): whether the parameters are, whether
+    # the units gather (off while ``holding`` the gathered parameters),
+    # the step's gradient accumulator and its dtype (``collecting``), the
+    # fsdp collectives issued so far and the last step's accumulator bytes
+    stored = False
+    active = True
+    sink: Optional[Dict[str, torch.Tensor]] = None
+    grad_dtype = torch.float32
+    gathers = scatters = grad_bytes = 0
 
     def __init__(self, mesh, params: Mapping[str, torch.Tensor],
                  shard_params: bool = False,
@@ -97,6 +159,8 @@ class Zero:
         self.dp_group = M.dp_group(mesh)  # None: every rank (tensor 1)
         self._plan(params, sizes, mesh.get_local_rank(M.FSDP_AXIS),
                    shard_params)
+        self.units: Dict[int, List[_UnitBucket]] = {}
+        self.params: Dict[str, torch.Tensor] = {}
 
     def _plan(self, params, sizes, fsdp_rank: int, shard_params: bool):
         """``chunks``: each chunked leaf's chunk on this rank; ``like``:
@@ -123,12 +187,133 @@ class Zero:
         or a chunk of a slice) rather than the whole leaf."""
         return name in self.chunks or name in self.tp
 
+    # ------------------------------------------------------ stored chunks
+    def store_params(self, params: Mapping[str, torch.Tensor],
+                     unet) -> None:
+        """Keep only this rank's chunk of each chunked parameter of
+        ``unet`` (``params``: its parameters by name): the parameter's
+        data becomes a 1-D copy of the chunk and the rest of the leaf's
+        storage is freed; ``unet.fsdp`` becomes this layout, so that each
+        of its units (``unet.gather_units()``) gathers its chunks to run.
+        Every chunked leaf must lie in a unit."""
+        if self.stored:
+            raise ValueError("the parameters are stored as chunks already")
+        units = dict(unet.gather_units())
+        owner = {}
+        for prefix, module in units.items():
+            for local, p in module.named_parameters():
+                owner.setdefault(f"{prefix}.{local}", (prefix, local))
+        missing = sorted(set(self.chunks) - set(owner))
+        if missing:
+            raise ValueError(f"chunked leaves outside every unit of the "
+                             f"UNet: {missing[:3]}")
+        by_unit: Dict[str, List[str]] = {}
+        for n in self.chunks:
+            by_unit.setdefault(owner[n][0], []).append(n)
+        for prefix, names in by_unit.items():
+            by_dtype: Dict[torch.dtype, List[str]] = {}
+            for n in names:
+                by_dtype.setdefault(self.like[n].dtype, []).append(n)
+            buckets = []
+            for same in by_dtype.values():
+                for b in self._buckets(same, lambda n: self.chunks[n].numel
+                                       * self.like[n].element_size()):
+                    buckets.append(_UnitBucket(
+                        self, b, [owner[n][1] for n in b]))
+            self.units[id(units[prefix])] = buckets
+        with torch.no_grad():
+            for n in self.chunks:
+                c = self.chunks[n]
+                p = params[n]
+                p.data = memory_order(p.data)[c.base:c.base + c.size].clone()
+                self.params[n] = p
+        self.stored = True
+        unet.fsdp = self
+
+    def unstore(self, params: Mapping[str, torch.Tensor], unet) -> None:
+        """The inverse of ``store_params``: each stored chunk's parameter
+        holds its leaf (its slice) again and ``unet`` gathers nothing (a
+        collective)."""
+        with torch.no_grad():
+            for n in self.chunks:
+                params[n].data = self.gather(n, params[n].data, whole=False)
+        self.stored = False
+        self.units, self.params = {}, {}
+        unet.fsdp = None
+
+    def param_pieces(self) -> List[str]:
+        """The leaves whose stored parameter is a piece: the split ones,
+        and the chunked ones when the chunks are stored."""
+        return list(dict.fromkeys(
+            [*self.tp, *(self.chunks if self.stored else ())]))
+
+    def run_unit(self, module, *args, recomputed: bool = False):
+        """``module(*args)`` with its chunked parameters gathered for the
+        call (``module``: a unit of ``store_params``' UNet).
+        ``recomputed``: the call runs under ``torch.utils.checkpoint``,
+        whose recomputation gathers again; otherwise a gathered weight
+        that autograd saves is dropped and gathered again in the backward
+        (``drop_saved_wholes``)."""
+        buckets = self.units.get(id(module)) if self.active else None
+        if not buckets:
+            return module(*args)
+        wholes = {}
+        for b in buckets:
+            self.gathers += 1
+            got = gather_for_use(b, [self.params[n] for n in b.names])
+            wholes.update(zip(b.local, got))
+        hooks = (contextlib.nullcontext() if recomputed
+                 or not torch.is_grad_enabled()
+                 else drop_saved_wholes(wholes, self._regather(buckets)))
+        with hooks:
+            return torch.func.functional_call(module, wholes, args)
+
+    def _regather(self, buckets):
+        """name in the unit -> its leaf gathered again (no gradient)."""
+        where = {loc: n for b in buckets for n, loc in zip(b.names, b.local)}
+
+        def regather(local: str) -> torch.Tensor:
+            n = where[local]
+            self.gathers += 1
+            return gather_chunks([self.params[n].detach()], [self.like[n]],
+                                 self.fsdp_group)[0]
+        return regather
+
+    @contextlib.contextmanager
+    def collecting(self, dtype: torch.dtype, sink: Dict[str, torch.Tensor]):
+        """Within the block the stored chunks' gradients are reduce-
+        scattered over fsdp in ``dtype`` and added into ``sink`` (name ->
+        this rank's chunk), not returned through autograd."""
+        self.sink, self.grad_dtype = sink, dtype
+        try:
+            yield sink
+        finally:
+            self.sink, self.grad_dtype = None, torch.float32
+
+    @contextlib.contextmanager
+    def holding(self, params: Mapping[str, torch.Tensor],
+                values: Mapping[str, torch.Tensor]):
+        """Within the block each parameter named in ``values`` holds that
+        tensor (a stored chunk's: its gathered leaf or slice) and the
+        units gather nothing; the stored tensors come back after."""
+        saved = {n: params[n].data for n in values
+                 if values[n] is not params[n]}
+        self.active = False
+        try:
+            for n in saved:
+                params[n].data = values[n]
+            yield
+        finally:
+            for n, d in saved.items():
+                params[n].data = d
+            self.active = True
+
     # ------------------------------------------------------------ views
     def view(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's chunk of ``t`` (a view of its storage) when ``name``
-        chunks, else ``t``."""
+        """This rank's chunk of the parameter ``t`` (a view of its storage)
+        when ``name`` chunks, else ``t``; a stored chunk is itself."""
         c = self.chunks.get(name)
-        if c is None:
+        if c is None or self.stored:
             return t
         return memory_order(t)[c.base:c.base + c.size]
 
@@ -216,12 +401,24 @@ class Zero:
         return {n: (self.gather(n, t, whole=whole) if self.holds_piece(n)
                     else t) for n, t in tensors.items()}
 
-    def whole_params(self, params: Mapping[str, torch.Tensor]
+    def whole_params(self, params: Mapping[str, torch.Tensor],
+                     whole: bool = True, chunked: Optional[bool] = None
                      ) -> Dict[str, torch.Tensor]:
-        """The one-card parameters: the split leaves' slices gathered over
-        the tensor group, the others as they are (a collective)."""
-        return {n: (self._gather_slices(self.tp[n], p.detach(), "param")
-                    if n in self.tp else p) for n, p in params.items()}
+        """The one-card parameters (``whole`` False: the rank's slices, as
+        a placed UNet holds them) of what the rank holds: the chunked
+        leaves' chunks gathered over fsdp (``chunked``: whether they are
+        given as chunks; default: whether the chunks are stored), the
+        split leaves' slices over the tensor group, the others as they
+        are (a collective)."""
+        chunked = self.stored if chunked is None else chunked
+        out = {}
+        for n, p in params.items():
+            if chunked and n in self.chunks:
+                p = self.gather(n, p.detach(), whole=whole)
+            elif whole and n in self.tp:
+                p = self._gather_slices(self.tp[n], p.detach(), "param")
+            out[n] = p
+        return out
 
     def max_over_shards(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """``x`` (a piece's statistic) reduced by MAX over the ranks that
@@ -268,23 +465,26 @@ class Zero:
                          ) -> Dict[str, torch.Tensor]:
         """The mean over data x fsdp of the gradients: unchunked leaves
         (in place), chunks of chunked ones (views of a reduce-scatter's
-        output).  Every gradient must have one dtype."""
+        output; with stored chunks the gradients are the chunks, summed
+        over fsdp already in the gather's backward, and are summed over
+        data in place).  Every gradient must have one dtype."""
         names = list(grads)
         rep = [n for n in names if n not in self.chunks]
         shd = [n for n in names if n in self.chunks]
         out = dict(grads)
         size = next(iter(grads.values())).element_size() if grads else 0
-        for bucket in self._buckets(rep, lambda n: grads[n].numel() * size):
-            flat = torch.cat([memory_order(grads[n]) for n in bucket])
-            dist.all_reduce(flat, group=self.dp_group)
-            flat.div_(self.world)
-            off = 0
-            for n in bucket:
-                k = grads[n].numel()
-                memory_order(grads[n]).copy_(flat[off:off + k])
-                off += k
-        for bucket in self._buckets(
-                shd, lambda n: grads[n].numel() * size):
+        nbytes = lambda n: grads[n].numel() * size  # noqa: E731
+        for bucket in self._buckets(rep, nbytes):
+            self._all_reduce_mean(grads, bucket, self.dp_group)
+        if self.stored:
+            for bucket in self._buckets(shd if self.data > 1 else [],
+                                        nbytes):
+                self._all_reduce_mean(grads, bucket, self.data_group)
+            if self.data == 1:
+                for n in shd:
+                    grads[n].div_(self.world)
+            return out
+        for bucket in self._buckets(shd, nbytes):
             total = sum(self.chunks[n].size for n in bucket)
             g0 = grads[bucket[0]]
             rows = torch.empty((self.fsdp, total), dtype=g0.dtype,
@@ -308,6 +508,19 @@ class Zero:
                 out[n] = mine[off:off + c]
                 off += c
         return out
+
+    def _all_reduce_mean(self, grads, bucket: Sequence[str], group
+                         ) -> None:
+        """``grads[n]`` for n in ``bucket`` summed over ``group`` and
+        divided by data x fsdp, in place."""
+        flat = torch.cat([memory_order(grads[n]) for n in bucket])
+        dist.all_reduce(flat, group=group)
+        flat.div_(self.world)
+        off = 0
+        for n in bucket:
+            k = grads[n].numel()
+            memory_order(grads[n]).copy_(flat[off:off + k])
+            off += k
 
     def norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """The global norm of the reduced gradients: the replicated
@@ -336,9 +549,11 @@ class Zero:
         return torch.sqrt(sq)
 
     def gather_params(self, params: Mapping[str, torch.Tensor]) -> None:
-        """After the chunks' update: every chunked parameter whole again on
-        every rank of its fsdp group (a split leaf: its slice), in place
-        (an all-gather over fsdp per bucket of one dtype)."""
+        """After the chunks' update, when the parameters are not stored as
+        chunks (no UNet given: LoRA's pairs): every chunked parameter
+        whole again on every rank of its fsdp group (a split leaf: its
+        slice), in place (an all-gather over fsdp per bucket of one
+        dtype)."""
         shd = [n for n in params if n in self.chunks]
         by_dtype: Dict[torch.dtype, List[str]] = {}
         for n in shd:

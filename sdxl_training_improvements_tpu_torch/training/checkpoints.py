@@ -25,7 +25,8 @@ sample's noise and timestep, the bf16 AdamW's every leaf's rounding
 seeds, so a resume that dropped them would be a different run.
 
 Over several ranks (``parallel/zero.py``) a save gathers the sharded
-optimizer state and the megatron-split parameters (and their state) and
+optimizer state, the megatron-split parameters (and their state) and
+the parameters stored as fsdp chunks, and
 rank 0 writes it in the one-card format; a restore reads the one-card
 state on every rank, which ``shard_train_state`` then cuts, so a state
 saved by ranks of any mesh resumes on any other mesh, or in one process
@@ -382,7 +383,9 @@ def save_train_state(ckpt_dir, state, config=None,
             if main:
                 tensors[key] = full.cpu()
             del full
-        for n in zero.tp:  # the parameters: every rank holds its slice
+        # the parameters that every rank holds a piece of: its megatron
+        # slice, its stored chunk or the chunk of its slice
+        for n in zero.param_pieces():
             full = zero.whole_params({n: state.params[n]})[n]
             if main:
                 tensors[f"params.{n}"] = full.cpu()

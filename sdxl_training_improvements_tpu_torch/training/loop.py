@@ -20,7 +20,11 @@ cadence are the JAX package's.  The differences:
   validation images.  A tensor axis above 1 splits the UNet's
   transformer blocks megatron-style (``shard_train_state(..., unet=)``):
   every rank samples the validation images then (the UNet's forward is a
-  collective) and the exports gather the slices;
+  collective) and the exports gather the slices.  Under
+  ``tpu.shard_params`` each rank stores only its fsdp chunk of the large
+  leaves (``parallel/zero.py`` ``store_params``): the validation loss,
+  the validation images and the exports run on the chunks gathered over
+  fsdp by every rank (``Zero.holding``);
 * LoRA (``training.lora.enabled``, JAX ``:97-126``): the trainable tree
   is the pairs (``models/lora.py``), the frozen UNet goes to the step as
   ``const_params``; checkpoints ship the adapter (``export_lora``) and
@@ -42,6 +46,7 @@ cadence are the JAX package's.  The differences:
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import time
@@ -478,6 +483,8 @@ class SDXLTrainer:
         elif isinstance(opt_state, ScheduleFreeKahanState):
             out = schedule_free_eval_params(
                 opt_state, view, beta1=self.config.optimizer.beta1)
+        elif zero is not None and zero.stored:  # the stored chunks, gathered
+            return zero.whole_params(params, whole=False)
         else:
             return params
         return out if zero is None else zero.gather_tensors(out,
@@ -494,6 +501,11 @@ class SDXLTrainer:
                 yield
             return
         live = self.state.params
+        zero = self.state.zero
+        if zero is not None and zero.stored:  # the UNet's units gather not
+            with zero.holding(live, params):
+                yield
+            return
         saved = {n: live[n].data for n in live if params[n] is not live[n]}
         try:
             for n in saved:
@@ -512,7 +524,7 @@ class SDXLTrainer:
             params = lora_merge(self.model.trainable_params(), params,
                                 alpha=self.config.training.lora.alpha)
         elif zero is not None and zero.tp:  # the slices, gathered whole
-            params = zero.whole_params(params)
+            params = zero.whole_params(params, chunked=False)
         elif params is self.state.params:
             return None
         return {**self.model.unet.state_dict(), **params}
@@ -524,15 +536,21 @@ class SDXLTrainer:
         on the current parameters."""
         from sdxl_training_improvements_tpu_torch.training.validation import (
             validation_loss)
-        try:
-            vloss = validation_loss(
-                self._apply_fn, val_ds, self.schedule, self.config,
-                seed=self.config.training.seed + 17,
-                num_time_ids=self.model.unet_config.num_time_ids,
-                device=self.device)
-        except Exception as e:  # never kill training over validation
-            self.logger.warning(f"validation loss failed: {e}")
-            vloss = None
+        zero, live = self.state.zero, self.state.params
+        # stored fsdp chunks: gathered for the whole loss (a collective of
+        # every rank, outside the guard below)
+        with (zero.holding(live, zero.whole_params(live, whole=False))
+              if zero is not None and zero.stored
+              else contextlib.nullcontext()):
+            try:
+                vloss = validation_loss(
+                    self._apply_fn, val_ds, self.schedule, self.config,
+                    seed=self.config.training.seed + 17,
+                    num_time_ids=self.model.unet_config.num_time_ids,
+                    device=self.device)
+            except Exception as e:  # never kill training over validation
+                self.logger.warning(f"validation loss failed: {e}")
+                vloss = None
         if M.process_count() == 1:
             return vloss
         # several ranks: the value gates a collective best-checkpoint save,

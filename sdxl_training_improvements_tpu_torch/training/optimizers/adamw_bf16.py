@@ -365,9 +365,11 @@ class AdamWBF16:
                 self.layout != "per_leaf" or self._host):
             raise ValueError(
                 "sharded optimizer state needs the per-leaf layout with "
-                "resident state (tpu.flat_optimizer=on and host-streamed "
-                "state are refused under tpu.shard_params and with a "
-                "tensor axis above 1: ROADMAP queue 1, item 14c)")
+                "resident state: make_optimizer refuses "
+                "tpu.flat_optimizer=on and host-streamed state under "
+                "tpu.shard_params and with a tensor axis above 1, as JAX "
+                "does, and no config selects the hybrid or stacked "
+                "layouts")
         step = state.step + 1
         lr_eff = self.lr_eff(step)
         units, f32 = self._units(params)

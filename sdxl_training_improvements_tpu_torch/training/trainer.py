@@ -42,8 +42,15 @@ batch on every rank from the replicated generator and then sliced, so a
 sample's noise does not depend on the rank.  After the accumulation the
 gradients are reduced once (``Zero.reduce_gradients``, in the
 accumulator dtype), then masked, normed over the shards and clipped; the
-optimizer updates the rank's chunks and the step gathers the sharded
-parameters back; the loss and the metrics are averaged over the ranks.
+optimizer updates the rank's chunks; the loss and the metrics are
+averaged over the ranks.  With the parameters stored as chunks
+(``shard_params`` with the UNet placed) the UNet gathers each unit's
+chunks to run it, and the gathers' backward reduce-scatters each
+micro-batch's gradients over fsdp into the rank's chunks
+(``Zero.collecting``), which the accumulator holds, summed over the
+micro-batches; the reduction after the accumulation then sums them over
+data only, and the update lands in the stored chunks.  Without the UNet
+the step gathers the updated chunks back into the whole parameters.
 The loss's finite guard decides on the mean over the ranks' blocks
 (``methods.mean_over``), so a micro-batch's clamp is JAX's.
 """
@@ -103,12 +110,14 @@ def shard_train_state(state: TrainState, mesh, shard_params: bool = False,
     with a tensor axis above 1 the leaves of ``unet`` (the module whose
     parameters ``state.params`` holds) that megatron splits become this
     rank's slices, in place (``models/unet.py`` ``place_on_mesh``; None:
-    nothing splits, as under LoRA); the other parameters stay whole on
-    every rank; with ``shard_params`` the optimizer state (and EMA
-    shadow) of each leaf JAX shards over fsdp is cut to this rank's chunk
-    (``parallel/zero.py``), field by field as JAX places it.  A restored
-    checkpoint is placed the same way, so a state saved by any number of
-    ranks resumes on any other."""
+    nothing splits, as under LoRA); with ``shard_params`` the optimizer
+    state (and EMA shadow) of each leaf JAX shards over fsdp is cut to
+    this rank's chunk (``parallel/zero.py``), field by field as JAX
+    places it, and, when ``unet`` is given, so is the parameter itself
+    (``Zero.store_params``: the UNet gathers each unit's chunks to run
+    it); without ``unet`` the parameters stay whole on every rank.  A
+    restored checkpoint is placed the same way, so a state saved by any
+    number of ranks resumes on any other."""
     from sdxl_training_improvements_tpu_torch.parallel.zero import Zero
     tp = {}
     if unet is not None:
@@ -121,6 +130,8 @@ def shard_train_state(state: TrainState, mesh, shard_params: bool = False,
         _, tp = place_on_mesh(unet, mesh)
     zero = Zero(mesh, state.params, shard_params=shard_params, tp=tp)
     zero.shard_state(state.opt_state)
+    if unet is not None and zero.chunks:
+        zero.store_params(state.params, unet)
     state.zero = zero
     return state
 
@@ -210,6 +221,10 @@ def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
 
         grads = None
         losses, metrics = [], []
+        stored = zero is not None and zero.stored
+        # the stored chunks' gradients, reduce-scattered over fsdp by the
+        # gathers' backward and summed over the micro-batches
+        sink: Dict[str, torch.Tensor] = {}
         for i in range(accum):
             mb = {k: v[i * mb_size:(i + 1) * mb_size]
                   for k, v in full.items()}
@@ -222,17 +237,28 @@ def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
             with (mean_over(zero.dp_group, zero.world) if zero is not None
                   else contextlib.nullcontext()):
                 loss, m = loss_fn(apply, mb, gen, schedule, mcfg)
-            g = list(torch.autograd.grad(loss, params))
+            with (zero.collecting(accum_dtype, sink) if stored
+                  else contextlib.nullcontext()):
+                g = list(torch.autograd.grad(loss, params,
+                                             allow_unused=stored))
             losses.append(loss.detach())
             metrics.append(m)
             for j, gj in enumerate(g):  # frees each autograd grad in turn
-                g[j] = gj.to(accum_dtype)
+                if gj is not None:  # None: a stored chunk's, in the sink
+                    g[j] = gj.to(accum_dtype)
             if grads is None:
                 grads = g
             else:
                 for a, gj in zip(grads, g):
-                    a.add_(gj)
+                    if gj is not None:
+                        a.add_(gj)
             del g
+        if stored:
+            grads = [sink.pop(n) if n in zero.chunks else a
+                     for n, a in zip(names, grads)]
+        if zero is not None:  # the accumulator this rank held
+            zero.grad_bytes = sum(a.numel() * a.element_size()
+                                  for a in grads)
         if accum > 1:
             for a in grads:
                 a.div_(accum)
@@ -263,7 +289,7 @@ def make_train_step(unet_apply: Callable, schedule: NoiseSchedule,
         with torch.no_grad():
             for n, p in zip(names, params):
                 (p if zero is None else zero.view(n, p)).add_(deltas[n])
-        if zero is not None:
+        if zero is not None and not stored:
             zero.gather_params(state.params)
         mark(events, "update")
 

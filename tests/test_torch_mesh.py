@@ -313,7 +313,7 @@ def test_refusals_under_model_sharding(case):
     """JAX's refusals under model sharding, word for word where JAX has
     them (``optimizers/__init__.py:54-58``, ``:80-86``); over a tensor
     axis the per-leaf layout updates the slices and the packed layouts
-    refuse, naming ROADMAP item 14c."""
+    refuse, saying that no config selects them."""
     from sdxl_training_improvements_tpu_torch.config import Config
     params, grads = _leaves(torch.bfloat16)
     if case in ("hybrid", "stacked"):
@@ -352,7 +352,8 @@ def test_refusals_under_model_sharding(case):
                 assert all(deltas[n].shape == local[n].shape
                            for n in local)
                 continue
-            with pytest.raises(ValueError, match="item 14c"):
+            with pytest.raises(ValueError,
+                               match="no config selects the hybrid"):
                 opt.update({n: torch.zeros_like(p).float()
                             for n, p in local.items()}, state, local,
                            zero=zero)
