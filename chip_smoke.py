@@ -92,16 +92,16 @@ Phases, each printing what it found:
    markers, progressive 4:2:0, baseline 4:4:4, grayscale), two committed
    WebPs (lossy with alpha at 1024x1024, lossless at 1216x832) and two
    PNGs written here (a palette PNG, an Adam7 PNG);
-   run A (3 epochs, 6 steps: the cache's latent shapes, each
-   step's loss read after the run, steps 3-4 timed as one window between
-   two synchronizes, steps 5-6 profiled for device time and idle share,
+   run A (2 epochs, 4 steps: the cache's latent shapes, each
+   step's loss read after the run, step 3 timed as one window between
+   two synchronizes, step 4 profiled for device time and idle share,
    peak memory, launches); then, on run A's model, the precompute's rate
    over 32 PNGs through the trainer's own precompute, one image of each
    size through the fp32 VAE kernels against plain, a b1 forward and
    backward on the 1216x832 bucket's cache entry through the kernels
    against plain, and the convolutions' device time with cuDNN's
    deterministic algorithms and its defaults; run B (1 epoch and the final
-   checkpoint, then ``--resume`` to 3 epochs: the checkpoint's GiB, save
+   checkpoint, then ``--resume`` to 2 epochs: the checkpoint's GiB, save
    and restore times), whose parameters, optimizer state, step and
    generators must be ``torch.equal`` to run A's; the log's metric lines;
    the directory deleted.  Phase 3 also holds the bf16 GN+SiLU and flash
@@ -109,7 +109,8 @@ Phases, each printing what it found:
 12. the remaining training features, after phase 11 with its models
    freed, each at full SDXL-base width on phase 11's recipe and cuts:
    (12a) ``main.main`` with LoRA (rank 4, the default targets) and EMA
-   0.9999 over phase 11's images, 2 epochs with steps 3-4 profiled (device
+   0.9999 over phase 11's four 1024x1024 images, 2 epochs (one step
+   each) with step 2 profiled (device
    time, idle share, the update's ms by CUDA events, peak memory,
    launches); on its model, with seeded trees, the merge path against
    the branch path (dropout 0), the LoRA gradients through the kernels
@@ -133,8 +134,8 @@ Phases, each printing what it found:
    its checkpoint: (13a) ``aot.export_text2img`` at 1024^2, b1, Euler,
    8 steps, guidance 5, then ``AOTPipeline.load``, which captures the
    encode, the CFG UNet call and the fp32 VAE decode as CUDA graphs in one
-   pool (capture s, graphs and their nodes, pool GiB logged); 8 images
-   through the graphs and 3 through the eager kernel path (UNet wall ms a
+   pool (capture s, graphs and their nodes, pool GiB logged); 4 images
+   through the graphs and 2 through the eager kernel path (UNet wall ms a
    step, median and p90, s an image, one image's latents profiled for
    device busy ms and idle share), the graph latents against the eager
    kernel path at the same seeds (rel L2 within ``AOT_REL_L2_TOL``,
@@ -146,7 +147,7 @@ Phases, each printing what it found:
    graph); (13c) ``serve.build_server`` on port 0 in a thread over 13a's
    artifact: /healthz, two concurrent requests whose PNGs, read back by
    ``png.read_png``, equal ``AOTPipeline``'s images, a 400 on a batch
-   mismatch, 5 requests timed (the launches counted over the served
+   mismatch, 3 requests timed (the launches counted over the served
    requests alone, the reference images made after); (13d) ``generate.main`` with
    ``--export-aot`` and then ``--aot`` on phase 10's checkpoint, and the
    exit on a conflicting ``--steps``.  Each graph path's launches are its
@@ -159,8 +160,9 @@ Phases, each printing what it found:
    whose gradients must be ``torch.equal`` to "full"'s (or within phase
    7's bar, said so), the UNet kernels launched in it, its peak GiB and
    the GiB of the outputs it keeps, then one profiled train step for
-   "full" and "dots" on one warm train state (device ms,
-   idle share, launches, peak GiB); (14b) the bf16 AdamW under each
+   "full" on a warm train state (device ms, idle share, launches, peak
+   GiB; its rollup and top kernels through ``tools/profile_step``'s
+   summary); (14b) the bf16 AdamW under each
    layout (per-leaf hash and rbg, flat, hybrid, stacked): two steps, the
    optimizer's ms by CUDA events, kernel #7's launches a step by
    variant, state and peak GiB; then, the model freed, #7's rbg variant
@@ -170,7 +172,8 @@ Phases, each printing what it found:
    STACK_CHECK_MAX elements (the plain chain's fp64 temporaries), each
    ``torch.equal``; (14c) ``main.main`` on
    ``configs/v5e16_single_chip.yaml`` (int8 moments, shift_host,
-   moments_host) with phase 11's cuts over phase 11's images: 4 steps with
+   moments_host) with phase 11's cuts over phase 11's four 1024x1024
+   images: 2 steps with
    the update's ms by CUDA events, the optimizer state on the card
    (none) and on the host (pinned), peak GiB, launches; the streamed
    update against the copies alone and the resident update (the share of
@@ -182,13 +185,15 @@ Phases, each printing what it found:
    ``parallel/dryrun.dryrun_multichip(W)`` at tiny shapes; (15b) the
    default ``Config()`` model on mesh [W,1,1] and on [1,W,1] with
    ``shard_params`` (each rank storing only its fsdp chunks of the large
-   leaves, which every unit of the UNet gathers to run), 3 steps each on
+   leaves, which every unit of the UNet gathers to run; one card: the
+   two meshes are [1,1,1], run once), 3 steps each on
    phase 6's batch (one card: losses, grad norms and parameter digests
    equal to phase 6's; more: JAX's bars), with each rank's step device
    ms, NCCL kernels' device ms, parameter, gradient-accumulator,
    optimizer-state and peak GiB, the fsdp all-gathers and #7 launches a
    step beside the card's name and power limit; (15c) ``main.main`` on
-   phase 11's recipe and cuts with the partitioned cache, mesh [1,W,1],
+   phase 11's recipe and cuts over its four 1024x1024 images with the
+   partitioned cache, mesh [1,W,1],
    ``shard_params`` and W-row micro-batches: 2 epochs, then 1 with the
    final checkpoint and ``--resume``, ``torch.equal`` to the
    uninterrupted run on the card, each rank's cache under ``host-NNN``
@@ -202,7 +207,15 @@ Phases, each printing what it found:
    latents and phase 6's losses, grad norms and parameter digests bit for
    bit; more cards run NCCL at T = W within phase 15's bars; each rank's
    step device ms, NCCL device ms, peak GiB and #7 launches a step beside
-   the card's name and power limit.
+   the card's name and power limit;
+17. the tools (``sdxl_training_improvements_tpu_torch/tools``): the first
+   30 steps of both 1000-step JAX loss curves (``tests/fixtures/parity``)
+   through ``parity_check`` on the kernels at the 1% bar; 10 steps of
+   each ``study_int8_moments`` arm (finite, #7 launched in the bf16 and
+   int8 arms); ``verify_checkpoint`` on phase 10's checkpoint (passes)
+   and on a copy of its VAE with a key removed (fails).  (``profile_step``
+   ran here at b1 until the script outgrew its time limit; phase 14a's
+   profiled step prints its summary.)
 
 The line before the last is a JSON object with one entry per kernel and
 dtype (``launches``: the sum over the main paths, ``launches_by_path``:
@@ -231,6 +244,13 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+from sdxl_training_improvements_tpu_torch.tools import card as _card
+# the port's one grouping and summary of device events
+# (tools/profile_step.py)
+from sdxl_training_improvements_tpu_torch.tools.profile_step import (
+    device_events as _device_events, kernel_group as _kernel_group,
+    summarize as _summarize)
 
 SEED = 0
 STEPS = 8  # denoising steps of the measured text-to-image call
@@ -456,7 +476,7 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"FAILED: {msg}")
 
 
-def time_ms(fn, warmup: int = 3, iters: int = 10, repeats: int = 5
+def time_ms(fn, warmup: int = 3, iters: int = 10, repeats: int = 3
             ) -> float:
     """Per-call time of back-to-back calls (CUDA events around a loop of
     ``iters``), median over ``repeats`` loops, after warm-up.  Where the
@@ -502,10 +522,8 @@ def fmt_ms(ms) -> str:
 
 def phase_environment() -> str:
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip())
+    smi = _card(DEVICE)
+    log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     import triton
@@ -516,7 +534,7 @@ def phase_environment() -> str:
     log(nvcc.stdout.strip().splitlines()[-1])
     log(f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
-    return smi.stdout.strip()
+    return smi
 
 
 def phase_build() -> None:
@@ -1137,59 +1155,21 @@ def phase_unet(model) -> dict:
     return dict(rel_l2=rel, ms=ms, plain_ms=plain_ms)
 
 
-def _kernel_group(name: str) -> str:
-    n = name.lower()
-    for group, keys in (("flash_fwd (hand CUDA)", ("flash_fwd",
-                                                   "flash_f32_fwd")),
-                        ("flash_bwd (hand CUDA)", ("flash_bwd",
-                                                   "dkv_reduce",
-                                                   "flash_f32_dq",
-                                                   "flash_f32_dkv")),
-                        ("fused_adamw (hand CUDA)", ("fused_adamw",)),
-                        ("gn_silu (hand CUDA)", ("gn_silu",)),
-                        ("nccl", ("nccl",)),
-                        ("convolution", ("conv", "fprop", "implicit",
-                                         "nhwc", "dgrad", "wgrad")),
-                        ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
-                        ("norm/softmax", ("norm", "softmax", "welford",
-                                          "reduce")),
-                        ("elementwise/copy", ("elementwise", "copy",
-                                              "vectorized", "cat",
-                                              "upsample", "index"))):
-        if any(k in n for k in keys):
-            return group
-    return "other"
-
-
-def _device_events(prof) -> list:
-    """(name, ms) of every device event (kernel, copy, set) a profile
-    recorded, read from the profiler's raw events: ``key_averages()``
-    first parses every event into Python objects, tens of seconds for
-    a step of ~500,000 launches."""
-    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
-    if raw is None:
-        return [(e.key, e.self_device_time_total / 1e3)
-                for e in prof.key_averages() if e.self_device_time_total > 0]
-    return [(e.name(), e.duration_ns() / 1e6) for e in raw.events()
-            if e.device_type() != torch.autograd.DeviceType.CPU]
-
-
-def _log_profile(prof, what: str, wall_ms: float) -> float:
-    """Log device busy time by kernel group and the idle share of a
-    profiled window of ``wall_ms``; returns the idle share."""
-    groups: dict = {}
-    launches = 0
-    for name, ms in _device_events(prof):
-        g = _kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + ms
-        launches += 1
-    busy = sum(groups.values())
-    idle = 1 - busy / wall_ms
-    log(f"{what} profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
-        f"idle share {idle:.3f}, {launches} kernel launches")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"  {g}: {ms:.2f} ms ({ms / busy:.3f})")
-    return idle
+def _log_profile(prof, what: str, wall_ms: float, top: int = 0) -> float:
+    """Log device busy time by kernel group (``profile_step.summarize``)
+    and the idle share of a profiled window of ``wall_ms``, and the
+    ``top`` kernels by device time; returns the idle share."""
+    s = _summarize(_device_events(prof), wall_ms, top=top)
+    log(f"{what} profile: wall {wall_ms:.2f} ms, device busy "
+        f"{s['busy_ms']:.2f} ms, idle share {s['idle_share']:.3f}, "
+        f"{s['events']} kernel launches")
+    for g, v in s["groups"].items():
+        log(f"  {g}: {v['ms']:.2f} ms ({v['share']:.3f}), calls "
+            f"{v['calls']}")
+    for r in s["top"]:
+        log(f"  top {r['ms']:9.3f} ms {r['share']:.3f} n={r['calls']:<5} "
+            f"[{r['group']}] {r['name'][:100]}")
+    return s["idle_share"]
 
 
 def profile_unet_step(model, label: str = "unet step",
@@ -1626,7 +1606,8 @@ def phase_rest_of_serving(model, tmp: Path) -> dict:
 # images through the graphs and through the eager kernel path (13a), the
 # DeepCache artifact's (13b), requests timed (13c); the graph latents
 # against the eager kernel path at the same seeds
-AOT_IMAGES, AOT_EAGER_IMAGES, AOT_REQUESTS = 8, 3, 5
+# (8, 3 and 5 until the script outgrew its time limit)
+AOT_IMAGES, AOT_EAGER_IMAGES, AOT_REQUESTS = 4, 2, 3
 AOT_REL_L2_TOL = 1e-3  # the same kernels in the same order: 0 expected
 AOT_KERNELS = ("gn_silu_fwd", "gn_silu_fwd_f32", "flash_fwd")
 
@@ -2300,9 +2281,11 @@ ENTRY_KERNELS = TRAIN_KERNELS + ("gn_silu_fwd_f32", "probe")
 # one image's latents through the fp32 VAE encoder, kernels against plain:
 # the two differ in the GroupNorm statistics' summation order only
 ENTRY_LATENT_REL_L2_TOL = 1e-3
-ENTRY_EPOCHS = 3  # run A: steps 1-2 meet each bucket shape first
-ENTRY_TIMED = (3, 4)  # run A's steps timed as one window (warm)
-ENTRY_PROFILED = (5, 6)  # and the steps profiled as another
+# run A: steps 1-2 meet each bucket shape first (3 epochs, steps 3-4
+# timed and 5-6 profiled, until the script outgrew its time limit)
+ENTRY_EPOCHS = 2
+ENTRY_TIMED = (3, 3)  # run A's step timed as one window (warm)
+ENTRY_PROFILED = (4, 4)  # and the step profiled as another
 # the precompute's rate: 16 seeded PNGs (8 at each bucket) copied to 4
 # paths each, every path its own cache entry (16 batches of 4; 16 paths
 # each until the script outgrew its time limit)
@@ -2391,18 +2374,21 @@ def _write_adam7_png(path: Path, img: np.ndarray) -> None:
     path.write_bytes(_png_bytes((w, h, 8, 2, 1), np.concatenate(parts)))
 
 
-def _entry_images(folder: Path, n: int = 8, mixed: bool = True) -> None:
+def _entry_images(folder: Path, n: int = 8, mixed: bool = True,
+                  first_bucket: bool = False) -> None:
     """Images with tag captions in ``folder``, the first half at the
     first of ENTRY_IMAGE_SIZES, the rest at the second: with ``mixed``
     (and n = 8) ENTRY_FILES, the JPEG and WebP fixtures copied and the
-    PNGs written here; else ``n`` seeded Paeth PNGs.  Each written PNG is
-    read back through the port's reader against its samples."""
+    PNGs written here; else ``n`` seeded Paeth PNGs; ``first_bucket``:
+    the first half alone (one global batch of 4 at 1024x1024, one step an
+    epoch).  Each written PNG is read back through the port's reader
+    against its samples."""
     import shutil
 
     from sdxl_training_improvements_tpu_torch.png import read_png
     rng = np.random.default_rng(SEED)
     folder.mkdir(parents=True)
-    for i in range(n):
+    for i in range(n // 2 if first_bucket else n):
         w, h = ENTRY_IMAGE_SIZES[2 * i // n]
         kind = ENTRY_FILES[i] if mixed else "paeth"
         path = folder / (_entry_name(i) if mixed else f"{i:02d}.png")
@@ -2440,10 +2426,7 @@ def phase_decode() -> dict:
     import hashlib
 
     from sdxl_training_improvements_tpu_torch import images
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _card(DEVICE)
     manifest = json.loads((IMAGE_FIXTURES / "manifest.json").read_text())
     mismatches = []
     counts = {}
@@ -2835,8 +2818,10 @@ def phase_entry_point() -> dict:
 # VAE encoder and the startup probe
 LORA_KERNELS = ("gn_silu_fwd", "gn_silu_bwd", "flash_fwd", "flash_bwd_dq",
                 "flash_bwd_dkv", "gn_silu_fwd_f32", "probe")
-LORA_EPOCHS = 2  # steps 1-2 meet each bucket shape first
-LORA_PROFILED = (3, 4)
+# over phase 11's first bucket, one step an epoch (its 8 images, steps
+# 3-4 profiled, until the script outgrew its time limit)
+LORA_EPOCHS = 2
+LORA_PROFILED = (2, 2)
 LORA_EMA_DECAY = 0.9999
 # seeded LoRA trees with up ~ N(0, std^2).  At 1e-3 (the scale of a
 # trained adapter's delta) the kernels are held against their plain
@@ -3065,12 +3050,12 @@ def phase_lora_ema() -> dict:
     t_phase = time.perf_counter()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_lora_"))
     try:
-        _entry_images(root / "images")
+        _entry_images(root / "images", first_bucket=True)
         log(f"phase 12a: {NOVELAI_YAML.name} with phase 11's cuts and "
             f"training.lora.enabled true (rank 4, alpha 1, dropout 0, the "
             f"default targets), training.ema_decay {LORA_EMA_DECAY}; "
             f"num_epochs {LORA_EPOCHS} (run A), 1 then {LORA_EPOCHS} "
-            f"(run B)")
+            f"(run B); phase 11's four 1024x1024 images")
         cfg_a = _lora_config(root, "lora_a", num_epochs=LORA_EPOCHS,
                              save_final_model=False)
         _zero_launches()
@@ -3088,7 +3073,7 @@ def phase_lora_ema() -> dict:
                 f"{s['loss']:.6f}; forward+backward {s['fwd_bwd_ms']:.2f}, "
                 f"clip {s['clip_ms']:.3f}, optimizer {s['opt_ms']:.3f} ms "
                 f"(CUDA events)")
-        n_steps = 2 * LORA_EPOCHS
+        n_steps = LORA_EPOCHS
         check(len(steps) == n_steps and trainer.state.step == n_steps,
               f"12a run A: {len(steps)} steps")
         check(all(np.isfinite(s["loss"]) for s in steps),
@@ -3503,15 +3488,18 @@ def _tiny_resumes() -> dict:
 # ------- phase 14: remat policies, optimizer layouts, host-streamed state
 LAYOUT_STEPS = 2  # the same at each optimizer layout
 # 14a's policies that also take a profiled train step (every policy takes
-# the gradient check): the default, the one that keeps the most, and the
-# one that keeps the least
-PROFILED_14A = ("full", "dots")
+# the gradient check): the default ("dots" too until the script outgrew
+# its time limit), its top kernels listed as profile_step lists them
+PROFILED_14A = ("full",)
+TOP_14A = 10
 # (layout, noise) of 14b: the default, its rbg twin and the three packings
 LAYOUTS_14B = (("per_leaf", "hash"), ("per_leaf", "rbg"), ("flat", "hash"),
                ("hybrid", "hash"), ("stacked", "hash"))
 V5E16_YAML = Path(__file__).resolve().parent / "configs" / \
     "v5e16_single_chip.yaml"
-HOST_EPOCHS = 2  # 14c run A: 4 steps over the two buckets
+# 14c run A: 2 steps over phase 11's first bucket (4 over both buckets
+# until the script outgrew its time limit)
+HOST_EPOCHS = 2
 HOST_KERNELS = TRAIN_KERNELS + ("gn_silu_fwd_f32", "probe")
 RBG_CHUNK = 1 << 25  # elements of a flat group's plain chain at a time
 STACK_CHECK_MAX = 1 << 26  # elements of the stack held against plain
@@ -3647,7 +3635,8 @@ def phase_remat_policies(model, cfg, batch) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
         after = _launches(TRAIN_KERNELS)
         check(np.isfinite(metrics["loss"].item()), f"14a {name} step loss")
-        idle = _log_profile(prof, f"phase 14a {name} step", wall_ms)
+        idle = _log_profile(prof, f"phase 14a {name} step", wall_ms,
+                            top=TOP_14A)
         row = rows[name]
         row.update(wall_ms=wall_ms, idle=idle,
                    device_ms=(1 - idle) * wall_ms,
@@ -3936,9 +3925,9 @@ def phase_host_state() -> dict:
     import shutil
     t_phase = time.perf_counter()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_host_"))
-    n_steps = 2 * HOST_EPOCHS
+    n_steps = HOST_EPOCHS
     try:
-        _entry_images(root / "images")
+        _entry_images(root / "images", first_bucket=True)
         log(f"phase 14c: config {V5E16_YAML.name} (ddpm, v-prediction, "
             "ZTSNR, adamw_bf16 with moments_8bit, shift_host and "
             "moments_host, bf16, micro-batch 1, bf16 gradient accumulator, "
@@ -3949,7 +3938,7 @@ def phase_host_state() -> dict:
             f"(seeded weights); num_epochs {HOST_EPOCHS} (run A), 1 then "
             f"{HOST_EPOCHS} (run B); save_every 0, save_best false and "
             "save_final_model false except run B's first part; phase 11's "
-            "8 images")
+            "four 1024x1024 images")
         no_saves = dict(save_every=0, save_best=False)
         cfg_a = _host_entry_config(root, "run_a", num_epochs=HOST_EPOCHS,
                                    save_final_model=False, **no_saves)
@@ -4059,7 +4048,10 @@ def phase_training_settings() -> dict:
 # the ranks of phase 15: the cards the machine shows, at most this many
 MULTI_MAX_RANKS = 4
 MULTI_TIMEOUT_S = 600  # a rank that has not finished by then fails it
-MULTI_EPOCHS = 2  # 15c run A; run B takes 1, saves, and resumes for 1
+# 15c run A over phase 11's first bucket, one step an epoch (both buckets
+# until the script outgrew its time limit); run B takes 1, saves, and
+# resumes for 1
+MULTI_EPOCHS = 2
 # JAX's bars for a world of more than one rank (tests/test_trainer.py)
 MULTI_LOSS_RTOL, MULTI_PARAM_ATOL = 2e-4, 2e-4
 
@@ -4408,8 +4400,10 @@ def _phase15b(model, start, ref, smi: str) -> dict:
     out = dict(dp=dp)
     # [1,W,1], and at W >= 4 [2,W/2,1] too, each rank storing its chunks;
     # at W >= 4 also [1,W,1] with the parameters whole (the optimizer
-    # state chunked), to hold the memory and the time against
-    meshes = [("zero", (1, world, 1), True)] + (
+    # state chunked), to hold the memory and the time against.  One card:
+    # [1,1,1] was just run (nothing chunks at fsdp = 1; both runs logged
+    # the same step until the script outgrew its time limit)
+    meshes = ([("zero", (1, world, 1), True)] if world > 1 else []) + (
         [("hybrid", (2, world // 2, 1), True),
          ("zero_whole_params", (1, world, 1), False)] if world >= 4 else [])
     for key, shape, store in meshes:
@@ -4645,13 +4639,10 @@ def phase_multi_card(record: dict, tmp: Path) -> dict:
                                                   MULTI_MAX_RANKS))
     work = tmp / "multi"
     work.mkdir()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = _card(DEVICE)
     (work / "smi.txt").write_text(smi)
     torch.save(record, work / "phase6.pt")
-    _entry_images(work / "images")
+    _entry_images(work / "images", first_bucket=True)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -4679,11 +4670,11 @@ def phase_multi_card(record: dict, tmp: Path) -> dict:
     ranks = [json.loads((work / f"rank{r}.json").read_text())
              for r in range(world)]
     for r in ranks:
-        for phase, m in (("15b", r["dp"]), ("15b", r["zero"]),
+        for phase, m in (("15b", r["dp"]), ("15b", r.get("zero")),
                          ("15b", r.get("hybrid")),
                          ("15b", r.get("zero_whole_params")),
                          ("16", r["tp"]["train"])):
-            if m is None:  # at W >= 4 only
+            if m is None:  # [1,W,1] at W >= 2, the others at W >= 4
                 continue
             log(f"phase {phase} rank {r['rank']} of {world} mesh "
                 f"{m['mesh']} (parameters stored as chunks: "
@@ -4700,6 +4691,115 @@ def phase_multi_card(record: dict, tmp: Path) -> dict:
     log(f"phases 15-16 wall time {time.perf_counter() - t0:.1f} s (ranks: "
         f"{[r['seconds'] for r in ranks]})")
     return ranks[0]
+
+
+# ------------------------------------------------- phase 17: the tools
+# depth cut for the script's time (100 and 20 in a first run): the full
+# curves, the study and finetune_demo's full-scale stage run on the card
+# through the tools themselves (README, PERF.md)
+TOOLS_PARITY_STEPS = 30  # of each 1000-step JAX curve
+TOOLS_STUDY_STEPS = 10  # a study arm
+STUDY_KERNELS = {"bf16": TRAIN_KERNELS, "int8": TRAIN_KERNELS,
+                 "fp32": F32_TRAIN_KERNELS}
+
+
+def _path_launches(names, fn):
+    """(fn's result, the launches of every kernel during it), each name
+    in ``names`` checked to have launched."""
+    _zero_launches()
+    result = fn()
+    torch.cuda.synchronize()
+    counts = _launches(KERNELS)
+    for k in names:
+        check(counts[k] > 0, f"{k} was not launched")
+    return result, counts
+
+
+def _sum_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_tools(ckpt: Path, tmp: Path) -> dict:
+    """Phase 17: the port's tools (``sdxl_training_improvements_tpu_torch/
+    tools``) on the card.  (17a) ``parity_check``: the first
+    ``TOOLS_PARITY_STEPS`` steps of both JAX curves (the committed
+    fixtures) through the kernels, at the north star's 1% bar; (17b)
+    ``study_int8_moments``: ``TOOLS_STUDY_STEPS`` steps of each arm,
+    finite, #7 launched in the bf16 and int8 arms; (17c)
+    ``verify_checkpoint`` on phase 10's checkpoint (passes) and on a copy
+    of its VAE with one key removed (fails).  Returns each part's
+    launches.
+    ``finetune_demo``'s full-scale stage (the 2.567B UNet + LoRA at 1024^2
+    with the reload through ``SDXLPipeline``) ran here at 2 steps in a
+    first run (18.1 s, phase 17 104.0 s of a 1235 s script) and now runs
+    through the tool alone."""
+    from sdxl_training_improvements_tpu_torch.models import weights as W
+    from sdxl_training_improvements_tpu_torch.models.unet import UNetConfig
+    from sdxl_training_improvements_tpu_torch.tools import parity_check as P
+    from sdxl_training_improvements_tpu_torch.tools import (
+        study_int8_moments as S)
+    from sdxl_training_improvements_tpu_torch.tools import (
+        verify_checkpoint as V)
+    t_phase = time.perf_counter()
+    paths = {}
+
+    # 17a: the loss curves against JAX's
+    t0 = time.perf_counter()
+    curves = {}
+
+    def parity():
+        for method, seed in P.CURVES:
+            curves[method] = P.run_port(TOOLS_PARITY_STEPS, seed,
+                                        method=method, device=DEVICE)
+    _, paths["parity curves (phase 17a)"] = _path_launches(
+        F32_TRAIN_KERNELS + ("probe",), parity)
+    for method, seed in P.CURVES:
+        ref = json.loads(P.fixture_path(method, seed).read_text())
+        cmp = P.compare_curves(ref["losses"][:TOOLS_PARITY_STEPS],
+                               curves[method])
+        log(f"17a {method} seed {seed}: {cmp['steps_compared']} steps, max "
+            f"rel {cmp['max_rel_divergence']:.3e} at step "
+            f"{cmp['argmax_step']}, mean {cmp['mean_rel_divergence']:.3e} "
+            f"(bar {P.TOL:g}); over the bar: {cmp['steps_over_tol']}")
+        check(cmp["within_1pct"], f"17a {method} curve missed the 1% bar")
+    log(f"17a {time.perf_counter() - t0:.1f} s")
+
+    # 17b: the int8-moment study's arms
+    t0 = time.perf_counter()
+    start = P.seeded_unet_state(UNetConfig.tiny(), 0)
+    arm_counts = []
+    for arm in S.ARMS:
+        (losses, _, sec), counts = _path_launches(
+            STUDY_KERNELS[arm],
+            lambda: S.run_arm(arm, TOOLS_STUDY_STEPS, DEVICE, start))
+        log(f"17b {arm}: {TOOLS_STUDY_STEPS} steps in {sec:.2f} s, losses "
+            f"{losses[0]:.5g} -> {losses[-1]:.5g}, #7 launches "
+            f"{counts['fused_adamw']}")
+        check(bool(np.isfinite(losses).all()), f"17b {arm} loss not finite")
+        arm_counts.append(counts)
+    paths["int8 study (phase 17b)"] = _sum_counts(*arm_counts)
+    log(f"17b {time.perf_counter() - t0:.1f} s")
+
+    # 17c: the checkpoint audit
+    t0 = time.perf_counter()
+    lines = []
+    rc = V.verify(ckpt, out=lines.append)
+    log(f"17c verify_checkpoint {ckpt.name}: rc {rc}; " + "; ".join(lines))
+    check(rc == 0, "17c verify_checkpoint failed on phase 10's checkpoint")
+    broken = tmp / "ckpt_missing_key"
+    state = W.load_safetensors_dir(ckpt / "vae")
+    dropped = sorted(state)[0]
+    del state[dropped]
+    W.save_safetensors(state, broken / "vae" /
+                       "diffusion_pytorch_model.safetensors")
+    del state
+    lines = []
+    rc = V.verify(broken, out=lines.append)
+    log(f"17c with {dropped} removed: rc {rc}; " + "; ".join(lines))
+    check(rc == 1, "17c verify_checkpoint passed a checkpoint missing a key")
+    log(f"17c {time.perf_counter() - t0:.1f} s")
+    log(f"phase 17 wall time {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 # operations per element of the elementwise kernels, on the fp32 units
@@ -4885,10 +4985,11 @@ def main() -> None:
     serving = phase_slice(model)
     elapsed("phase 5")
     record: dict = {"latents": serving.pop("latents")}  # for phase 16
-    with tempfile.TemporaryDirectory() as tmp:
-        rest = phase_rest_of_serving(model, Path(tmp))
-        entry_points = phase_serving_entry_points(model, Path(tmp))
-        elapsed("phases 10 and 13")
+    # phase 10's checkpoint stays for phase 17's audit
+    serve_tmp = tempfile.TemporaryDirectory()
+    rest = phase_rest_of_serving(model, Path(serve_tmp.name))
+    entry_points = phase_serving_entry_points(model, Path(serve_tmp.name))
+    elapsed("phases 10 and 13")
     profile_unet_step(model)
     train = phase_train(model, cfg, record=record)
     phase_train_parity(model, cfg)
@@ -4912,6 +5013,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         multi = phase_multi_card(record, Path(tmp))
     elapsed("phases 15-16")
+    with tempfile.TemporaryDirectory() as tmp:
+        tools = phase_tools(Path(serve_tmp.name) / "ckpt", Path(tmp))
+    serve_tmp.cleanup()
+    elapsed("phase 17")
     kernels["adamw_rbg"] = settings["checks"]["leaf"]
     kernels["adamw_rbg_errs"] = [settings["checks"][c]["err"]
                                  for c in ("leaf", "group")]
@@ -4936,14 +5041,15 @@ def main() -> None:
              "host-streamed state (phase 14c)":
                  settings["host"]["launches"],
              "mesh [W,1,1] (phase 15b, rank 0)": multi["dp"]["launches"],
-             "mesh [1,W,1] + shard_params (phase 15b, rank 0)":
-                 multi["zero"]["launches"],
+             **({"mesh [1,W,1] + shard_params (phase 15b, rank 0)":
+                 multi["zero"]["launches"]} if "zero" in multi else {}),
              "multi-rank entry point (phase 15c, rank 0)":
                  multi["entry"]["launches"],
              "mesh [1,1,W] serving (phase 16, rank 0)":
                  multi["tp"]["serve"]["launches"],
              "mesh [1,1,W] training (phase 16, rank 0)":
-                 multi["tp"]["train"]["launches"]}
+                 multi["tp"]["train"]["launches"],
+             **tools}
     log(json.dumps(kernel_report(kernels, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -152,7 +152,9 @@ class AspectBucketDataset:
     # ----------------------------------------------------------- precompute
     def precompute(self, encode_images: Callable, encode_prompts: Callable,
                    batch_size: int = 8, center_crop: bool = True,
-                   random_flip: bool = False, seed: int = 0) -> int:
+                   random_flip: bool = False, seed: int = 0,
+                   num_workers: Optional[int] = None,
+                   serial: bool = False) -> int:
         """Encode all uncached images through the supplied device functions.
 
         ``encode_images(pixels_f32_nchw) -> latents``;
@@ -171,6 +173,12 @@ class AspectBucketDataset:
         recorded on ``self.last_precompute_stats`` (the BASELINE
         "latent-cache imgs/sec" metric; reference logged rate/ETA at
         ``cache_manager.py:265-279``).
+
+        ``num_workers`` sets the decode threads (default min(16, CPUs)).
+        ``serial=True`` disables every overlap (one decode thread, no
+        read-ahead, writes drained after each chunk): the reference's
+        serial decode->encode->write loop, the A/B baseline of
+        ``tools/bench_precompute.py``.
         """
         if self.cache is None:
             raise ValueError("precompute requires a CacheManager")
@@ -230,9 +238,11 @@ class AspectBucketDataset:
         chunks = [idxs[s:s + batch_size]
                   for idxs in todo_by_bucket.values()
                   for s in range(0, len(idxs), batch_size)]
-        workers = min(16, (_os.cpu_count() or 4))
+        workers = num_workers or min(16, (_os.cpu_count() or 4))
         ahead = 2  # decode runs ahead of the device by up to 2 chunks
         max_pending_writes = 256  # backpressure: each future pins a chunk
+        if serial:
+            workers, ahead, max_pending_writes = 1, 0, 0
         t0 = _time.perf_counter()
         write_futures = []
 
@@ -240,7 +250,7 @@ class AspectBucketDataset:
             while len(write_futures) > limit:
                 write_futures.pop(0).result()
         with ThreadPoolExecutor(workers) as decode_pool, \
-                ThreadPoolExecutor(4) as write_pool:
+                ThreadPoolExecutor(1 if serial else 4) as write_pool:
             pending = collections.deque()
             for c, chunk in enumerate(chunks):
                 pending.append([decode_pool.submit(decode_one, i)

@@ -83,8 +83,9 @@ def test_seeded_noise_is_reproducible(pipelines):
 
 def test_port_imports_no_jax():
     """The port runs the tiny serving slice and one step of the tiny
-    training slice on the CPU, with every module of both imported, without
-    importing jax, yaml or the JAX package."""
+    training slice on the CPU, with every module of both and of the
+    ``tools`` subpackage imported, without importing jax, yaml, PIL or
+    the JAX package."""
     script = textwrap.dedent("""
         import sys, torch
         from sdxl_training_improvements_tpu_torch.config import Config
@@ -136,8 +137,17 @@ def test_port_imports_no_jax():
         delta = fused_adamw.fused_adamw_update(z, z.float(), z, z, z, 1e-3,
                                                0.0, 1, 2)[0]
         assert delta.dtype == torch.bfloat16
+        import importlib
+        import pkgutil
+        from sdxl_training_improvements_tpu_torch import tools
+        for info in pkgutil.iter_modules(tools.__path__):
+            importlib.import_module(f"{tools.__name__}.{info.name}")
+        assert {"parity_check", "finetune_demo", "study_int8_moments",
+                "bench_precompute", "verify_checkpoint",
+                "profile_step"} <= {i.name for i in
+                                    pkgutil.iter_modules(tools.__path__)}
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
-                     ("jax", "jaxlib", "flax", "yaml",
+                     ("jax", "jaxlib", "flax", "yaml", "PIL",
                       "sdxl_training_improvements_tpu"))
         assert not bad, bad
         print("ok")
