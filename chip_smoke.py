@@ -83,13 +83,15 @@ Phases, each printing what it found:
    and after the decode check: every committed JPEG and WebP fixture
    (``tests/fixtures/images``) decoded by the port's reader on the card's
    host, each result's sha256 (RGB and L) against Pillow's in the
-   fixtures' manifest, and the host ms per megapixel of baseline 4:2:0
-   and progressive JPEG at 1024^2 and of the two WebP entry files.
+   fixtures' manifest, and the host ms per megapixel of baseline 4:2:0,
+   progressive and arithmetic progressive JPEG at 1024^2, of lossless
+   JPEG at 1216x832 and of the two WebP entry files.
    ``main.main`` on ``configs/novelai_v3_1024.yaml`` as the
    port's YAML reader loads it (full SDXL-base width, seeded weights, the
    cuts logged) over 8 images in a temporary directory, 4 at 1024x1024
    and 4 at 1216x832: four committed JPEGs (baseline 4:2:0 with restart
-   markers, progressive 4:2:0, baseline 4:4:4, grayscale), two committed
+   markers, arithmetic-coded progressive 4:2:0, baseline 4:4:4, lossless
+   RGB), two committed
    WebPs (lossy with alpha at 1024x1024, lossless at 1216x832) and two
    PNGs written here (a palette PNG, an Adam7 PNG);
    run A (2 epochs, 4 steps: the cache's latent shapes, each
@@ -2265,12 +2267,16 @@ IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / \
     "images"
 # the phase's 8 files in index order (the first four at the first size):
 # a committed JPEG or WebP fixture, or how the script writes the PNG
-ENTRY_FILES = ("entry_baseline_420_rst.jpg", "entry_progressive_420.jpg",
-               "palette", "entry_lossy_alpha.webp", "entry_baseline_444.jpg",
-               "entry_gray.jpg", "adam7", "entry_lossless.webp")
-# the decode check's timed fixtures: baseline 4:2:0 and progressive 4:2:0
-# JPEG, lossy WebP with alpha (1024x1024) and lossless WebP (1216x832)
-DECODE_TIMED = ENTRY_FILES[:2] + ENTRY_FILES[3::4]
+ENTRY_FILES = ("entry_baseline_420_rst.jpg",
+               "entry_arith_progressive_420.jpg", "palette",
+               "entry_lossy_alpha.webp", "entry_baseline_444.jpg",
+               "entry_lossless.jpg", "adam7", "entry_lossless.webp")
+# the decode check's timed fixtures: baseline 4:2:0, progressive 4:2:0
+# (Huffman, and the same coefficients arithmetic-coded) JPEG and lossy
+# WebP with alpha (1024x1024); lossless JPEG and lossless WebP (1216x832)
+DECODE_TIMED = ("entry_baseline_420_rst.jpg", "entry_progressive_420.jpg",
+                "entry_arith_progressive_420.jpg", "entry_lossy_alpha.webp",
+                "entry_lossless.jpg", "entry_lossless.webp")
 ENTRY_CAPTIONS = ("masterpiece, best quality, 1girl, solo, smile",
                   "landscape, mountains, lake, sunset, scenery",
                   "1boy, armor, sword, castle, night",

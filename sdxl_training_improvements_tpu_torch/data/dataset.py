@@ -7,14 +7,15 @@ writes the latent cache, and training batches are pure cache reads
 ``data/pipeline.py``.  The differences from the JAX package:
 
 * images are read by ``images.py`` (the card's machine has no Pillow;
-  the JAX package decodes with PIL) to the bits Pillow gives: JPEG
-  (baseline and progressive), PNG and WebP (lossy, lossless, the first
-  frame of an animation).  An image's size comes from the cache's
-  metadata, or else from its header; a file of another format (GIF), a
-  JPEG frame the decoder does not read (arithmetic, 12-bit, lossless,
-  hierarchical) or a WebP container libwebp refuses raises there, naming
-  it.  A file that fails to decode in the precompute is skipped, as JAX
-  skips it;
+  the JAX package decodes with PIL) to the bits Pillow gives: JPEG (what
+  libjpeg-turbo reads: Huffman, arithmetic and lossless frames, damaged
+  streams), PNG and WebP (lossy, lossless, the first frame of an
+  animation).  An image's size comes from the cache's metadata, or else
+  from its header; a file of another format (GIF), a JPEG header Pillow
+  cannot identify (12-bit samples, say) or a WebP container libwebp
+  refuses raises there, naming it.  A file that fails to decode in the
+  precompute is skipped, as JAX skips it, and the log names the reader's
+  reason;
 * ``prepare_image_array`` takes the decoded uint8 RGB array and runs the
   native C++ path (``native/image_ops.cpp``, the JAX package's code) with
   no PIL fallback: a failed build raises;
@@ -224,7 +225,8 @@ class AspectBucketDataset:
             except (OSError, ValueError) as e:  # skipped, as JAX does
                 import logging
                 logging.getLogger(__name__).warning(
-                    "precompute: skipping %s: %s", self.image_paths[i], e)
+                    "precompute: skipping %s, which the image reader "
+                    "refuses: %s", self.image_paths[i], e)
                 return None
             finally:
                 self._stage_decode_s.append(_time.perf_counter() - t_dec)

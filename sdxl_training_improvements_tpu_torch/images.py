@@ -11,13 +11,19 @@ dataset's bucketing and precompute and for ``generate.py --init/--mask``:
   VP8L header).
 * The format is told by the file's leading bytes, as Pillow tells it,
   not by its extension.
-* JPEG: baseline, extended-sequential and progressive Huffman frames, 1,
-  3 or 4 components, decoded in C++ (``native/jpeg_decode.cpp``) to
-  Pillow's bits.  Refused, raising ``ValueError`` naming the file and
-  the reason: arithmetic coding, 12-bit, lossless and hierarchical
-  frames, a height set by a DNL marker, progressive scans that leave
-  low coefficients unrefined, and truncated or corrupt streams.  Pillow
-  decodes arithmetic-coded and some damaged files that the port refuses.
+* JPEG: what Pillow's libjpeg-turbo reads, decoded in C++
+  (``native/jpeg_decode.cpp``) to Pillow's bits: baseline,
+  extended-sequential and progressive frames, Huffman or arithmetic
+  coded, and lossless frames (SOF3), with 1, 3 or 4 components; a
+  progressive file cut short is block-smoothed, and a damaged stream is
+  recovered from as libjpeg recovers (a bad Huffman code, a segment that
+  runs out, a wrong restart marker, stray bytes).  The size comes from
+  the headers as Pillow's own parser reads them.  What Pillow refuses is
+  refused, raising ``ValueError`` naming the file and the reason: samples
+  other than 8 bits, hierarchical and arithmetic-lossless frames, a
+  height set by a DNL marker, lossless YCbCr, truncated streams, an
+  arithmetic-coded scan past Pillow's first 64 KiB read, and an MPO
+  index with fewer entries than its image count.
 * PNG: every color type and bit depth, Adam7 included (``png.py``).
 * WebP: lossy (VP8, with or without an ALPH chunk) and lossless (VP8L)
   frames, still or the first frame of an animation, decoded in C++
@@ -43,16 +49,12 @@ import numpy as np
 
 from sdxl_training_improvements_tpu_torch import native, png
 
-# JPEG frame markers: the three the decoder reads, and what the others are
-_JPEG_FRAMES = {0xC0, 0xC1, 0xC2}
-_JPEG_REFUSED = {0xC3: "lossless", 0xC5: "hierarchical",
-                 0xC6: "hierarchical", 0xC7: "hierarchical",
-                 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded",
-                 0xCB: "arithmetic-coded", 0xCD: "hierarchical "
-                 "arithmetic-coded", 0xCE: "hierarchical arithmetic-coded",
-                 0xCF: "hierarchical arithmetic-coded"}
-# markers without a length field
-_JPEG_BARE = {0x01, *range(0xD0, 0xD9)}
+# the markers Pillow's JPEG parser knows (``JpegImagePlugin.MARKER``):
+# frame headers, segments it steps over, and markers without a length
+_JPEG_SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB,
+             0xCD, 0xCE, 0xCF, 0xDE}
+_JPEG_SKIP = {0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF}
+_JPEG_BARE = {0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE)}
 
 
 def _format(path, head: bytes) -> str:
@@ -74,44 +76,164 @@ def _format(path, head: bytes) -> str:
                      "images only)")
 
 
+def _jpeg_app(m: int, seg: bytes, icc: list, fail) -> None:
+    """The checks Pillow's APP handler makes of an APPn segment (what it
+    parses and the exceptions that make the file unidentified)."""
+    if (m == 0xE0 and seg.startswith(b"JFIF")) or (
+            m == 0xEE and seg.startswith(b"Adobe")):
+        if len(seg) < 7:
+            fail("corrupt data (a short JFIF or Adobe segment)")
+    elif m == 0xE2 and seg.startswith(b"ICC_PROFILE\0"):
+        icc.append(seg)
+    elif m == 0xED and seg.startswith(b"Photoshop 3.0\x00"):
+        off = 14  # its image resource blocks, read until one is short
+        while seg[off:off + 4] == b"8BIM":
+            off += 4
+            if off + 2 > len(seg):
+                return
+            code = struct.unpack(">H", seg[off:off + 2])[0]
+            off += 2
+            if off >= len(seg):
+                fail("corrupt data (a short Photoshop resource)")
+            off += 1 + seg[off]
+            off += off & 1
+            if off + 4 > len(seg):
+                return
+            n = struct.unpack(">I", seg[off:off + 4])[0]
+            off += 4
+            if code == 0x03ED and len(seg[off:off + n]) < 14:
+                return  # a short ResolutionInfo ends the parse
+            off += n
+            off += off & 1
+
+
+# TIFF (for an MPF segment's directory, as Pillow's ``ImageFileDirectory_v2``
+# reads it): the headers it takes for a classic TIFF, the size of a value
+# of each type it loads, and the types whose first value it gives as an int
+_TIFF_HEADS = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
+               b"MM\x00\x2b")
+_TIFF_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
+               11: 4, 12: 8, 13: 4, 16: 8}
+_TIFF_INTS = {3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 13: "L", 16: "Q"}
+
+
+def _mpf_entries_short(mp: bytes) -> bool:
+    """Whether Pillow's MPO check of an MPF segment (``mp``, its payload
+    past "MPF\\0"; ``JpegImagePlugin._getmp``) stops on an MP entry table
+    shorter than the image count, before any entry of a format other than
+    JPEG: a ``struct.error``, which leaves the file unidentified.  Every
+    other fault of the segment makes Pillow read the file as a JPEG."""
+    if len(mp) < 8 or mp[:4] not in _TIFF_HEADS:
+        return False
+    e = ">" if mp[:2] == b"MM" else "<"
+    off = struct.unpack(e + "L", mp[4:8])[0]
+    tags = {}  # the directory's tags up to its end or a short read
+    if off + 2 <= len(mp):
+        pos = off + 2
+        for _ in range(struct.unpack_from(e + "H", mp, off)[0]):
+            if pos + 12 > len(mp):
+                break
+            tag, typ, count = struct.unpack_from(e + "HHL", mp, pos)
+            data = mp[pos + 8:pos + 12]
+            pos += 12
+            if typ not in _TIFF_SIZES:
+                continue
+            size = count * _TIFF_SIZES[typ]
+            if size > 4:
+                at = struct.unpack(e + "L", data)[0]
+                if at + size > len(mp):
+                    break
+                data = mp[at:at + size]
+            if size:
+                tags[tag] = typ, data[:size]
+    if 0xB001 not in tags or tags[0xB001][0] not in _TIFF_INTS:
+        return False
+    typ, data = tags[0xB001]
+    n = struct.unpack_from(e + _TIFF_INTS[typ], data)[0]
+    if n <= 0 or tags.get(0xB002, (0,))[0] not in (1, 7):
+        return False
+    entries = tags[0xB002][1]
+    e = ">" if mp[:4] == b"MM\x00\x2a" else "<"  # _getmp's own byte order
+    for k in range(n):
+        if len(entries) < 16 * k + 16:
+            return True
+        if struct.unpack_from(e + "L", entries, 16 * k)[0] >> 24 & 7:
+            return False
+    return False
+
+
 def _jpeg_size(path, f) -> tuple:
-    """(width, height) from the frame header of the JPEG read from ``f``
-    (just past its SOI); frames the decoder does not read raise."""
+    """(width, height) as Pillow's JPEG parser (``JpegImageFile._open``)
+    reads them from ``f`` (just past the SOI): the markers up to the first
+    SOS, the size from the last frame header among them, and the MPO
+    index that ``Image.open`` reads after them (``jpeg_factory``).  What that
+    parser refuses raises; what it accepts is the decoder's to judge (a
+    hierarchical frame, for one, has a size but no pixels)."""
+    def fail(why: str):
+        raise ValueError(f"{path}: {why} (Pillow cannot identify the file)")
+
     def read(n: int) -> bytes:
         b = f.read(n)
         if len(b) < n:
-            raise ValueError(f"{path}: truncated file (no frame header)")
+            fail("truncated file (no frame header)")
         return b
+
+    def segment() -> bytes:
+        n = struct.unpack(">H", read(2))[0] - 2
+        return read(n) if n > 0 else b""
+
+    size, icc, mpf = None, [], None
+    s = read(1)
     while True:
-        if read(1) != b"\xff":
-            continue  # bytes that are not a marker are skipped
+        if s[0] != 0xFF:  # bytes that are not a marker are skipped
+            s = read(1)
+            continue
         m = read(1)[0]
-        while m == 0xFF:
-            m = read(1)[0]
-        if m == 0 or m in _JPEG_BARE:
+        if m == 0xFF:
+            s = b"\xff"
             continue
-        if m in (0xDA, 0xD9):
-            raise ValueError(f"{path}: corrupt data (no frame header)")
-        (n,) = struct.unpack(">H", read(2))
-        if n < 2:
-            raise ValueError(f"{path}: corrupt data (bad marker length)")
-        if m in _JPEG_REFUSED:
-            raise ValueError(f"{path}: {_JPEG_REFUSED[m]} JPEG (not "
-                             "supported)")
-        if m not in _JPEG_FRAMES:
-            read(n - 2)
+        if m == 0:
+            s = read(1)
             continue
-        precision, h, w, comps = struct.unpack(">BHHB", read(6))
-        if precision != 8:
-            raise ValueError(f"{path}: {precision}-bit samples (only "
-                             "8-bit JPEGs are read)")
-        if h == 0:
-            raise ValueError(f"{path}: the height is set by a DNL marker "
-                             "(not supported)")
-        if comps not in (1, 3, 4):
-            raise ValueError(f"{path}: cannot handle {comps}-component "
-                             "images")
-        return w, h
+        if m in _JPEG_SOF:
+            seg = segment()
+            if len(seg) < 6 or (len(seg) - 6) % 3:
+                fail("corrupt data (bad frame header)")
+            if seg[0] != 8:
+                fail(f"{seg[0]}-bit samples (only 8-bit JPEGs are read)")
+            if seg[5] not in (1, 3, 4):
+                fail(f"cannot handle {seg[5]}-component images")
+            if icc and len(sorted(icc)[0]) < 14:
+                fail("corrupt data (a short ICC profile chunk)")
+            icc = []
+            size = struct.unpack(">H", seg[3:5])[0], struct.unpack(
+                ">H", seg[1:3])[0]
+        elif m == 0xDB:
+            seg = segment()
+            while seg:
+                n = 1 + (64 if seg[0] < 16 else 128)
+                if len(seg) < n:
+                    fail("corrupt data (bad quantization table marker)")
+                seg = seg[n:]
+        elif 0xE0 <= m <= 0xEF:
+            seg = segment()
+            if m == 0xE2 and seg.startswith(b"MPF\0"):
+                mpf = seg[4:]
+            _jpeg_app(m, seg, icc, fail)
+        elif m == 0xFE or m in _JPEG_SKIP:
+            segment()
+        elif m not in _JPEG_BARE:
+            fail(f"no marker found (0xFF{m:02X})")
+        if m == 0xDA:
+            break
+        s = read(1)
+    if size is None or not size[0] or not size[1]:
+        fail("no frame header" if size is None else
+             "an empty image (its height set by a DNL marker)")
+    if mpf is not None and _mpf_entries_short(mpf):
+        fail("a malformed MPO index (fewer MP entries than its image "
+             "count)")
+    return size
 
 
 # WebP (libwebp's demux.c): the largest chunk payload, the VP8X flags

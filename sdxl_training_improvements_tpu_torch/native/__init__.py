@@ -4,9 +4,10 @@
 float32 CHW in OpenMP-parallel C++ (``image_ops.cpp``, the JAX package's
 arithmetic, so both packages prepare an image to the same bits);
 ``png_unfilter`` undoes the PNG row filters for ``png.read_png``;
-``jpeg_decode`` decodes a JPEG as Pillow does (``jpeg_decode.cpp``, a
-library of its own, built without OpenMP: the precompute decodes one
-image a thread); ``webp_decode`` decodes one WebP frame as Pillow's
+``jpeg_decode`` decodes a JPEG as Pillow's libjpeg-turbo does
+(``jpeg_decode.cpp``: Huffman, arithmetic and lossless frames, damaged
+streams recovered from, block smoothing; a library of its own, built
+without OpenMP: the precompute decodes one image a thread); ``webp_decode`` decodes one WebP frame as Pillow's
 libwebp does (``webp_decode.cpp``, built the same way).
 
 Each library is compiled into the package's ``_build/`` directory, named

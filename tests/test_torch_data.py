@@ -7,7 +7,7 @@
 * ``png.read_png`` equals Pillow on Pillow-written files; the C++ row
   unfilter (``native.png_unfilter``) is byte-equal to the plain Python
   one (``png._unfilter``) on each of the five filters and on Pillow's
-  adaptive files; a truncated WebP, an arithmetic-coded JPEG and a GIF
+  adaptive files; a truncated WebP, a 12-bit arithmetic JPEG and a GIF
   raise, naming the file.
 * ``prepare_image_array`` is bit-equal to JAX's (both run the same C++),
   with the center and the random crop and with the flip; the precompute
@@ -226,14 +226,16 @@ def test_native_unfilter_matches_plain_on_pillow_files(tmp_path):
 
 
 def _unread_image(path, kind: str) -> None:
-    """A file at ``path`` the port does not read: a GIF that Pillow
-    writes, Pillow's WebP cut short of its RIFF size, or Pillow's
-    baseline JPEG with its frame marker made SOF9 (arithmetic coding)."""
+    """A file at ``path`` the port does not read (nor Pillow): a GIF
+    that Pillow writes, Pillow's WebP cut short of its RIFF size, or
+    Pillow's baseline JPEG with its frame header made SOF9 (arithmetic
+    coding) of 12-bit samples, which Pillow does not identify."""
     img = Image.fromarray(np.zeros((8, 8, 3), np.uint8))
     if kind == "arithmetic":
         img.save(path, "JPEG")
         blob = path.read_bytes()
-        path.write_bytes(blob.replace(b"\xff\xc0", b"\xff\xc9", 1))
+        path.write_bytes(blob.replace(b"\xff\xc0\x00\x11\x08",
+                                      b"\xff\xc9\x00\x11\x0c", 1))
     else:
         img.save(path, kind.upper())
     if kind == "webp":
@@ -245,9 +247,9 @@ def _unread_image(path, kind: str) -> None:
     ("photo.webp", "webp"), ("photo.jpg", "arithmetic"),
     ("photo.jpeg", "gif")])
 def test_non_png_image_raises_naming_it(tmp_path, name, kind):
-    """A truncated WebP, an arithmetic-coded JPEG and a GIF (under a JPEG
-    name: the format is told by the bytes) raise naming the file, in the
-    size reader and in ``create_dataset``."""
+    """A truncated WebP, a 12-bit arithmetic-coded JPEG and a GIF (under
+    a JPEG name: the format is told by the bytes) raise naming the file,
+    in the size reader and in ``create_dataset``."""
     path = tmp_path / name
     _unread_image(path, kind)
     with pytest.raises(ValueError, match=name):

@@ -187,24 +187,37 @@ def test_jpeg_sequential_scan_takes_the_standard_tables(tmp_path):
 
 
 def test_jpeg_frames_refused_by_name(tmp_path):
-    """Arithmetic coding, 12-bit samples, lossless and a DNL height raise
-    naming the file and the reason, from the header and the decoder."""
+    """12-bit samples and a DNL height raise naming the file and the
+    reason, from the header and the decoder.  A baseline stream under an
+    arithmetic (SOF9) or lossless (SOF3) frame marker is what Pillow makes
+    of it: the arithmetic decoder reads its bytes as arithmetic-coded data
+    (garbage that Pillow decodes too); the lossless file is refused (a
+    JFIF file is YCbCr, whose colors libjpeg-turbo does not convert in a
+    lossless frame), with the frame's size from the header."""
     src = tmp_path / "src.jpg"
     Image.fromarray(_pixels(16, 8, 3, 4)).save(src, "JPEG")
     blob = src.read_bytes()
     sof = blob.index(b"\xff\xc0")
     cases = {
-        "arithmetic-coded": blob[:sof + 1] + b"\xc9" + blob[sof + 2:],
-        "lossless": blob[:sof + 1] + b"\xc3" + blob[sof + 2:],
         "12-bit": blob[:sof + 4] + b"\x0c" + blob[sof + 5:],
         "DNL": blob[:sof + 5] + b"\x00\x00" + blob[sof + 7:],
     }
     for reason, data in cases.items():
         path = tmp_path / f"{reason}.jpg"
         path.write_bytes(data)
+        assert _pillow_refuses(path)
         for read in (images.read_image_size, images.read_rgb):
             with pytest.raises(ValueError, match=reason):
                 read(path)
+    arith = tmp_path / "arithmetic-coded.jpg"
+    arith.write_bytes(blob[:sof + 1] + b"\xc9" + blob[sof + 2:])
+    _assert_reads_as_pillow(arith)
+    lossless = tmp_path / "lossless.jpg"
+    lossless.write_bytes(blob[:sof + 1] + b"\xc3" + blob[sof + 2:])
+    assert _pillow_refuses(lossless)
+    assert images.read_image_size(lossless) == (16, 8)
+    with pytest.raises(ValueError, match="lossless.jpg: .*lossless"):
+        images.read_rgb(lossless)
 
 
 # ------------------------------------------------------------------ PNG

@@ -1,7 +1,7 @@
 """Write the JPEG and WebP fixtures of ``tests/fixtures/images/`` and their
 manifest.
 
-    python tools/make_image_fixtures.py   # needs Pillow (not the card's machine)
+    python tools/make_image_fixtures.py   # Pillow, gcc, libjpeg (not the card)
 
 * ``entry_*.jpg``: the four JPEGs of ``chip_smoke.py``'s phase 11, at
   its bucket sizes (1024x1024 and 1216x832) with smooth content:
@@ -13,6 +13,18 @@ manifest.
   what Pillow's encoder cannot: any sampling factors, one scan per
   component, the Adobe marker's RGB and YCCK transforms, a grayscale
   component sampled 2x2.
+* ``a_*.jpg``, ``l_*.jpg``, ``t_*.jpg``, ``d_*.jpg`` and the phase 11
+  entries ``entry_arith_progressive_420.jpg`` (1024x1024) and
+  ``entry_lossless.jpg`` (1216x832, posterized to steps of 8): what
+  libjpeg-turbo reads beyond Huffman frames.  Arithmetic files are
+  Pillow's re-coded by libjpeg-turbo's own encoder (``transcode``: a C
+  transcoder built by gcc against the system's libjpeg), each decoding
+  as its Huffman source; lossless ones come from ``encode_lossless``
+  (predictors 1-7, point transform, restarts, 1 and 3 components,
+  4:2:0, one scan a component), each equal to its source at Pt 0;
+  ``t_*`` are progressive files cut after some scans (block
+  smoothing); ``d_*`` damaged streams libjpeg decodes with a warning (a
+  bad Huffman code, a wrong RST, stray bytes, a segment cut short).
 * ``entry_*.webp``: the two WebPs of phase 11: lossy with alpha at
   1024x1024 and lossless at 1216x832 (its content posterized to steps of
   8, which keeps it small).
@@ -31,18 +43,23 @@ manifest.
   bitstreams.
 * ``manifest.json``: each file's size and the sha256 of Pillow's
   ``convert("RGB")`` and ``convert("L")`` bytes, with Pillow's,
-  libjpeg-turbo's and libwebp's versions.
+  libjpeg-turbo's and libwebp's versions; for an arithmetic or lossless
+  file, the sha256 of its source's RGB too (``source_rgb_sha256``).
   ``tests/test_torch_image_decode.py`` (JPEG) and
   ``tests/test_torch_webp.py`` hold it equal to Pillow's decode of the
   committed bytes and to the port's; ``chip_smoke.py`` holds the port's
   decode on the card's host to it.
 """
+import atexit
 import ctypes
+import functools
 import hashlib
 import io
 import json
 import math
 import struct
+import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -220,6 +237,267 @@ def encode_baseline(planes, factors, ids=None, quality_table=None,
     return out + b"\xff\xd9"
 
 
+def huffman_bits(freq: dict) -> tuple:
+    """(bits[1..16], symbols) of the optimal JPEG Huffman table for the
+    symbol counts ``freq`` (Annex K.2 and K.3, as libjpeg's
+    ``jpeg_gen_optimal_table`` builds it: a reserved symbol keeps any code
+    from being all ones, lengths are cut to 16 bits)."""
+    f = {s: c for s, c in freq.items() if c}
+    f[256] = 1
+    size = {s: 0 for s in f}
+    other = {s: None for s in f}
+    while True:
+        live = sorted((c, -s) for s, c in f.items() if c)
+        if len(live) < 2:
+            break
+        c1, c2 = -live[0][1], -live[1][1]
+        f[c1] += f[c2]
+        f[c2] = 0
+        s = c1
+        size[s] += 1
+        while other[s] is not None:
+            s = other[s]
+            size[s] += 1
+        other[s] = c2
+        s = c2
+        size[s] += 1
+        while other[s] is not None:
+            s = other[s]
+            size[s] += 1
+    bits = [0] * 33
+    for s, n in size.items():
+        bits[n] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # the reserved symbol's code
+    syms = sorted((n, s) for s, n in size.items() if s != 256)
+    return bits[1:17], [s for _, s in syms]
+
+
+def _codes(bits, syms) -> dict:
+    """symbol -> (code, length) of the canonical table ``bits``."""
+    out, code, k = {}, 0, 0
+    for n in range(1, 17):
+        for _ in range(bits[n - 1]):
+            out[syms[k]] = (code, n)
+            code += 1
+            k += 1
+        code <<= 1
+    return out
+
+
+def _predict(x: np.ndarray, predictor: int, pt: int, first) -> np.ndarray:
+    """The lossless predictions of the samples ``x`` (already shifted by
+    the point transform): the first row of the scan and of each restart
+    interval (the rows in ``first``) from the left neighbour (the first
+    sample from 1 << (7 - pt)), other rows' first samples from above."""
+    ra = np.zeros_like(x)
+    ra[:, 1:] = x[:, :-1]
+    rb = np.zeros_like(x)
+    rb[1:] = x[:-1]
+    rc = np.zeros_like(x)
+    rc[1:, 1:] = x[:-1, :-1]
+    pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+            rb + ((ra - rc) >> 1), (ra + rb) >> 1)[predictor - 1].copy()
+    pred[:, 0] = rb[:, 0]
+    for y in first:
+        pred[y] = ra[y]
+        pred[y, 0] = 1 << (7 - pt)
+    return pred
+
+
+def _category(d: np.ndarray) -> np.ndarray:
+    """The difference categories (SSSS) of ``d``: its bit length, and 16
+    for -32768 (32768 mod 2^16)."""
+    cat = np.ceil(np.log2(np.abs(d) + 1)).astype(np.int64)
+    return np.where(d == -32768, 16, cat)
+
+
+def _bitstream(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """The fields ``values`` of ``lengths`` bits, MSB first, the last
+    byte padded with 1-bits, 0xFF bytes stuffed."""
+    n = int(lengths.sum())
+    ends = np.cumsum(lengths)
+    owner = np.repeat(np.arange(len(lengths)), lengths)
+    shift = ends[owner] - 1 - np.arange(n)
+    bits = (values[owner] >> shift) & 1
+    bits = np.concatenate([bits, np.ones(-n % 8, np.int64)])
+    out = np.packbits(bits.astype(np.uint8)).tobytes()
+    return out.replace(b"\xff", b"\xff\x00")
+
+
+def encode_lossless(planes, factors, predictor=1, pt=0, restart_rows=0,
+                    interleaved=True, jfif=False, width=None,
+                    height=None) -> bytes:
+    """A lossless JPEG (SOF3) of ``planes`` (each component's 8-bit
+    samples at its sampled size) with sampling ``factors``: selection
+    value ``predictor`` (1-7), point transform ``pt``, a restart marker
+    every ``restart_rows`` MCU rows, one interleaved scan or one scan a
+    component, no JFIF marker unless ``jfif`` (libjpeg then takes three
+    components for RGB), component ids 1..n.  One optimal Huffman table
+    codes every difference category."""
+    n = len(planes)
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    mcux, mcuy = -(-width // hmax), -(-height // vmax)
+    scans = [list(range(n))] if interleaved and n > 1 else [
+        [i] for i in range(n)]
+    coded = []  # per scan: its components, the differences in scan
+    for comps in scans:  # order, and the MCUs of a restart interval
+        single = len(comps) == 1
+        cols = []
+        for i in comps:
+            x = planes[i].astype(np.int64) >> pt
+            ch, cw = x.shape
+            fh, fv = (1, 1) if single else factors[i]
+            rows = ch if single else mcuy * fv
+            step = restart_rows * fv if restart_rows else rows
+            d = (x - _predict(x, predictor, pt, range(0, ch, step))) & 0xFFFF
+            d = np.where(d >= 32768, d - 65536, d)
+            full = np.zeros((rows, cw if single else mcux * fh), np.int64)
+            full[:ch, :cw] = d  # the MCUs' dummy samples code 0
+            # [MCU row, MCU column, the component's samples in the MCU]
+            cols.append(full.reshape(rows // fv, fv, -1, fh)
+                        .transpose(0, 2, 1, 3).reshape(rows // fv, -1,
+                                                       fv * fh))
+        diffs = np.concatenate(cols, -1)
+        per_row = diffs.shape[1]
+        coded.append((comps, diffs.reshape(-1), restart_rows * per_row,
+                      diffs.shape[2]))
+    bits, syms = huffman_bits(dict(zip(*np.unique(
+        _category(np.concatenate([c[1] for c in coded])),
+        return_counts=True))))
+    code = _codes(bits, syms)
+    table = np.zeros((17, 2), np.int64)
+    for k, (c, l) in code.items():
+        table[k] = c, l
+    out = b"\xff\xd8"
+    if jfif:
+        out += _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    out += _segment(0xC3, struct.pack(">BHHB", 8, height, width, n) + b"".join(
+        bytes([i + 1, (factors[i][0] << 4) | factors[i][1], 0])
+        for i in range(n)))
+    out += _segment(0xC4, bytes([0x00] + bits + [int(x) for x in syms]))
+    for comps, d, interval, per_mcu in coded:
+        if interval:
+            out += _segment(0xDD, struct.pack(">H", interval))
+        out += _segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([i + 1, 0x00]) for i in comps) + bytes([predictor, 0, pt]))
+        cat = _category(d)
+        extra = np.where(d >= 0, d, d + (1 << cat) - 1)
+        extra_len = np.where(cat == 16, 0, cat)
+        vals = np.stack([table[cat, 0], extra], 1).reshape(-1)
+        lens = np.stack([table[cat, 1], extra_len], 1).reshape(-1)
+        seg = (interval or len(d) // per_mcu) * per_mcu * 2
+        for k, start in enumerate(range(0, len(vals), seg)):
+            if k:
+                out += bytes([0xFF, 0xD0 + (k - 1) % 8])
+            out += _bitstream(vals[start:start + seg], lens[start:start + seg])
+    return out + b"\xff\xd9"
+
+
+# a JPEG transcoder (coefficients kept, re-coded arithmetic), built
+# against the system's libjpeg: libjpeg-turbo's own encoder is the one
+# that writes arithmetic-coded files
+_TRANSCODER = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <jpeglib.h>
+int main(int argc, char** argv) {  /* prog restart_rows L U K */
+  struct jpeg_decompress_struct d; struct jpeg_compress_struct c;
+  struct jpeg_error_mgr e1, e2;
+  d.err = jpeg_std_error(&e1); jpeg_create_decompress(&d);
+  jpeg_stdio_src(&d, stdin); jpeg_read_header(&d, TRUE);
+  jvirt_barray_ptr* coef = jpeg_read_coefficients(&d);
+  c.err = jpeg_std_error(&e2); jpeg_create_compress(&c);
+  jpeg_stdio_dest(&c, stdout);
+  jpeg_copy_critical_parameters(&d, &c);
+  c.arith_code = TRUE;
+  if (atoi(argv[1])) jpeg_simple_progression(&c);
+  c.restart_in_rows = atoi(argv[2]);
+  for (int i = 0; i < NUM_ARITH_TBLS; i++) {
+    c.arith_dc_L[i] = atoi(argv[3]); c.arith_dc_U[i] = atoi(argv[4]);
+    c.arith_ac_K[i] = atoi(argv[5]);
+  }
+  jpeg_write_coefficients(&c, coef);
+  jpeg_finish_compress(&c); jpeg_finish_decompress(&d);
+  return 0;
+}
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def _transcoder() -> str:
+    d = tempfile.TemporaryDirectory(prefix="jpeg_transcoder_")
+    atexit.register(d.cleanup)
+    src, exe = Path(d.name) / "transcode.c", Path(d.name) / "transcode"
+    src.write_text(_TRANSCODER)
+    subprocess.run(["gcc", "-O2", str(src), "-o", str(exe), "-ljpeg"],
+                   check=True, capture_output=True)
+    return str(exe)
+
+
+def transcode(blob: bytes, progressive: bool = False, restart_rows: int = 0,
+              dac=(0, 1, 5)) -> bytes:
+    """The JPEG ``blob`` with its coefficients re-coded arithmetic (SOF9,
+    or SOF10 with libjpeg's standard progression), a restart marker every
+    ``restart_rows`` MCU rows, the DAC conditioning ``dac`` (L, U, K) for
+    every table."""
+    return subprocess.run(
+        [_transcoder(), str(int(progressive)),
+         str(restart_rows), *map(str, dac)],
+        input=blob, check=True, capture_output=True).stdout
+
+
+def without_segments(blob: bytes, marker: int) -> bytes:
+    """``blob`` with every segment of ``marker`` before the first scan's
+    data and between scans removed (a DAC, say)."""
+    out, i = bytearray(blob[:2]), 2
+    while i < len(blob):
+        if blob[i] == 0xFF and blob[i + 1] not in (0, 0xFF, *range(0xD0,
+                                                                  0xDA)):
+            n = struct.unpack(">H", blob[i + 2:i + 4])[0]
+            if blob[i + 1] != marker:
+                out += blob[i:i + 2 + n]
+            i += 2 + n
+            if blob[i - 2 - n + 1] == 0xDA:  # copy the scan's data
+                j = i
+                while not (blob[j] == 0xFF and blob[j + 1] not in (
+                        0, *range(0xD0, 0xD8))):
+                    j += 1
+                out += blob[i:j]
+                i = j
+        else:
+            out.append(blob[i])
+            i += 1
+    return bytes(out)
+
+
+def scan_starts(blob: bytes) -> list:
+    """The offsets of the SOS markers of ``blob``."""
+    out, i = [], blob.index(b"\xff\xda")
+    while i >= 0:
+        out.append(i)
+        i = blob.find(b"\xff\xda", i + 2)
+    return out
+
+
+def cut_after_scans(blob: bytes, k: int) -> bytes:
+    """A progressive ``blob`` whose scans after the first ``k`` are cut
+    off, EOI put back: the refinement a download cut short leaves out."""
+    return blob[:scan_starts(blob)[k]] + b"\xff\xd9"
+
+
 def _sampled(img: np.ndarray, factors) -> list:
     """Each channel of ``img`` box-averaged to its component's size."""
     h, w = img.shape[:2]
@@ -288,6 +566,114 @@ def fixtures() -> dict:
         img = noisy(w, h, len(factors))
         out[name] = encode_baseline(_sampled(img, factors), factors,
                                     width=w, height=h, **kw)
+    out.update(libjpeg_fixtures())
+    return out
+
+
+def _digest(rgb: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()
+
+
+def _rgb_of(blob: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
+
+
+# name -> the sha256 of what the file must decode to besides Pillow's
+# decode of its own bytes: an arithmetic file's Huffman source as Pillow
+# decodes it, a lossless file's source samples at Pt 0
+SOURCES = {}
+
+
+def libjpeg_fixtures() -> dict:
+    """The JPEGs that libjpeg-turbo reads beyond baseline and progressive
+    Huffman frames: arithmetic coding, lossless frames, progressive files
+    cut short (block smoothing) and damaged streams it recovers from."""
+    out = {}
+    rng = np.random.default_rng(21)
+
+    def noisy(w, h, c):
+        return np.clip(smooth(w, h, c, int(rng.integers(1 << 30))).astype(int)
+                       + rng.integers(-40, 41, (h, w, c)), 0, 255
+                       ).astype(np.uint8)
+
+    (w0, h0), (w1, h1) = ENTRY_SIZES
+    # arithmetic coding: libjpeg-turbo's encoder re-codes Pillow's files
+    # (coefficients kept, so each decodes as its Huffman source)
+    arith = {  # name: (source, transcode options)
+        "a_seq_420_rst.jpg": (_pillow(noisy(45, 29, 3), "RGB", quality=90,
+                                      subsampling=2), dict(restart_rows=1)),
+        "a_seq_444_dac.jpg": (_pillow(noisy(33, 17, 3), "RGB", quality=75,
+                                      subsampling=0), dict(dac=(2, 6, 12))),
+        "a_seq_gray.jpg": (_pillow(noisy(17, 9, 1)[..., 0], "L",
+                                   quality=95), {}),
+        "a_prog_420.jpg": (_pillow(noisy(45, 29, 3), "RGB", quality=90,
+                                   subsampling=2), dict(progressive=True)),
+        "a_prog_gray_rst.jpg": (_pillow(noisy(40, 24, 1)[..., 0], "L",
+                                        quality=85),
+                                dict(progressive=True, restart_rows=1)),
+        "entry_arith_progressive_420.jpg": (out_entry := _pillow(
+            smooth(w0, h0, 3, 2), "RGB", quality=90, subsampling=2,
+            progressive=True), dict(progressive=True)),
+    }
+    del out_entry
+    for name, (src, kw) in arith.items():
+        out[name] = transcode(src, **kw)
+        SOURCES[name] = _digest(_rgb_of(src))
+    # a file whose DAC segments are left out: libjpeg's defaults
+    out["a_prog_no_dac.jpg"] = without_segments(out["a_prog_420.jpg"], 0xCC)
+    SOURCES["a_prog_no_dac.jpg"] = SOURCES["a_prog_420.jpg"]
+    # lossless frames (SOF3), one each predictor
+    lossless = {  # name: (size, sampling factors, encoder options)
+        **{f"l_p{p}.jpg": ((23, 17), [(1, 1)] * 3, dict(predictor=p))
+           for p in range(1, 8)},
+        "l_gray_pt2_rst.jpg": ((33, 65), [(1, 1)], dict(
+            predictor=4, pt=2, restart_rows=3)),
+        "l_420_rst.jpg": ((29, 23), [(2, 2), (1, 1), (1, 1)], dict(
+            predictor=7, restart_rows=2)),
+        "l_noninterleaved.jpg": ((20, 12), [(1, 1)] * 3, dict(
+            predictor=6, interleaved=False)),
+    }
+    for name, ((w, h), factors, kw) in lossless.items():
+        img = noisy(w, h, len(factors))
+        planes = _sampled(img, factors)
+        out[name] = encode_lossless(planes, factors, width=w, height=h, **kw)
+        if kw.get("pt", 0) == 0:  # the samples, each plane box-upsampled
+            hmax = max(f[0] for f in factors)
+            vmax = max(f[1] for f in factors)
+            full = np.stack([p.repeat(vmax // fv, 0).repeat(hmax // fh, 1)[
+                :h, :w] for p, (fh, fv) in zip(planes, factors)], -1)
+            SOURCES[name] = _digest(full if full.shape[2] == 3 else
+                                    np.repeat(full, 3, 2))
+    post = smooth(w1, h1, 3, 6) // 8 * 8  # posterized: it stays small
+    out["entry_lossless.jpg"] = encode_lossless(
+        [post[..., k] for k in range(3)], [(1, 1)] * 3, width=w1, height=h1)
+    SOURCES["entry_lossless.jpg"] = _digest(post)
+    # progressive files cut short after some scans (EOI put back): libjpeg
+    # smooths the blocks whose low coefficients stay unrefined
+    prog = _pillow(noisy(45, 29, 3), "RGB", quality=90, subsampling=2,
+                   progressive=True)
+    out["t_prog_dc_only.jpg"] = cut_after_scans(prog, 1)
+    out["t_prog_420_3scans.jpg"] = cut_after_scans(prog, 3)
+    out["t_prog_gray_2wide.jpg"] = cut_after_scans(_pillow(
+        noisy(16, 40, 1)[..., 0], "L", quality=80, progressive=True), 2)
+    out["t_arith_prog_cut.jpg"] = cut_after_scans(
+        transcode(prog, progressive=True), 4)
+    # damaged streams that libjpeg decodes with a warning
+    base = _pillow(noisy(48, 32, 3), "RGB", quality=90, subsampling=2)
+    rst = _pillow(noisy(96, 64, 3), "RGB", quality=90, subsampling=2,
+                  restart_marker_blocks=2)
+    sos = base.index(b"\xff\xda")
+    mid = (sos + len(base)) // 2
+    # 32 one-bits: codes no Huffman table has
+    out["d_bad_huffman.jpg"] = base[:mid] + b"\xff\x00" * 4 + base[
+        mid + 8:]
+    marks = [i for i in range(rst.index(b"\xff\xda"), len(rst) - 1)
+             if rst[i] == 0xFF and 0xD0 <= rst[i + 1] <= 0xD7]
+    k = marks[len(marks) // 2]
+    out["d_wrong_rst.jpg"] = rst[:k + 1] + bytes(
+        [0xD0 + (rst[k + 1] - 0xD0 + 3) % 8]) + rst[k + 2:]
+    out["d_extraneous.jpg"] = rst[:k] + b"\x12\x34\x56" + rst[k:]
+    out["d_segment_cut.jpg"] = rst[:marks[2] - 6] + rst[marks[2]:]
     return out
 
 
@@ -564,6 +950,10 @@ def main() -> None:
             "l_sha256": hashlib.sha256(np.asarray(im.convert("L"))
                                        .tobytes()).hexdigest(),
             "bytes": len(blob)}
+        if name in SOURCES:  # an arithmetic or lossless file's source
+            manifest["files"][name]["source_rgb_sha256"] = SOURCES[name]
+            assert SOURCES[name] == manifest["files"][name]["rgb_sha256"], \
+                name
     (OUT / "manifest.json").write_text(json.dumps(manifest, indent=1) + "\n")
     total = sum(f["bytes"] for f in manifest["files"].values())
     print(f"{len(manifest['files'])} files, {total} bytes, in {OUT}")
