@@ -93,8 +93,10 @@ Phases, each printing what it found:
    markers, arithmetic-coded progressive 4:2:0, baseline 4:4:4, lossless
    RGB), two committed
    WebPs (lossy with alpha at 1024x1024, lossless at 1216x832) and two
-   PNGs written here (a palette PNG, an Adam7 PNG);
-   run A (2 epochs, 4 steps: the cache's latent shapes, each
+   PNGs written here (a palette PNG, an Adam7 PNG), beside a ninth file
+   Pillow refuses (the committed 12-bit SOF9 JPEG), which the bucketing
+   must skip and name, as the JAX package skips it;
+   run A (2 epochs, 4 steps: the 8 cache entries' latent shapes, each
    step's loss read after the run, step 3 timed as one window between
    two synchronizes, step 4 profiled for device time and idle share,
    peak memory, launches); then, on run A's model, the precompute's rate
@@ -231,6 +233,7 @@ import contextlib
 import functools
 import gc
 import json
+import logging
 import math
 import statistics
 import struct
@@ -2271,6 +2274,9 @@ ENTRY_FILES = ("entry_baseline_420_rst.jpg",
                "entry_arith_progressive_420.jpg", "palette",
                "entry_lossy_alpha.webp", "entry_baseline_444.jpg",
                "entry_lossless.jpg", "adam7", "entry_lossless.webp")
+# phase 11's ninth file, which Pillow's Image.open refuses: the bucketing
+# skips it (the fixtures' manifest lists it under "refused")
+ENTRY_REFUSED = "r_sof9_12bit.jpg"
 # the decode check's timed fixtures: baseline 4:2:0, progressive 4:2:0
 # (Huffman, and the same coefficients arithmetic-coded) JPEG and lossy
 # WebP with alpha (1024x1024); lossless JPEG and lossless WebP (1216x832)
@@ -2416,6 +2422,27 @@ def _entry_images(folder: Path, n: int = 8, mixed: bool = True,
             _write_paeth_png(path, img)
         check(np.array_equal(read_png(path), img),
               f"{path} does not read back")
+
+
+@contextlib.contextmanager
+def _warnings_of(name: str):
+    """The messages of the WARNING records the logger ``name`` emits
+    inside the block."""
+    logger = logging.getLogger(name)
+    got = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            got.append(record.getMessage())
+    keep, level = _Keep(logging.WARNING), logger.level
+    logger.addHandler(keep)
+    if logger.getEffectiveLevel() > logging.WARNING:
+        logger.setLevel(logging.WARNING)
+    try:
+        yield got
+    finally:
+        logger.removeHandler(keep)
+        logger.setLevel(level)
 
 
 def _entry_name(i: int) -> str:
@@ -2683,6 +2710,9 @@ def phase_entry_point() -> dict:
     n_steps = 2 * ENTRY_EPOCHS
     try:
         _entry_images(root / "images")
+        refused = root / "images" / "08.jpg"  # after the 8: their order
+        shutil.copyfile(IMAGE_FIXTURES / ENTRY_REFUSED, refused)
+        refused.with_suffix(".txt").write_text(ENTRY_CAPTIONS[0])
         log(f"phase 11: config {NOVELAI_YAML.name} (BASELINE config 2: "
             "ddpm, v-prediction, ZTSNR, MinSNR 5, adamw_bf16, bf16, "
             "micro-batch 1, no remat) with these cuts: data, cache, log "
@@ -2695,16 +2725,20 @@ def phase_entry_point() -> dict:
             "metric lines); save_every 0, save_best false and "
             "save_final_model false except run B's first part (final "
             "checkpoint only); 8 images, 4 at 1024x1024 and 4 at "
-            f"1216x832: {ENTRY_FILES}")
+            f"1216x832: {ENTRY_FILES}, and {ENTRY_REFUSED} as "
+            f"{refused.name}, which Pillow refuses")
         no_saves = dict(save_every=0, save_best=False)
         cfg_a = _entry_config(root, "run_a", num_epochs=ENTRY_EPOCHS,
                               save_final_model=False, **no_saves)
         _zero_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        trainer, steps, windows = _run_main(
-            ["--config", str(cfg_a), "--output-dir", str(root / "out_a"),
-             "--device", DEVICE], timed=ENTRY_TIMED, profiled=ENTRY_PROFILED)
+        with _warnings_of("sdxl_training_improvements_tpu_torch.data."
+                          "dataset") as warned:
+            trainer, steps, windows = _run_main(
+                ["--config", str(cfg_a), "--output-dir", str(root / "out_a"),
+                 "--device", DEVICE], timed=ENTRY_TIMED,
+                profiled=ENTRY_PROFILED)
         wall_s = time.perf_counter() - t0
         launches = _launches(ENTRY_KERNELS)
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2721,6 +2755,13 @@ def phase_entry_point() -> dict:
         check(shapes == sorted((4, h // f, w // f) for w, h in
                                ENTRY_IMAGE_SIZES for _ in range(4)),
               f"cache entries {shapes}")
+        skipped = [m for m in warned if m.startswith(
+            f"bucketing: skipping {refused}")]
+        log(f"phase 11 bucketing: {len(shapes)} of 8 images cached, "
+            f"{len(skipped)} file skipped: {skipped}")
+        check(len(shapes) == 8 and len(skipped) == 1 and len(
+            [m for m in warned if str(refused) in m]) == 1,
+              f"phase 11: {len(shapes)} cached, skips {warned}")
         for i, s in enumerate(steps):
             log(f"phase 11 run A step {i + 1}: latents {s['shape']}, loss "
                 f"{s['loss']:.6f}")

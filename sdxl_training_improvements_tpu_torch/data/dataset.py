@@ -11,11 +11,15 @@ writes the latent cache, and training batches are pure cache reads
   libjpeg-turbo reads: Huffman, arithmetic and lossless frames, damaged
   streams), PNG and WebP (lossy, lossless, the first frame of an
   animation).  An image's size comes from the cache's metadata, or else
-  from its header; a file of another format (GIF), a JPEG header Pillow
-  cannot identify (12-bit samples, say) or a WebP container libwebp
-  refuses raises there, naming it.  A file that fails to decode in the
-  precompute is skipped, as JAX skips it, and the log names the reader's
-  reason;
+  from its header.  The bucketing skips, as JAX skips, a file that
+  Pillow's ``Image.open`` refuses too (``images.ImageRefused``: a JPEG
+  header it cannot identify, a WebP container libwebp refuses, an image
+  past the decompression-bomb limit) or that cannot be opened, and the
+  log names the file and the reader's reason; a file of a format the
+  port does not read and Pillow may (``images.UnsupportedImage``: a GIF,
+  BMP or TIFF, whatever its name) raises there, naming it, since JAX
+  trains on it.  A file that fails to decode in the precompute is
+  skipped, as JAX skips it, and the log names the reader's reason;
 * ``prepare_image_array`` takes the decoded uint8 RGB array and runs the
   native C++ path (``native/image_ops.cpp``, the JAX package's code) with
   no PIL fallback: a failed build raises;
@@ -46,7 +50,7 @@ from sdxl_training_improvements_tpu_torch.data.samplers import BucketBatchSample
 from sdxl_training_improvements_tpu_torch.data.tags import (
     TagWeighter, create_tag_weighter_with_index)
 from sdxl_training_improvements_tpu_torch.images import (
-    read_image_size, read_rgb)
+    ImageRefused, read_image_size, read_rgb)
 
 
 def prepare_image_array(rgb: np.ndarray, bucket: Bucket,
@@ -115,14 +119,24 @@ class AspectBucketDataset:
     # ----------------------------------------------------------- assignment
     def _image_size(self, idx: int) -> Optional[Tuple[int, int]]:
         """(w, h) from cache metadata if present, else the image's header
-        (cache-first like reference ``group_images_by_bucket``).  A file
-        the port does not read raises, naming it."""
+        (cache-first like reference ``group_images_by_bucket``).  None,
+        logged, for a file Pillow refuses too or that cannot be opened
+        (JAX's ``Image.open`` raises there); a file of a format the port
+        does not read raises, naming it."""
+        path = self.image_paths[idx]
         if self.cache is not None:
-            entry = self.cache.cached_entry(self.image_paths[idx])
+            entry = self.cache.cached_entry(path)
             if entry and "original_size" in entry:
                 h, w = entry["original_size"]
                 return (w, h)
-        return read_image_size(self.image_paths[idx])
+        try:
+            return read_image_size(path)
+        except (ImageRefused, OSError) as e:
+            import logging
+            logging.getLogger(__name__).warning(
+                "bucketing: skipping %s, which Pillow refuses too: %s",
+                path, e)
+            return None
 
     def _assign_all(self) -> None:
         # header reads are I/O-bound; a thread pool turns the cold-start

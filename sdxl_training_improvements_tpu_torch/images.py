@@ -37,11 +37,23 @@ dataset's bucketing and precompute and for ``generate.py --init/--mask``:
 * GIF and any other format raise, naming the file and the format.
   EXIF orientation, ICC profiles and comments are ignored, as
   ``convert`` ignores them.
+* An image past Pillow's decompression-bomb limit (``max(1, w) *
+  max(1, h)`` above ``2 * Image.MAX_IMAGE_PIXELS``, 178,956,970 pixels) is
+  refused from its header's size, before any pixel buffer is made, as
+  ``Image.open`` refuses it; between 1x and 2x it is read (Pillow only
+  warns there).
+
+Every refusal is a ``ValueError`` naming the file, of one of two kinds:
+``ImageRefused`` for a file that ``Image.open`` refuses too (the JAX
+package skips it in its bucketing), ``UnsupportedImage`` for a file of a
+format the port does not read, which Pillow may read (the JAX package
+trains on it, so skipping it would train on fewer images).
 """
 from __future__ import annotations
 
 import io
 import struct
+import zlib
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -56,6 +68,36 @@ _JPEG_SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB,
 _JPEG_SKIP = {0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF}
 _JPEG_BARE = {0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE)}
 
+# Pillow's ``Image.MAX_IMAGE_PIXELS`` (1024 * 1024 * 1024 // 4 // 3):
+# ``Image.open`` raises ``DecompressionBombError`` past twice it
+MAX_IMAGE_PIXELS = 89_478_485
+# the (bit depth, color type) pairs Pillow's PNG reader has a mode for
+_PNG_MODES = {(1, 0), (2, 0), (4, 0), (8, 0), (16, 0), (8, 2), (16, 2),
+              (1, 3), (2, 3), (4, 3), (8, 3), (8, 4), (16, 4), (8, 6),
+              (16, 6)}
+
+
+class ImageRefused(ValueError):
+    """A file Pillow's ``Image.open`` refuses too: a header it cannot
+    identify, a WebP container libwebp refuses, an image past the
+    decompression-bomb limit."""
+
+
+class UnsupportedImage(ValueError):
+    """A file the port does not read and Pillow may: another format by
+    its bytes (a GIF, BMP or TIFF, whatever its name)."""
+
+
+def _check_pixels(path, size: tuple) -> tuple:
+    """``size`` (width, height), or ``ImageRefused`` where
+    ``Image.open`` raises ``DecompressionBombError`` on it."""
+    w, h = size
+    if max(1, w) * max(1, h) > 2 * MAX_IMAGE_PIXELS:
+        raise ImageRefused(
+            f"{path}: a {w}x{h} image, {max(1, w) * max(1, h)} pixels, past "
+            f"Pillow's decompression-bomb limit of {2 * MAX_IMAGE_PIXELS}")
+    return size
+
 
 def _format(path, head: bytes) -> str:
     """"jpeg", "png" or "webp" from a file's first 16 bytes (for WebP,
@@ -67,13 +109,12 @@ def _format(path, head: bytes) -> str:
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         if head[12:16] in (b"VP8 ", b"VP8L", b"VP8X"):
             return "webp"
-        kind = f"a RIFF WEBP file whose first chunk is {head[12:16]!r}"
-    elif head[:6] in (b"GIF87a", b"GIF89a"):
-        kind = "a GIF image"
-    else:
-        kind = "not a JPEG, PNG or WebP file"
-    raise ValueError(f"{path}: {kind} (the port reads JPEG, PNG and WebP "
-                     "images only)")
+        raise ImageRefused(f"{path}: a RIFF WEBP file whose first chunk is "
+                           f"{head[12:16]!r} (Pillow cannot identify it)")
+    kind = ("a GIF image" if head[:6] in (b"GIF87a", b"GIF89a") else
+            "not a JPEG, PNG or WebP file")
+    raise UnsupportedImage(f"{path}: {kind} (the port reads JPEG, PNG and "
+                           "WebP images only)")
 
 
 def _jpeg_app(m: int, seg: bytes, icc: list, fail) -> None:
@@ -170,7 +211,7 @@ def _jpeg_size(path, f) -> tuple:
     parser refuses raises; what it accepts is the decoder's to judge (a
     hierarchical frame, for one, has a size but no pixels)."""
     def fail(why: str):
-        raise ValueError(f"{path}: {why} (Pillow cannot identify the file)")
+        raise ImageRefused(f"{path}: {why} (Pillow cannot identify the file)")
 
     def read(n: int) -> bytes:
         b = f.read(n)
@@ -267,7 +308,7 @@ def webp_layout(path, read, file_size: int) -> WebPLayout:
     ``WebPGetFeatures`` on each image chunk); what it refuses raises
     ``ValueError`` naming the file."""
     def fail(why: str):
-        raise ValueError(f"{path}: {why} (WebP)")
+        raise ImageRefused(f"{path}: {why} (WebP)")
 
     head = read(0, 20)
     if len(head) < 20:
@@ -444,6 +485,7 @@ def read_webp(path, blob: bytes, info: dict = None) -> tuple:
     the canvas; ``info`` receives what the frame used
     (``native.WEBP_INFO``)."""
     lay = webp_layout(path, lambda o, n: blob[o:o + n], len(blob))
+    _check_pixels(path, lay.canvas)
     (start, length), alpha = lay.image, None
     if lay.alpha is not None:
         alpha = blob[lay.alpha[0]:lay.alpha[0] + lay.alpha[1]]
@@ -457,29 +499,81 @@ def read_webp(path, blob: bytes, info: dict = None) -> tuple:
     return full, fa
 
 
+def _png_size(path, f) -> tuple:
+    """(width, height) from the PNG ``f``'s IHDR chunk, as Pillow's PNG
+    reader finds it: the chunks up to IHDR, each with its CRC checked.
+    What that reader refuses there raises ``ImageRefused``: a chunk type
+    not of four word characters, a short chunk, a bad CRC, IEND before
+    IHDR, and in IHDR a length under 13, a filter method
+    other than 0, no mode for its bit depth and color type, or a side of
+    0."""
+    f.seek(8)
+    while True:
+        head = f.read(8)
+        if len(head) < 8:
+            why = "no IHDR chunk"
+            break
+        n, kind = struct.unpack(">I4s", head)
+        data, crc = f.read(n), f.read(4)
+        if not kind.replace(b"_", b"a").isalnum():  # ASCII \w{4}
+            why = f"a chunk type {kind!r}"
+        elif kind == b"IEND":
+            why = "an IEND chunk before IHDR"
+        elif kind == b"IDAT":  # Pillow takes a size from a later IHDR
+            raise UnsupportedImage(f"{path}: a PNG file with an IDAT "
+                                   "chunk before IHDR")
+        elif len(data) < n or len(crc) < 4:
+            why = f"a truncated {kind!r} chunk"
+        elif kind == b"IHDR" and n < 13:
+            why = "a truncated IHDR chunk"
+        elif zlib.crc32(kind + data) != struct.unpack(">I", crc)[0]:
+            why = f"a bad CRC in a {kind!r} chunk"
+        elif kind != b"IHDR":
+            continue
+        else:
+            w, h, depth, color, _, filt, _ = struct.unpack(">IIBBBBB",
+                                                          data[:13])
+            if filt:
+                why = f"filter method {filt}"
+            elif (depth, color) not in _PNG_MODES:
+                why = f"bit depth {depth} with color type {color}"
+            elif not w or not h:
+                why = f"a {w}x{h} image"
+            else:
+                return w, h
+        break
+    raise ImageRefused(f"{path}: {why} (Pillow cannot identify the file)")
+
+
+def _size(path, f) -> tuple:
+    """(format, (width, height)) from the headers of the file ``f``,
+    checked against the decompression-bomb limit."""
+    kind = _format(path, f.read(16))
+    if kind == "png":
+        size = _png_size(path, f)
+    elif kind == "webp":
+        size = _webp_size(path, f)
+    else:
+        f.seek(2)
+        size = _jpeg_size(path, f)
+    return kind, _check_pixels(path, size)
+
+
 def read_image_size(path) -> tuple:
     """(width, height) as Pillow's ``Image.open(path).size``, from the
     headers."""
     with open(path, "rb") as f:
-        head = f.read(16)
-        kind = _format(path, head)
-        if kind == "png":
-            return png.read_png_size(path)
-        if kind == "webp":
-            return _webp_size(path, f)
-        f.seek(2)
-        return _jpeg_size(path, f)
+        return _size(path, f)[1]
 
 
 def _read(path, mode: str) -> np.ndarray:
     blob = Path(path).read_bytes()
-    kind = _format(path, blob[:16])
+    kind, size = _size(path, io.BytesIO(blob))
     if kind == "png":
         return png.read_png_as(path, mode)
     if kind == "webp":
         rgb = read_webp(path, blob)[0]
         return png.to_gray(rgb) if mode == "L" else rgb
-    size = _jpeg_size(path, io.BytesIO(blob[2:]))
     return native.jpeg_decode(blob, size, mode == "L", path)
 
 

@@ -9,8 +9,8 @@ too (each pass unfiltered on its own), with the five row filters undone
 in C++ (``native.png_unfilter``; ``_unfilter`` is its plain numpy/Python
 version, which the tests hold it against byte for byte), and gives the
 samples as stored; ``read_png_as`` gives what Pillow's ``convert("RGB")``
-or ``convert("L")`` makes of them; ``read_png_size`` reads the size from
-the IHDR chunk alone.  ``to_rgb`` and ``to_gray`` convert
+or ``convert("L")`` makes of them (``images.py`` reads a PNG's size
+from its headers).  ``to_rgb`` and ``to_gray`` convert
 as Pillow's ``convert("RGB")`` / ``convert("L")`` do (alpha dropped, not
 composited; ITU-R 601-2 luma in 16-bit fixed point).  ``resize_lanczos``
 and ``resize_nearest`` give what Pillow's ``Image.resize(size,
@@ -223,16 +223,6 @@ def read_png_as(path, mode: str) -> np.ndarray:
     if mode == "L":
         return to_gray(a)
     raise ValueError(f"mode {mode!r}: only 'RGB' and 'L'")
-
-
-def read_png_size(path) -> tuple:
-    """(width, height) from the IHDR chunk, which a PNG file starts with;
-    any other file raises, naming it."""
-    with open(path, "rb") as f:
-        head = f.read(24)
-    if not head.startswith(_SIGNATURE) or head[12:16] != b"IHDR":
-        raise ValueError(f"{path}: not a PNG file")
-    return struct.unpack(">II", head[16:24])
 
 
 def to_rgb(a: np.ndarray) -> np.ndarray:

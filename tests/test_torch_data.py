@@ -7,8 +7,12 @@
 * ``png.read_png`` equals Pillow on Pillow-written files; the C++ row
   unfilter (``native.png_unfilter``) is byte-equal to the plain Python
   one (``png._unfilter``) on each of the five filters and on Pillow's
-  adaptive files; a truncated WebP, a 12-bit arithmetic JPEG and a GIF
-  raise, naming the file.
+  adaptive files.
+* What Pillow's ``Image.open`` refuses (a truncated WebP, a 12-bit
+  arithmetic JPEG, an image past the decompression-bomb limit, as a
+  PNG, a JPEG and a WebP) the readers refuse naming the file, and
+  ``create_dataset`` skips it as JAX's bucketing does; a GIF, which
+  Pillow reads, raises naming it; at 1.5x the limit the size is read.
 * ``prepare_image_array`` is bit-equal to JAX's (both run the same C++),
   with the center and the random crop and with the flip; the precompute
   writes the same cache entries in both packages from the same PNGs.
@@ -16,6 +20,9 @@
   same order in both packages, for epochs 0 and 1, with caption dropout
   and tag weighting on.
 """
+import io
+import logging
+import struct
 import time
 import zlib
 
@@ -181,7 +188,7 @@ def test_read_png_matches_pillow(tmp_path, mode):
     img.save(path, optimize=True)
     ours = png.read_png(path)
     assert np.array_equal(ours, np.asarray(Image.open(path)))
-    assert png.read_png_size(path) == (w, h)
+    assert images.read_image_size(path) == (w, h)
 
 
 def _filtered_rows(rng, h, stride, kinds):
@@ -226,10 +233,10 @@ def test_native_unfilter_matches_plain_on_pillow_files(tmp_path):
 
 
 def _unread_image(path, kind: str) -> None:
-    """A file at ``path`` the port does not read (nor Pillow): a GIF
-    that Pillow writes, Pillow's WebP cut short of its RIFF size, or
+    """A file at ``path`` the port does not read: a GIF that Pillow
+    writes (and reads), Pillow's WebP cut short of its RIFF size, or
     Pillow's baseline JPEG with its frame header made SOF9 (arithmetic
-    coding) of 12-bit samples, which Pillow does not identify."""
+    coding) of 12-bit samples (neither of which Pillow identifies)."""
     img = Image.fromarray(np.zeros((8, 8, 3), np.uint8))
     if kind == "arithmetic":
         img.save(path, "JPEG")
@@ -243,23 +250,210 @@ def _unread_image(path, kind: str) -> None:
         path.write_bytes(blob[:len(blob) // 2])
 
 
+def _bomb(path, kind: str, w: int, h: int) -> None:
+    """A tiny file of a ``w`` x ``h`` image: a PNG of IHDR and IEND,
+    Pillow's 8x8 JPEG with its frame header's size set, or a lossless
+    WebP (VP8L) whose five prefix codes each have one symbol, so that
+    every pixel costs 0 bits (a black image of any size in 28 bytes)."""
+    if kind == "png":
+        path.write_bytes(png._SIGNATURE + png._chunk(
+            b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + png._chunk(b"IEND", b""))
+    elif kind == "jpeg":
+        b = io.BytesIO()
+        Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(b, "JPEG")
+        blob = b.getvalue()
+        at = blob.index(b"\xff\xc0") + 5
+        path.write_bytes(blob[:at] + struct.pack(">HH", h, w)
+                         + blob[at + 4:])
+    else:
+        # signature, 14-bit sides less one, no alpha, version 0; no
+        # transform, no color cache, no meta codes; five simple codes of
+        # one 1-bit symbol (0)
+        fields = [(0x2F, 8), (w - 1, 14), (h - 1, 14), (0, 1), (0, 3),
+                  (0, 1), (0, 1), (0, 1)] + [(1, 1), (0, 1), (0, 1),
+                                             (0, 1)] * 5
+        bits = n = 0
+        for v, k in fields:
+            bits |= v << n
+            n += k
+        vp8l = bits.to_bytes((n + 7) // 8, "little")
+        vp8l += b"\0" * (len(vp8l) & 1)
+        body = b"WEBP" + b"VP8L" + struct.pack("<I", len(vp8l)) + vp8l
+        path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def _skip_configs(tmp_path, d):
+    """The two packages' configs over ``d`` with their caches apart."""
+    def raw(side):
+        return {"data": {"train_data_dir": [str(d)]},
+                "global_config": {"image": IMAGE, "cache": {
+                    "cache_dir": str(tmp_path / f"cache_{side}")}}}
+    return JConfig.from_dict(raw("j")), TConfig.from_dict(raw("t"))
+
+
+def _assert_skipped_as_jax(tmp_path, caplog, d, names, n_read) -> None:
+    """``create_dataset`` over ``d`` buckets as JAX's does (``n_read``
+    images) and logs each of ``names`` as skipped."""
+    jc, tc = _skip_configs(tmp_path, d)
+    with caplog.at_level(logging.WARNING, logger=TD.__name__):
+        td = TD.create_dataset(tc)
+    jd = JD.create_dataset(jc)
+    assert td.bucket_indices == jd.bucket_indices
+    assert sum(map(len, td.bucket_indices.values())) == n_read
+    for name in names:
+        assert f"skipping {d / name}" in caplog.text
+
+
 @pytest.mark.parametrize("name,kind", [
     ("photo.webp", "webp"), ("photo.jpg", "arithmetic"),
     ("photo.jpeg", "gif")])
-def test_non_png_image_raises_naming_it(tmp_path, name, kind):
-    """A truncated WebP, a 12-bit arithmetic-coded JPEG and a GIF (under
-    a JPEG name: the format is told by the bytes) raise naming the file,
-    in the size reader and in ``create_dataset``."""
-    path = tmp_path / name
+def test_non_png_image_raises_naming_it(tmp_path, caplog, name, kind):
+    """Among readable images: a truncated WebP and a 12-bit arithmetic
+    JPEG, which Pillow's ``Image.open`` refuses too, raise in the size
+    reader (``images.ImageRefused``, naming the file) and are skipped by
+    ``create_dataset`` as JAX's bucketing skips them; a GIF (under a
+    JPEG name: the format is told by the bytes), which Pillow reads and
+    JAX trains on, raises in both (``images.UnsupportedImage``)."""
+    d = _png_dir(tmp_path, n=4)
+    path = d / name
     _unread_image(path, kind)
-    with pytest.raises(ValueError, match=name):
+    path.with_suffix(".txt").write_text("cat")
+    if kind == "gif":
+        with Image.open(path) as im:
+            assert im.size == (8, 8)
+        with pytest.raises(images.UnsupportedImage, match=name):
+            images.read_image_size(path)
+        with pytest.raises(images.UnsupportedImage, match=name):
+            TD.create_dataset(_skip_configs(tmp_path, d)[1])
+        return
+    with pytest.raises((OSError, SyntaxError)):
+        Image.open(path)
+    with pytest.raises(images.ImageRefused, match=name):
         images.read_image_size(path)
-    (tmp_path / "photo.txt").write_text("cat")
-    cfg = TConfig.from_dict({"data": {"train_data_dir": [str(tmp_path)]},
-                             "global_config": {
-                                 "cache": {"cache_dir": str(tmp_path / "c")}}})
-    with pytest.raises(ValueError, match=name):
-        TD.create_dataset(cfg)
+    _assert_skipped_as_jax(tmp_path, caplog, d, [name], 4)
+
+
+_BOMBS = {"png": (13380, 13380), "jpeg": (16384, 10923),
+          "webp": (16384, 10923)}
+
+
+@pytest.mark.parametrize("kind", sorted(_BOMBS))
+def test_past_the_bomb_limit_refused_as_pillow(tmp_path, caplog,
+                                               monkeypatch, kind):
+    """A header past Pillow's decompression-bomb limit (max(1, w) *
+    max(1, h) > 2 * ``MAX_IMAGE_PIXELS``): ``Image.open`` raises
+    ``DecompressionBombError``; the three readers and ``generate.py``'s
+    ``--init`` / ``--mask`` loaders raise ``images.ImageRefused`` naming
+    the file and the limit, before any decoder runs; the bucketing skips
+    it as JAX's does."""
+    assert images.MAX_IMAGE_PIXELS == Image.MAX_IMAGE_PIXELS
+    w, h = _BOMBS[kind]
+    assert w * h > 2 * Image.MAX_IMAGE_PIXELS
+    d = _png_dir(tmp_path, n=4)
+    name = f"bomb.{kind}"
+    _bomb(d / name, kind, w, h)
+    (d / "bomb.txt").write_text("cat")
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(d / name)
+
+    def no_decode(*args, **kwargs):
+        raise AssertionError("a decoder ran before the pixel check")
+    for fn in ("jpeg_decode", "webp_decode"):
+        monkeypatch.setattr(native, fn, no_decode)
+    monkeypatch.setattr(png, "read_png_as", no_decode)
+    from sdxl_training_improvements_tpu_torch import generate
+    for read in (images.read_image_size, images.read_rgb, images.read_gray,
+                 lambda p: generate._load_images([p], 64, 64),
+                 lambda p: generate._load_masks([p], 64, 64)):
+        with pytest.raises(images.ImageRefused,
+                           match=rf"{name}: a {w}x{h} image.*178956970"):
+            read(d / name)
+    monkeypatch.undo()
+    _assert_skipped_as_jax(tmp_path, caplog, d, [name], 4)
+
+
+@pytest.mark.parametrize("kind,size", [("png", (11586, 11586)),
+                                       ("jpeg", (16384, 8192))])
+def test_between_one_and_two_limits_reads_the_size(tmp_path, kind, size):
+    """At ~1.5x ``MAX_IMAGE_PIXELS`` Pillow only warns: the size is read,
+    as ``Image.open`` reads it."""
+    path = tmp_path / f"big.{kind}"
+    _bomb(path, kind, *size)
+    assert Image.MAX_IMAGE_PIXELS < size[0] * size[1] < (
+        2 * Image.MAX_IMAGE_PIXELS)
+    with pytest.warns(Image.DecompressionBombWarning):
+        with Image.open(path) as im:
+            assert im.size == size
+    assert images.read_image_size(path) == size
+
+
+def _png_case(case: str) -> bytes:
+    """An 8x8 RGB PNG with its chunks laid out or damaged as ``case``
+    says (None for a file of the signature alone)."""
+    ihdr = png._chunk(b"IHDR", struct.pack(">IIBBBBB", 8, 8, 8, 2, 0, 0, 0))
+    idat = png._chunk(b"IDAT", zlib.compress(bytes(8 * 25)))
+    text, end = png._chunk(b"tEXt", b"a\0b"), png._chunk(b"IEND", b"")
+    chunks = {
+        "text_first": text + ihdr + idat + end,
+        "bad_ihdr_crc": ihdr[:-1] + bytes([ihdr[-1] ^ 1]) + idat + end,
+        "bad_text_crc": text[:-1] + bytes([text[-1] ^ 1]) + ihdr + idat + end,
+        "bad_chunk_type": png._chunk(b"t#Xt", b"a") + ihdr + idat + end,
+        "zero_width": png._chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", 0, 8, 8, 2, 0, 0, 0)) + idat + end,
+        "no_mode": png._chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", 8, 8, 8, 5, 0, 0, 0)) + idat + end,
+        "filter_method": png._chunk(b"IHDR", struct.pack(
+            ">IIBBBBB", 8, 8, 8, 2, 0, 1, 0)) + idat + end,
+        "iend_first": end + ihdr + idat,
+        "signature_only": b"",
+        "idat_first": idat + ihdr + end}[case]
+    return png._SIGNATURE + chunks
+
+
+@pytest.mark.parametrize("case,read", [
+    ("text_first", True), ("bad_ihdr_crc", False), ("bad_text_crc", False),
+    ("bad_chunk_type", False), ("zero_width", False), ("no_mode", False),
+    ("filter_method", False), ("iend_first", False),
+    ("signature_only", False), ("idat_first", None)])
+def test_png_header_read_and_refused_as_pillow(tmp_path, case, read):
+    """The PNG size reader walks the chunks up to IHDR as Pillow's PNG
+    reader does: the size where ``Image.open`` gives it,
+    ``images.ImageRefused`` where it refuses the file, and
+    ``images.UnsupportedImage`` for an IDAT before IHDR, whose size
+    Pillow takes from the later IHDR (and whose pixels it cannot load)."""
+    path = tmp_path / f"{case}.png"
+    path.write_bytes(_png_case(case))
+    if read is False:
+        with pytest.raises((OSError, SyntaxError)):
+            Image.open(path)
+        with pytest.raises(images.ImageRefused, match=path.name):
+            images.read_image_size(path)
+        return
+    with Image.open(path) as im:
+        assert im.size == (8, 8)
+    if read:
+        assert images.read_image_size(path) == (8, 8)
+    else:
+        with pytest.raises(images.UnsupportedImage, match=path.name):
+            images.read_image_size(path)
+
+
+def test_create_dataset_skips_what_jax_skips(tmp_path, caplog):
+    """One directory of readable PNGs, a cut WebP, a 12-bit SOF9 JPEG and
+    the three files past the bomb limit: the same ``bucket_indices`` as
+    JAX's ``create_dataset``, every skipped file named in the log; a GIF
+    added there raises, naming it."""
+    d = _png_dir(tmp_path, n=6)
+    skipped = ["cut.webp", "sof9.jpg", "bomb.png", "bomb.jpeg", "bomb.webp"]
+    _unread_image(d / "cut.webp", "webp")
+    _unread_image(d / "sof9.jpg", "arithmetic")
+    for kind in _BOMBS:
+        _bomb(d / f"bomb.{kind}", kind, *_BOMBS[kind])
+    _assert_skipped_as_jax(tmp_path, caplog, d, skipped, 6)
+    _unread_image(d / "anim.jpg", "gif")
+    with pytest.raises(images.UnsupportedImage, match="anim.jpg"):
+        TD.create_dataset(_skip_configs(tmp_path, d)[1])
 
 
 # ------------------------------------------------------- image prep

@@ -280,16 +280,32 @@ def _header_damaged(blob: bytes, seed: int) -> bytes:
 def test_header_damage_reads_and_refuses_as_pillow(tmp_path, kind):
     """50 seeded flips of each kind in the frame, table and scan headers:
     refused where Pillow refuses them, else ``np.array_equal`` to
-    Pillow; both outcomes occur."""
+    Pillow; both outcomes occur.  The size reader alone refuses
+    (``images.ImageRefused``, naming the file) exactly where
+    ``Image.open`` refuses, and reads its size elsewhere."""
     src = _sweep_source(kind)
-    outcomes = {"read": 0, "refused": 0}
+    outcomes = {"read": 0, "refused": 0, "opened": 0, "unopened": 0}
     for seed in range(50):
         path = tmp_path / f"{seed}.jpg"
         path.write_bytes(_header_damaged(src, seed))
         want = _pillow(path)
         assert _same(_port(path), want), (kind, seed)
         outcomes["read" if want is not None else "refused"] += 1
-    assert min(outcomes.values()) >= 5, outcomes
+        try:
+            with Image.open(path) as im:
+                opened = im.size
+        except (OSError, SyntaxError, ValueError,
+                Image.DecompressionBombError):
+            opened = None
+        try:
+            size = images.read_image_size(path)
+        except images.ImageRefused as e:
+            assert str(path) in str(e)
+            size = None
+        assert size == opened, (kind, seed)
+        outcomes["opened" if opened is not None else "unopened"] += 1
+    assert min(outcomes["read"], outcomes["refused"]) >= 5, outcomes
+    assert outcomes["unopened"] >= 1, outcomes
 
 
 def _segment(marker: int, payload: bytes) -> bytes:

@@ -10,7 +10,8 @@ package.
   color cache, an entropy image; the simple and normal loop filters,
   sharpness 1-7, 2, 4 and 8 token partitions, segments on and off, skip
   flags; each ALPH method and filter; an offset first frame of an
-  animation).
+  animation; a segment map without its data, with its tree
+  probabilities written and at their defaults).
 * Files Pillow's own ``save`` writes from seeded arrays at 1x1 and sizes
   that are not multiples of 16 read as Pillow reads them: lossy over
   quality, method and alpha, lossless over quality, method, alpha and
@@ -50,6 +51,7 @@ from sdxl_training_improvements_tpu_torch import generate, images, native
 from sdxl_training_improvements_tpu_torch.config import Config as TConfig
 from sdxl_training_improvements_tpu_torch.data import cache as TCa
 from sdxl_training_improvements_tpu_torch.data import dataset as TD
+from tools.make_image_fixtures import _BoolDecoder, _chunks
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures" / "images"
 SIZES = [(1, 1), (15, 17), (33, 65), (130, 9)]
@@ -143,6 +145,37 @@ def test_webp_fixtures_reach_every_part_of_the_decoder():
     rgb = images.read_rgb(FIXTURES / name)
     x, y = lay.offset
     assert not rgb[:y].any() and not rgb[:, :x].any()  # (0, 0, 0) there
+
+
+@pytest.mark.parametrize("name,written", [
+    ("w_vp8_segment_map_tree_probs.webp", True),
+    ("w_vp8_segment_map_default_probs.webp", False)])
+def test_vp8_segment_map_without_its_data_as_pillow(name, written):
+    """The hand-assembled key frames whose segment header updates the map
+    and not the data (``tools/make_image_fixtures.py`` ``vp8_map_only``;
+    libwebp's encoder writes both or neither): the header says so, with
+    the map's tree probabilities written or left at 255, the decoder
+    reads the map, and the decode is Pillow's."""
+    path = FIXTURES / name
+    blob = path.read_bytes()
+    frame = _chunks(blob)[b"VP8 "]
+    size0 = int.from_bytes(frame[:3], "little") >> 5
+    dec = _BoolDecoder(frame[10:10 + size0])
+    # color space, clamping; segments on, map updated, data not
+    assert [dec.get(128) for _ in range(5)][2:] == [1, 1, 0]
+    flags = []
+    for _ in range(3):
+        flags.append(dec.get(128))
+        if flags[-1]:
+            [dec.get(128) for _ in range(8)]
+    assert flags == [int(written)] * 3
+    info = {}
+    rgb, _ = images.read_webp(path, blob, info)
+    assert info["segments"] == info["segment_map"] == 1
+    with Image.open(path) as im:
+        assert np.array_equal(rgb, np.asarray(im.convert("RGB")))
+        assert np.array_equal(images.read_gray(path),
+                              np.asarray(im.convert("L")))
 
 
 def test_entry_fixtures_are_phase_11s():

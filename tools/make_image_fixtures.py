@@ -40,7 +40,17 @@ manifest.
   method (raw, lossless) and filter (none, horizontal, vertical,
   gradient) and an animation whose first frame is smaller than its
   canvas and offset on it are put together here from those encoders'
-  bitstreams.
+  bitstreams.  ``w_vp8_segment_map_*.webp``: a VP8 key frame whose
+  segment header updates the map without its data (quantizers and
+  filter strengths), which libwebp's encoder never writes, made from
+  one of its frames by ``vp8_map_only`` (the first partition decoded
+  and re-coded with a boolean coder), once with the map's tree
+  probabilities written and once with the 255 they default to.
+* ``r_sof9_12bit.jpg``: a file Pillow's ``Image.open`` refuses
+  (Pillow's 8x8 JPEG with its frame header made SOF9 of 12-bit
+  samples), which phase 11 puts among its images for the bucketing to
+  skip and name; listed under the manifest's ``refused`` with Pillow's
+  exception, not under ``files``.
 * ``manifest.json``: each file's size and the sha256 of Pillow's
   ``convert("RGB")`` and ``convert("L")`` bytes, with Pillow's,
   libjpeg-turbo's and libwebp's versions; for an arithmetic or lossless
@@ -847,6 +857,213 @@ def _colors(w: int, h: int, n: int, seed: int) -> np.ndarray:
     return pal[idx].astype(np.uint8)
 
 
+class _BoolDecoder:
+    """RFC 6386's boolean decoder (section 7.3)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 2
+        self.value = int.from_bytes(data[:2], "big")
+        self.range, self.count = 255, 0
+
+    def get(self, prob: int) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if self.value >= split << 8:
+            bit, self.range, self.value = 1, self.range - split, (
+                self.value - (split << 8))
+        else:
+            bit, self.range = 0, split
+        while self.range < 128:
+            self.value, self.range = self.value << 1, self.range << 1
+            self.count += 1
+            if self.count == 8:
+                self.count = 0
+                if self.pos < len(self.data):
+                    self.value |= self.data[self.pos]
+                self.pos += 1
+        return bit
+
+
+class _BoolEncoder:
+    """RFC 6386's boolean encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.count = bytearray(), 255, 0, 24
+
+    def _carry(self) -> None:
+        k = len(self.out) - 1
+        while self.out[k] == 255:
+            self.out[k] = 0
+            k -= 1
+        self.out[k] += 1
+
+    def put(self, bit: int, prob: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.count -= 1
+            if not self.count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.count = 8
+
+    def flush(self) -> bytes:
+        c, v = self.count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range((c >> 3) - 1):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+@functools.lru_cache(None)
+def _vp8_table(name: str, shape: tuple) -> np.ndarray:
+    """A constant table of the port's VP8 decoder (RFC 6386's), read from
+    its source: the fixtures hold that decoder to Pillow's, so a wrong
+    entry shows there."""
+    import re
+    src = (Path(__file__).resolve().parents[1] / "sdxl_training_improvements"
+           "_tpu_torch" / "native" / "webp_decode.cpp").read_text()
+    body = src[src.index(f"{name}["):]
+    body = body[body.index("{"):body.index("};")]
+    return np.array([int(v) for v in re.findall(r"\d+", body)]
+                    ).reshape(shape)
+
+
+def vp8_map_only(frame: bytes, tree_probs: bool) -> bytes:
+    """The VP8 key frame ``frame`` (a segment header that updates the map
+    and the data, as libwebp writes one) with a segment header that
+    updates the map alone: the segments' quantizers and filter strengths
+    then keep their defaults (absolute values of 0: the finest
+    quantizer, no loop filter).  The map's tree probabilities are
+    written if ``tree_probs``, else left at their default 255, and each
+    macroblock's segment id is coded with them.  The first partition is
+    decoded and coded anew, bool for bool; the token partitions are
+    kept as they are."""
+    bits = frame[0] | frame[1] << 8 | frame[2] << 16
+    if bits & 1:
+        raise ValueError("not a key frame")
+    size0 = bits >> 5
+    w, h = (struct.unpack("<H", frame[6:8])[0] & 0x3FFF,
+            struct.unpack("<H", frame[8:10])[0] & 0x3FFF)
+    dec, enc = _BoolDecoder(frame[10:10 + size0]), _BoolEncoder()
+
+    def copy(prob: int = 128) -> int:
+        bit = dec.get(prob)
+        enc.put(bit, prob)
+        return bit
+
+    def lit(n: int, keep: bool = True) -> int:
+        v = 0
+        for _ in range(n):
+            bit = dec.get(128)
+            if keep:
+                enc.put(bit, 128)
+            v = v << 1 | bit
+        return v
+
+    def signed(n: int, keep: bool = True) -> None:
+        if lit(1, keep):
+            lit(n + 1, keep)  # the value and its sign
+
+    lit(2)  # color space, clamping
+    if not (copy() and copy() and dec.get(128)):
+        raise ValueError("not a segment header with a map and data")
+    enc.put(0, 128)  # update_segment_feature_data = 0
+    lit(1, False)  # absolute or delta
+    for _ in range(4):
+        signed(7, False)
+    for _ in range(4):
+        signed(6, False)
+    seg = [255, 255, 255]
+    for k in range(3):
+        if dec.get(128):
+            seg[k] = lit(8, False)
+        if tree_probs:
+            enc.put(1, 128)
+            for b in range(7, -1, -1):
+                enc.put(seg[k] >> b & 1, 128)
+        else:
+            enc.put(0, 128)
+    old_seg = list(seg)
+    if not tree_probs:
+        seg = [255, 255, 255]
+    lit(10)  # filter type, level, sharpness
+    if copy():  # loop filter deltas
+        if copy():
+            for _ in range(8):
+                signed(6)
+    lit(2)  # token partitions
+    lit(7)  # base quantizer
+    for _ in range(5):
+        signed(4)
+    lit(1)  # refresh entropy probs
+    update = _vp8_table("kCoeffsUpdateProba", (4, 8, 3, 11))
+    for prob in update.reshape(-1):
+        if copy(int(prob)):
+            lit(8)
+    skip_p = lit(8) if copy() else None
+    bmodes = _vp8_table("kBModesProba", (10, 10, 9))
+    mb_w, mb_h = (w + 15) >> 4, (h + 15) >> 4
+    top = [0] * (4 * mb_w)
+    for _ in range(mb_h):
+        left = [0] * 4
+        for mx in range(mb_w):
+            if dec.get(old_seg[0]):
+                enc.put(1, seg[0])
+                sid = 2 + dec.get(old_seg[2])
+                enc.put(sid - 2, seg[2])
+            else:
+                enc.put(0, seg[0])
+                sid = dec.get(old_seg[1])
+                enc.put(sid, seg[1])
+            if skip_p is not None:
+                copy(skip_p)
+            t = top[4 * mx:4 * mx + 4]
+            if copy(145):  # a 16x16 mode
+                ymode = (1 if copy(128) else 3) if copy(156) else (
+                    2 if copy(163) else 0)
+                t, left = [ymode] * 4, [ymode] * 4
+            else:
+                for y in range(4):
+                    mode = left[y]
+                    for x in range(4):
+                        p = bmodes[t[x]][mode]
+                        if not copy(p[0]):
+                            mode = 0
+                        elif not copy(p[1]):
+                            mode = 1
+                        elif not copy(p[2]):
+                            mode = 2
+                        elif not copy(p[3]):
+                            mode = 3 if not copy(p[4]) else (
+                                5 if not copy(p[5]) else 6)
+                        else:
+                            mode = 4 if not copy(p[6]) else (
+                                7 if not copy(p[7]) else (
+                                    8 if not copy(p[8]) else 9))
+                        t[x] = mode
+                    left[y] = mode
+            top[4 * mx:4 * mx + 4] = t
+            if copy(142) and copy(114):  # chroma mode
+                copy(183)
+    part0 = enc.flush()
+    head = (bits & 0x1F) | len(part0) << 5
+    return (head.to_bytes(3, "little") + frame[3:10] + part0
+            + frame[10 + size0:])
+
+
 def webp_fixtures() -> dict:
     """name -> the WebP file's bytes."""
     out = {}
@@ -892,6 +1109,11 @@ def webp_fixtures() -> dict:
     out["w_vp8_skip_flags.webp"] = encode_webp(flat, method=1, **enc)
     out["w_vp8_filter_off.webp"] = encode_webp(
         base, filter_strength=0, autofilter=0, **enc)
+    # the segment map without its data (libwebp writes both or neither)
+    seg = _chunks(encode_webp(base, **enc))[b"VP8 "]
+    for probs, name in ((True, "tree_probs"), (False, "default_probs")):
+        out[f"w_vp8_segment_map_{name}.webp"] = _riff(
+            _chunk(b"VP8 ", vp8_map_only(seg, probs)))
     # ALPH chunks of each method and filter, on a lossy bitstream
     rgb = photo(39, 23)
     vp8 = _chunks(_pillow_webp(rgb, quality=70))[b"VP8 "]
@@ -934,6 +1156,14 @@ def webp_fixtures() -> dict:
     return out
 
 
+def refused_fixtures() -> dict:
+    """name -> the bytes of a file Pillow refuses."""
+    b = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(b, "JPEG")
+    return {"r_sof9_12bit.jpg": b.getvalue().replace(
+        b"\xff\xc0\x00\x11\x08", b"\xff\xc9\x00\x11\x0c", 1)}
+
+
 def main() -> None:
     OUT.mkdir(parents=True, exist_ok=True)
     manifest = {"pillow": PIL.__version__,
@@ -954,6 +1184,16 @@ def main() -> None:
             manifest["files"][name]["source_rgb_sha256"] = SOURCES[name]
             assert SOURCES[name] == manifest["files"][name]["rgb_sha256"], \
                 name
+    manifest["refused"] = {}
+    for name, blob in sorted(refused_fixtures().items()):
+        (OUT / name).write_bytes(blob)
+        try:
+            Image.open(io.BytesIO(blob))
+        except Exception as e:  # what Pillow raises is recorded
+            manifest["refused"][name] = {"pillow": type(e).__name__,
+                                         "bytes": len(blob)}
+        else:
+            raise AssertionError(f"Pillow reads {name}")
     (OUT / "manifest.json").write_text(json.dumps(manifest, indent=1) + "\n")
     total = sum(f["bytes"] for f in manifest["files"].values())
     print(f"{len(manifest['files'])} files, {total} bytes, in {OUT}")
